@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line or a few each, exit code non-zero on any failure:
+  1. device:  the card's name and power limit (nvidia-smi).
+  2. build:   nvcc of every ops/csrc/*.cu, in parallel, into build/kernels/.
+  3. kernels: each kernel against its plain PyTorch version on the card, at
+              serving shapes, in float32 and bfloat16, with the time of the
+              kernel, of the plain version, of one PyTorch library call that
+              computes the same function (a yardstick the port never calls)
+              and the least time the card could take (the bound).
+  4. serve:   a full-width latent tower (D=1024, 64 latents, 8 heads x 512)
+              with random weights from a numpy seed, saved as a state_dict,
+              and a 65,238 x 1024 news table (MIND-small's news count) saved
+              as an id-keyed dump, loaded through cli.serve.build_ranker;
+              rank, retrieve(k=10), a rank_batch of 64 MIND-like requests and
+              one HTTP POST /rank, with every launch count set to 0 just
+              before and read just after. Every kernel must have launched;
+              4 requests must match the same ranker built on the CPU.
+  5. main path: each kernel against its plain version again, at every shape
+              the served path launched it at (float32), with the times and
+              the bound summed over those launches.
+The line before the last but one holds the kernels' record (phase 5) as JSON,
+the line before the last the card's name and power limit; the last line is
+{"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
+from news_recommendation_project_v2_torch.config import TowerConfig  # noqa: E402
+from news_recommendation_project_v2_torch.models.convert import (  # noqa: E402
+    latent_state_dict_from_jax,
+    random_latent_params,
+)
+from news_recommendation_project_v2_torch.ops import _build  # noqa: E402
+from news_recommendation_project_v2_torch.ops.encode import save_embeddings  # noqa: E402
+from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu  # noqa: E402
+from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa: E402
+    latent_attention,
+    reference_attention,
+)
+
+NUM_NEWS, DIM = 65_238, 1024
+N_REQUESTS = 64
+SEED = 0
+# Published H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the
+# tensor cores, bfloat16 on them, and device-memory bandwidth.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+# Tolerances of kernel vs plain version on the same inputs. Both compute in
+# float32 and differ only in summation order; a bfloat16 output may then
+# round one unit apart (2^-8 relative), a float32 GEGLU sums 5,120 products.
+TOL = {
+    ("latent_attention", torch.float32): 1e-5,
+    ("latent_attention", torch.bfloat16): 2**-8 * 4.0,
+    ("geglu", torch.float32): 1e-4,
+    ("geglu", torch.bfloat16): 1e-3,
+}
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_inputs(shape, dtype, gen):
+    b, h, l, n, dh = shape
+    return tuple(
+        torch.randn(*s, device="cuda", generator=gen).to(dtype)
+        for s in ((b, h, l, dh), (h, n, dh), (h, n, dh))
+    )
+
+
+def attention_work(shape, es: int) -> tuple[float, float]:
+    """(operations, bytes): q read and o written once, k and v read once."""
+    b, h, l, n, dh = shape
+    return 4.0 * b * h * l * n * dh, (2.0 * b * h * l * dh + 2.0 * h * n * dh) * es
+
+
+def attention_library(q, k, v):
+    b, h, _, dh = q.shape
+    n = k.shape[1]
+    return F.scaled_dot_product_attention(q, k.expand(b, h, n, dh), v.expand(b, h, n, dh))
+
+
+def geglu_inputs(shape, dtype, gen):
+    c, d, f = shape
+    scales = ((c, d), 1.0), ((2 * f, d), d**-0.5), ((2 * f,), 0.02), ((d, f), f**-0.5), ((d,), 0.02)
+    return tuple(
+        (torch.randn(*s, device="cuda", generator=gen) * sc).to(dtype) for s, sc in scales
+    )
+
+
+def geglu_work(shape, es: int) -> tuple[float, float]:
+    """(operations, bytes): x, both weights and biases read once, the
+    float32 y written once."""
+    c, d, f = shape
+    return 6.0 * c * d * f, (c * d + 3.0 * d * f + 2.0 * f + d) * es + 4.0 * c * d
+
+
+def geglu_library(x, w_in, b_in, w_out, b_out):
+    h, g = F.linear(x, w_in, b_in).chunk(2, dim=-1)
+    return F.linear(h * F.gelu(g, approximate="tanh"), w_out, b_out)
+
+
+KERNELS = {
+    "latent_attention": {
+        "wrapper": latent_attention,
+        "plain": reference_attention,
+        "library": attention_library,
+        "inputs": attention_inputs,
+        "work": attention_work,
+        "label": "B={} H={} L={} N={} dh={}",
+        "source": "news_recommendation_project_v2_torch/ops/csrc/latent_attention.cu",
+        "replaces": "news_recommendation_project_v2_tpu/ops/pallas_attention.py:26",
+    },
+    "geglu": {
+        "wrapper": geglu,
+        "plain": reference_geglu,
+        "library": geglu_library,
+        "inputs": geglu_inputs,
+        "work": geglu_work,
+        "label": "C={} D={} F={}",
+        "source": "news_recommendation_project_v2_torch/ops/csrc/geglu.cu",
+        "replaces": "news_recommendation_project_v2_tpu/ops/pallas_geglu.py:29",
+    },
+}
+
+
+def measure(name: str, shape: tuple, dtype, gen) -> dict:
+    """One kernel against its plain version on the same inputs: the largest
+    absolute difference, the device times of the kernel, of the plain
+    version and of the library call, and the bound from the work's
+    operations and bytes."""
+    spec = KERNELS[name]
+    args = spec["inputs"](shape, dtype, gen)
+    got = spec["wrapper"](*args)
+    torch.cuda.synchronize()
+    want = spec["plain"](*args)
+    ops, nbytes = spec["work"](shape, args[0].element_size())
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    iters = 20 if ops < 1e10 else 5
+    r = dict(
+        label=spec["label"].format(*shape),
+        err=(got.float() - want.float()).abs().max().item(),
+        ms=cuda_ms(lambda: spec["wrapper"](*args), iters),
+        plain_ms=cuda_ms(lambda: spec["plain"](*args), iters),
+        library_ms=cuda_ms(lambda: spec["library"](*args), iters),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+    )
+    if name == "latent_attention":
+        # Both against float64, to show the kernel and the plain version are
+        # independent computations even where they agree to the bit.
+        q, k, v = (a.double() for a in args)
+        p64 = torch.softmax(torch.einsum("bhld,hnd->bhln", q, k) * q.shape[-1] ** -0.5, -1)
+        o64 = torch.einsum("bhln,hnd->bhld", p64, v)
+        r["err64"] = ((got.double() - o64).abs().max().item(), (want.double() - o64).abs().max().item())
+    tol = TOL[(name, dtype)]
+    log(
+        f"  {name} {str(dtype)[6:]} {r['label']}: max_abs_err {r['err']:.3g} (tol {tol:.3g}) "
+        f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+    )
+    if "err64" in r:
+        log(f"    vs float64: kernel {r['err64'][0]:.3g}, plain {r['err64'][1]:.3g}")
+    if not r["err"] <= tol:
+        raise AssertionError(f"{name} {dtype} {r['label']}: error {r['err']} > {tol}")
+    return r
+
+
+def kernel_phase(gen) -> None:
+    """Every kernel vs its plain version at the serving shapes that bound the
+    path's range (one short and one 600-long history bucket; one request's
+    37 tokens and eight 600-token rows), in float32 and bfloat16."""
+    cases = [("latent_attention", (8, 8, l, 64, 512)) for l in (16, 600)]
+    cases += [("geglu", (c, DIM, 4 * DIM)) for c in (37, 4800)]
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shape in cases:
+                measure(name, shape, dtype, gen)
+
+
+def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
+    """Every kernel vs its plain version at each shape the served main path
+    launched it at (float32, the tower's type). Per kernel, the times and the
+    bound are summed over the path's launches: each shape's figure times the
+    number of launches at that shape."""
+    record = {}
+    with torch.no_grad():
+        for name, counts in shapes.items():
+            rows = [(n, measure(name, shape, torch.float32, gen)) for shape, n in sorted(counts.items())]
+            by = {"operations": 0.0, "bytes": 0.0}
+            for n, r in rows:
+                by[r["bound_by"]] += n * r["bound_ms"]
+            record[name] = dict(
+                label=f"main path: {len(rows)} shapes, {sum(n for n, _ in rows)} launches, float32",
+                err=max(r["err"] for _, r in rows),
+                **{k: sum(n * r[k] for n, r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                bound_by=max(by, key=by.get),
+            )
+            r = record[name]
+            log(
+                f"  {name} summed over the main path's launches: kernel_ms {r['ms']:.4f} "
+                f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            )
+    return record
+
+
+def mind_like_requests(rng: np.random.Generator, ids: list[str], n: int) -> list:
+    """Geometric histories (mean 29, capped at 600), 10-90 candidates."""
+    out = []
+    for _ in range(n):
+        h = int(np.clip(rng.geometric(1 / 29.0), 1, 600))
+        c = int(rng.integers(10, 90))
+        out.append(
+            (
+                [ids[j] for j in rng.integers(0, len(ids), h)],
+                [ids[j] for j in rng.integers(0, len(ids), c)],
+            )
+        )
+    return out
+
+
+def check_ranked(ranked, candidates) -> None:
+    if sorted(c for c, _ in ranked) != sorted(candidates):
+        raise AssertionError("the ranked ids are not the request's candidates")
+    scores = np.array([s for _, s in ranked])
+    if not (np.isfinite(scores).all() and (np.diff(scores) <= 0).all()):
+        raise AssertionError(f"scores not finite and descending: {scores}")
+
+
+def profile_rank_batch(ranker, requests) -> None:
+    """Device time by kernel for one rank_batch, and the device's busy share
+    of the wall time (both under the profiler, which slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ranker.rank_batch(requests)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        (
+            (e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        ),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    log(
+        f"  profile of one rank_batch: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"({busy / wall_ms:.1%}); device time by kernel:"
+    )
+    for ms, count, key in rows[:10]:
+        log(f"    {ms:9.3f} ms {count:5d}x  {key[:100]}")
+
+
+def serve_phase(device: str, work_dir: Path, num_news: int, tower_config: TowerConfig) -> dict:
+    """Drive the port's serving path as a user would. Returns the launch
+    counts (in all and per path) and the launches by shape, requests/s and
+    the CPU comparison's largest score difference."""
+    rng = np.random.default_rng(SEED)
+    ckpt = work_dir / "tower.pt"
+    torch.save(latent_state_dict_from_jax(random_latent_params(rng, tower_config)), ckpt)
+    dim = tower_config.reduced_dim
+    emb = rng.standard_normal((num_news, dim), dtype=np.float32) * 0.05
+    ids = [f"N{i}" for i in range(num_news)]
+    save_embeddings(work_dir / "emb", "MINDsmall_dev", emb, news_ids=np.array(ids))
+    del emb
+    t0 = time.perf_counter()
+    ranker = build_ranker(work_dir / "emb", "MINDsmall_dev", ckpt, tower_config, device=device)
+    log(f"  build_ranker: {time.perf_counter() - t0:.2f}s ({num_news} x {dim} table)")
+    requests = mind_like_requests(rng, ids, N_REQUESTS)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    server = make_server(ranker, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+
+        def http_rank():
+            hist, cands = requests[1]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/rank",
+                data=json.dumps({"history": hist, "candidates": cands}).encode(),
+                method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                ranked = json.loads(resp.read())["ranked"]
+            check_ranked([(c, s) for c, s in ranked], cands)
+            return ranked
+
+        paths = {
+            "rank": lambda: check_ranked(ranker.rank(*requests[0]), requests[0][1]),
+            "retrieve": lambda: ranker.retrieve(requests[0][0], k=10),
+            "rank_batch": lambda: ranker.rank_batch(requests),
+            "http_rank": http_rank,
+        }
+        launches, results = {}, {}
+        for spec in KERNELS.values():
+            spec["wrapper"].launches = 0
+            spec["wrapper"].shapes.clear()
+        for path, run in paths.items():
+            before = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+            results[path] = run()
+            sync()
+            launches[path] = {k: v["wrapper"].launches - before[k] for k, v in KERNELS.items()}
+        total = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+        shapes = {k: collections.Counter(v["wrapper"].shapes) for k, v in KERNELS.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"  launches per path: {json.dumps(launches)}")
+
+    top = results["retrieve"]
+    if not (len(top) == 10 and (np.diff([s for _, s in top]) <= 0).all()):
+        raise AssertionError(f"retrieve(k=10) gave {top}")
+    for (_, cands), ranked in zip(requests, results["rank_batch"]):
+        check_ranked(ranked, cands)
+    for name, n in total.items():
+        if device == "cuda" and n == 0:
+            raise AssertionError(f"the serving path never launched the {name} kernel")
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ranker.rank_batch(requests)
+        sync()
+        times.append(time.perf_counter() - t0)
+    rps = [N_REQUESTS / t for t in times]
+    if device == "cuda":
+        profile_rank_batch(ranker, requests)
+
+    cpu = build_ranker(work_dir / "emb", "MINDsmall_dev", ckpt, tower_config, device="cpu")
+    diff = 0.0
+    for (_, cands), got, want in zip(requests[:4], results["rank_batch"], cpu.rank_batch(requests[:4])):
+        a, b = dict(got), dict(want)
+        diff = max(diff, max(abs(a[c] - b[c]) for c in cands))
+    return dict(launches=total, shapes=shapes, rps=rps, cpu_diff=diff)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"phase 1 device: torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    log(card)
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"phase 2 build: {time.perf_counter() - t0:.2f}s for {sorted(logs)} (nvcc -Xptxas -v):")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    log("phase 3 kernels vs plain versions on the card, at serving shapes:")
+    kernel_phase(gen)
+
+    log("phase 4 serve: full-width latent tower behind build_ranker (TF32 off)")
+    work_dir = ROOT / "build" / "smoke"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    serve = serve_phase("cuda", work_dir, NUM_NEWS, TowerConfig(kind="latent"))
+    log(
+        f"  rank_batch of {N_REQUESTS} requests: requests/s {['%.1f' % r for r in serve['rps']]} "
+        f"on {card}"
+    )
+    log(f"  4 requests vs the CPU ranker: max |score difference| {serve['cpu_diff']:.3g} (tol 1e-4)")
+    if not serve["cpu_diff"] <= 1e-4:
+        raise AssertionError(f"GPU and CPU rankers disagree by {serve['cpu_diff']}")
+
+    log("phase 5 kernels vs plain versions at every shape the main path launched them at:")
+    record = main_path_phase(serve["shapes"], gen)
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": meta["source"],
+            "replaces": meta["replaces"],
+            "shape": record[name]["label"],
+            "launches": serve["launches"][name],
+            "max_abs_err": record[name]["err"],
+            "ms": record[name]["ms"],
+            "plain_ms": record[name]["plain_ms"],
+            "bound_ms": record[name]["bound_ms"],
+            "bound_by": record[name]["bound_by"],
+            "library_ms": record[name]["library_ms"],
+        }
+        for name, meta in KERNELS.items()
+    ]
+    log(f"done in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,41 @@
+// Helpers shared by the port's kernels: element loads and stores in float32
+// for the two element types the kernels take (float, bfloat16), and the
+// error-string export every library carries for its ctypes wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define NR_EXPORT extern "C" __attribute__((visibility("default")))
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// Round a float32 value to T's precision and back.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+NR_EXPORT const char* nr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

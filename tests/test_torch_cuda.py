@@ -1,0 +1,119 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version on the same inputs, and the tower on the card against the same tower
+on the CPU. Every test here skips without CUDA.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch; ``tests/conftest.py`` imports JAX, so there run
+it without the conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from news_recommendation_project_v2_torch.config import TowerConfig
+from news_recommendation_project_v2_torch.models import build_tower
+from news_recommendation_project_v2_torch.models.convert import (
+    latent_state_dict_from_jax,
+    random_latent_params,
+)
+from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
+from news_recommendation_project_v2_torch.ops.latent_attention import (
+    latent_attention,
+    reference_attention,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 8, 600, 64, 512), (2, 3, 5, 70, 100)])
+def test_attention_kernel_matches_plain(cuda, dtype, shape):
+    """Both sum in float32; a bfloat16 output may round one unit apart."""
+    b, h, l, n, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, h, l, dh, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(h, n, dh, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(h, n, dh, device=cuda, generator=gen).to(dtype)
+    before = latent_attention.launches, latent_attention.shapes[shape]
+    got = latent_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (latent_attention.launches, latent_attention.shapes[shape]) == (before[0] + 1, before[1] + 1)
+    want = reference_attention(q, k, v)
+    tol = 1e-5 if dtype == torch.float32 else 2**-8 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 1024, 4096), (300, 96, 130)])
+def test_geglu_kernel_matches_plain(cuda, dtype, shape):
+    """float32 sums of up to 5,120 products in another order: 1e-4; in
+    bfloat16 the gated product may round one bfloat16 unit apart: 1e-3."""
+    c, d, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = (
+        torch.randn(c, d, device=cuda, generator=gen),
+        torch.randn(2 * f, d, device=cuda, generator=gen) * d**-0.5,
+        torch.randn(2 * f, device=cuda, generator=gen) * 0.02,
+        torch.randn(d, f, device=cuda, generator=gen) * f**-0.5,
+        torch.randn(d, device=cuda, generator=gen) * 0.02,
+    )
+    args = tuple(a.to(dtype) for a in args)
+    before = geglu.launches, geglu.shapes[shape]
+    got = geglu(*args)
+    torch.cuda.synchronize()
+    assert (geglu.launches, geglu.shapes[shape]) == (before[0] + 1, before[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=tol)
+
+
+def test_kernels_refuse_autograd(cuda):
+    q = torch.randn(1, 1, 4, 8, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        latent_attention(q, k, k)
+    x = torch.randn(3, 8, device=cuda, requires_grad=True)
+    w_in, b_in = torch.randn(32, 8, device=cuda), torch.randn(32, device=cuda)
+    w_out, b_out = torch.randn(8, 16, device=cuda), torch.randn(8, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        geglu(x, w_in, b_in, w_out, b_out)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16), TowerConfig()],
+    ids=["small", "full_width"],
+)
+def test_tower_on_cuda_matches_cpu(cuda, cfg):
+    """The tower through both kernels on the card against the same weights
+    through the plain versions on the CPU, pooled and per token (float32)."""
+    rng = np.random.default_rng(0)
+    sd = latent_state_dict_from_jax(random_latent_params(rng, cfg))
+    emb = rng.standard_normal((3, 37, cfg.reduced_dim)).astype(np.float32)
+    mask = np.ones((3, 37), np.float32)
+    mask[1, 20:] = 0.0
+    emb *= mask[..., None]
+    towers = {}
+    for dev in ("cpu", cuda):
+        towers[dev] = build_tower(cfg).to(dev)
+        towers[dev].load_state_dict(sd)
+    before = latent_attention.launches, geglu.launches
+    with torch.no_grad():
+        for m in (mask, None):
+            outs = [
+                towers[dev](torch.from_numpy(emb).to(dev), None if m is None else torch.from_numpy(m).to(dev))
+                for dev in ("cpu", cuda)
+            ]
+            torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=0, atol=1e-4)
+    assert (latent_attention.launches, geglu.launches) == (before[0] + 2, before[1] + 2)
