@@ -7,10 +7,13 @@ Phases, one line or a few each, exit code non-zero on any failure:
   1. device:  the card's name and power limit (nvidia-smi).
   2. build:   nvcc of every ops/csrc/*.cu, in parallel, into build/kernels/.
   3. kernels: each kernel against its plain PyTorch version on the card, at
-              serving shapes, in float32 and bfloat16, with the time of the
-              kernel, of the plain version, of one PyTorch library call that
-              computes the same function (a yardstick the port never calls)
-              and the least time the card could take (the bound).
+              serving shapes and at D=1536 for the GEGLU, in float32 and
+              bfloat16, with the time of the kernel, of the plain version, of
+              one PyTorch library call that computes the same function (a
+              yardstick the port never calls), the least time the card could
+              take (the bound) and the kernel's share of it. A bfloat16 GEGLU
+              is held to its tolerance beyond the one-unit roundings of gated
+              values that lie at a bfloat16 tie (geglu_tie_allowance).
   4. serve:   a full-width latent tower (D=1024, 64 latents, 8 heads x 512)
               with random weights from a numpy seed, saved as a state_dict,
               and a 65,238 x 1024 news table (MIND-small's news count) saved
@@ -20,8 +23,9 @@ Phases, one line or a few each, exit code non-zero on any failure:
               before and read just after. Every kernel must have launched;
               4 requests must match the same ranker built on the CPU.
   5. main path: each kernel against its plain version again, at every shape
-              the served path launched it at (float32), with the times and
-              the bound summed over those launches.
+              the served path launched it at (float32), with the times, the
+              bound and the share of bound per shape and summed over those
+              launches.
 The line before the last but one holds the kernels' record (phase 5) as JSON,
 the line before the last the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
@@ -62,13 +66,17 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
 NUM_NEWS, DIM = 65_238, 1024
 N_REQUESTS = 64
 SEED = 0
-# Published H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the
-# tensor cores, bfloat16 on them, and device-memory bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense) and device-memory
+# bandwidth. bfloat16 on the tensor cores. float32: the card computes
+# float32-accurate products fastest as 3xTF32 on the tensor cores (three TF32
+# products each, 495 / 3 = 165 TFLOP/s), not on the CUDA cores (67 TFLOP/s),
+# so 165 is the least time the work can take, whichever kernel does it.
+PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
-# Tolerances of kernel vs plain version on the same inputs. Both compute in
-# float32 and differ only in summation order; a bfloat16 output may then
-# round one unit apart (2^-8 relative), a float32 GEGLU sums 5,120 products.
+# Tolerances of kernel vs plain version on the same inputs. Both compute
+# float32-accurate products (the GEGLU as 3xTF32) summed in float32, and
+# differ in summation order: a bfloat16 output may then round one unit apart
+# (2^-8 relative), a float32 GEGLU sums up to 6,144 + 1,536 products.
 TOL = {
     ("latent_attention", torch.float32): 1e-5,
     ("latent_attention", torch.bfloat16): 2**-8 * 4.0,
@@ -125,6 +133,24 @@ def geglu_work(shape, es: int) -> tuple[float, float]:
     float32 y written once."""
     c, d, f = shape
     return 6.0 * c * d * f, (c * d + 3.0 * d * f + 2.0 * f + d) * es + 4.0 * c * d
+
+
+# A float32 gated product u within this relative distance of a bfloat16
+# rounding tie may round either way in two float32-accurate computations:
+# the plain version's own float32 sums differ from exact ones by about 2^-20.
+TIE = 2.0**-18
+
+
+def geglu_tie_allowance(x, w_in, b_in, w_out, b_out) -> tuple[torch.Tensor, float]:
+    """In bfloat16 the kernel and the plain version each round u to bfloat16
+    after float32 sums taken in other orders, so a u next to a rounding tie
+    may round one bfloat16 unit apart, and moves y[m, n] by that unit times
+    |W_out[n, f]|. Per output, the sum of that over the u of its row that lie
+    within TIE of a tie; and the share of such u."""
+    h, g = F.linear(x.float(), w_in.float(), b_in.float()).chunk(2, dim=-1)
+    u = h * F.gelu(g, approximate="tanh")
+    spread = (u * (1 + TIE)).to(x.dtype).float() - (u * (1 - TIE)).to(x.dtype).float()
+    return spread.abs() @ w_out.float().abs().T, (spread != 0).float().mean().item()
 
 
 def geglu_library(x, w_in, b_in, w_out, b_out):
@@ -187,24 +213,34 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
         o64 = torch.einsum("bhln,hnd->bhld", p64, v)
         r["err64"] = ((got.double() - o64).abs().max().item(), (want.double() - o64).abs().max().item())
     tol = TOL[(name, dtype)]
+    excess = r["err"]
+    if name == "geglu" and dtype == torch.bfloat16:
+        allowance, share = geglu_tie_allowance(*args)
+        excess = ((got.float() - want.float()).abs() - allowance).max().item()
+        log(
+            f"  {name} bfloat16 {r['label']}: {share:.3%} of u within {TIE:.3g} of a bfloat16 tie; "
+            f"error beyond their one-unit roundings {excess:.3g} (tol {tol:.3g})"
+        )
     log(
         f"  {name} {str(dtype)[6:]} {r['label']}: max_abs_err {r['err']:.3g} (tol {tol:.3g}) "
         f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}"
     )
     if "err64" in r:
         log(f"    vs float64: kernel {r['err64'][0]:.3g}, plain {r['err64'][1]:.3g}")
-    if not r["err"] <= tol:
-        raise AssertionError(f"{name} {dtype} {r['label']}: error {r['err']} > {tol}")
+    if not excess <= tol:
+        raise AssertionError(f"{name} {dtype} {r['label']}: error {excess} > {tol}")
     return r
 
 
 def kernel_phase(gen) -> None:
     """Every kernel vs its plain version at the serving shapes that bound the
     path's range (one short and one 600-long history bucket; one request's
-    37 tokens and eight 600-token rows), in float32 and bfloat16."""
+    37 tokens and eight 600-token rows), in float32 and bfloat16, and the
+    GEGLU at D=1536, wider than a 1024 row."""
     cases = [("latent_attention", (8, 8, l, 64, 512)) for l in (16, 600)]
     cases += [("geglu", (c, DIM, 4 * DIM)) for c in (37, 4800)]
+    cases += [("geglu", (37, 1536, 4 * 1536))]
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for name, shape in cases:
@@ -233,7 +269,7 @@ def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
             log(
                 f"  {name} summed over the main path's launches: kernel_ms {r['ms']:.4f} "
                 f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}"
             )
     return record
 

@@ -1,177 +1,361 @@
 // GEGLU feed-forward: y = (h * gelu_tanh(g)) W_out^T + b_out, where
 // [h | g] = x W_in^T + b_in; h is the first F columns and g the last F.
 //
-// Replaces: news_recommendation_project_v2_tpu/ops/pallas_geglu.py,
+// Replaces: news_recommendation_project_v2_tpu/ops/pallas_geglu.py:29,
 // `_geglu_kernel` (launched by `fused_geglu`; oracle `reference_geglu`). Same
-// function: x [C, D]; float32 products, bias and gate; the gated product is
-// rounded to x's type before W_out, as the flax module rounds it; output
-// float32 [C, D]. The [C, 2F] intermediate never reaches device memory.
-// Weights come in nn.Linear layout: W_in [2F, D], W_out [D, F].
+// function: x [C, D] for any D >= 1; float32 products, bias and gate; the
+// gated product rounded to x's type before W_out, as the flax module rounds
+// it; output float32 [C, D]. Weights come in nn.Linear layout: W_in [2F, D],
+// W_out [D, F]. Both products are then "TN": x and W_in are contiguous along
+// D, u and W_out along F, which is the layout mma.sync takes without
+// transposes.
 //
-// What bounds it on an H100: 6*C*D*F operations against the 3*D*F weights
-// (48 MB in float32) read once, i.e. C/2 operations per byte in float32. The
-// float32 balance of the CUDA cores is 67 TFLOP/s over 3.35 TB/s = 20, so a
-// single request (C of a few dozen rows) is bound by reading the weights and
-// a batch of requests (C in the hundreds or more) by the arithmetic.
+// What bounds it on an H100: 6*C*D*F operations against 3*D*F weights read
+// once (48 MB in float32 at D=1024, F=4096). float32 runs as 3xTF32 on the
+// tensor cores (495 / 3 = 165 TFLOP/s of float32-accurate products), so its
+// balance against 3.35 TB/s is 49 operations per byte; the work does C/2 per
+// weight byte. Below about 100 rows (a single request) reading the weights
+// bounds it, above that the products. In bf16 (989 TFLOP/s, C operations per
+// weight byte) the line lies near 300 rows.
 //
-// Design, simple first:
-//   * A block owns 16 tokens and the WHOLE output row (D <= 1024): its
-//     [16, 1024] float32 accumulator lives in registers, 64 per thread, so no
-//     h/g slab is ever recomputed for another output tile. Tensor cores,
-//     wgmma and TMA are later work; both types run on CUDA cores in float32.
-//   * There is no sequential grid to carry the accumulator (the Pallas
-//     kernel's `o_ref`): the block loops over F inside itself, 128 columns of
-//     h and g at a time. Phase 1 streams W_in in 32-deep tiles through shared
-//     memory to form h and g for the chunk; the gate runs in shared memory;
-//     phase 2 streams W_out in 8-deep tiles and adds into the accumulator.
-//   * Few tokens (a single request) would leave most SMs idle, so the F loop
-//     may be split over gridDim.y blocks; each writes its partial sum to a
-//     scratch buffer the wrapper allocates, and a second kernel adds the
-//     partials in a fixed order (deterministic) and the bias.
-//   * The C tail is masked (the Pallas kernel asserted C % block_c == 0).
-// Launches on the caller's stream, allocates nothing, returns
-// cudaGetLastError().
+// Design, and what it does about each bound:
+//   * Two tiled passes sharing one mma.sync tile core:
+//       pass A  u = round_T(h * gelu_tanh(g)): a block computes a [BM, BN/2]
+//               tile of h and the matching tile of g (W_in rows f0.. and
+//               F+f0..) over K = D, gates in registers and writes u in x's
+//               type to a scratch buffer;
+//       pass B  y = u W_out^T + b_out, tiled [BM, BN] over [C, D]. When the
+//               output has few tiles (small C), the F sum splits over extra
+//               blocks (gridDim.z); each writes a float32 partial and a third
+//               kernel adds them in split order with the bias: deterministic,
+//               no atomics.
+//     The Pallas kernel kept [h | g] in VMEM. Here u goes through L2 and
+//     device memory: C*F*sizeof(T) bytes written and read once more (8 MB at
+//     C=512 float32, inside the 50 MB L2). The wrapper walks C in row chunks
+//     so u never exceeds 64 MB; with no full-row accumulator, D is unlimited.
+//   * Tensor cores. bf16: mma.m16n8k16 with fragments from ldmatrix. float32:
+//     3xTF32 on mma.m16n8k8: each operand splits into big = tf32(a) and
+//     small = tf32(a - big), and small*big + big*small + big*big accumulate
+//     in float32, small terms first: float32-accurate products (plain TF32
+//     would break the port's true-float32 contract). The tensor cores' own
+//     sums round toward zero, which over a K=4096 chain drifts by about 1e-4
+//     relative; so they only sum one stage (16 or 32 of K) into a fresh
+//     partial, and partials add into the accumulator by FADD, rounding to
+//     nearest. The 32-bit fragments are read from shared memory by hand;
+//     rows are padded to 80 bytes, so neither they nor ldmatrix meet a bank
+//     conflict.
+//   * Loads overlap the products: a 4-stage cp.async ring, 16 bytes per
+//     thread, each stage 64 bytes of K for every tile row. Rows that are not
+//     16-byte aligned, and the ragged C, D and F edges, take a masked scalar
+//     path inside the kernel (zeros past the edge), never the host's.
+//   * Enough blocks: two tile shapes, Large (128 x 128 with 8 warps in bf16,
+//     128 x 64 with 4 warps in float32) and Small (64 x 32, 4 warps). The
+//     planner in ops/geglu.py gives each pass the largest shape whose rows
+//     C fills; pass A's must also make a block per SM, and pass B's F sum
+//     splits to reach about two blocks per SM. At C=37, D=1024,
+//     F=4096 each pass runs 256 blocks, so the weight reads spread over all
+//     132 SMs.
+// What limits it now (H100, chip_smoke.py): float32 issues its TF32 mma.sync
+// at 120-150 TFLOP/s, whatever the tiling, ILP or ring depth tried, a
+// quarter of the tensor cores' TF32 rate; wgmma is the next step. At a few
+// rows, pass A's fixed cost per stage (barrier, zero-filled rows) and not the
+// weight bytes sets its time.
+// Launches on the caller's stream, allocates nothing, returns the first CUDA
+// error.
 
 #include "common.cuh"
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;    // tokens per block
-constexpr int kCols = 128;   // columns of h (and of g) per F chunk
-constexpr int kK = 32;       // depth of a W_in tile in phase 1
-constexpr int kF = 8;        // depth of a W_out tile in phase 2
-constexpr int kMaxD = 1024;  // widest output row a block holds
-constexpr int kOut = kMaxD / kThreads;  // output columns per thread
-constexpr int kWsStride = 2 * kCols + 1;
-constexpr int kWoStride = kMaxD + 4;
-constexpr int kBig = (kK * kWsStride > kF * kWoStride) ? kK * kWsStride : kF * kWoStride;
-static_assert(kRows * 2 * kCols <= kBig, "h/g slab must fit the shared tile region");
+constexpr int kStages = 4;                  // depth of the cp.async ring
+constexpr int kRowBytes = 64;               // K bytes of one tile row per stage
+constexpr int kRowStride = kRowBytes + 16;  // padded row: no bank conflicts
+constexpr int kChunk = 16;                  // bytes per cp.async
+
+// A block's tile (BM x BN), its warps' tiles (WM x WN) and the blocks an SM
+// should hold (the register budget). Large and Small per type are TILES in
+// ops/geglu.py, by index 0 and 1.
+template <int BM_, int BN_, int WM_, int WN_, int kMinBlocks_>
+struct Shape {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, kMinBlocks = kMinBlocks_;
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = 32 * (BM / WM) * kWarpsN;
+  static constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles per warp
+  static constexpr int kSmem = kStages * (BM + BN) * kRowStride;
+  static_assert(WN % 16 == 0, "pass A pairs n8 tiles: h in even, g in odd");
+};
+// float32 holds a per-stage partial beside its accumulator (mma_stage), so
+// its Large tile is 128 x 64 with 4 warps and 3 blocks per SM; bf16 keeps
+// 128 x 128 with 8 warps and 2 blocks. Either way a warp owns a 64 x 32
+// tile. Small serves few rows: more, smaller blocks spread the weight reads.
+template <typename T>
+using Large = typename std::conditional<std::is_same<T, float>::value, Shape<128, 64, 64, 32, 3>,
+                                        Shape<128, 128, 64, 32, 2>>::type;
+using Small = Shape<64, 32, 32, 16, 4>;
 
 __device__ __forceinline__ float gelu_tanh(float g) {
   const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * g * (1.f + tanhf(k0 * (g + 0.044715f * g * g * g)));
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// big = tf32(x), small = tf32(x - big): x to about 22 bits in two TF32 terms.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
+                                            unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// One operand of a product: row r starts at p + r * ld, contiguous along K.
+// vec: every row start is 16-byte aligned, so whole chunks go by cp.async.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-geglu_kernel(const T* __restrict__ x, const T* __restrict__ w_in, const T* __restrict__ b_in,
-             const T* __restrict__ w_out, const T* __restrict__ b_out, float* __restrict__ y,
-             float* __restrict__ partial, int C, int D, int F, int chunks_per_split) {
-  __shared__ __align__(16) float xs[kK * kRows];    // x tile, depth-major
-  __shared__ __align__(16) float us[kCols * kRows];  // gated chunk, column-major
-  __shared__ __align__(16) float big[kBig];          // W_in tile | h/g slab | W_out tile
-  float* ws = big;
-  float* hs = big;
-  float* wo = big;
+struct Operand {
+  const T* p;
+  long long ld;
+  bool vec;
+};
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, C - row0);
-  const int nchunks = (F + kCols - 1) / kCols;
-  const int c_begin = blockIdx.y * chunks_per_split;
-  const int c_end = min(nchunks, c_begin + chunks_per_split);
-
-  float acc[kRows][kOut] = {};
-
-  for (int chunk = c_begin; chunk < c_end; ++chunk) {
-    const int f0 = chunk * kCols;
-
-    // Phase 1: thread tid owns column tid of [h | g] for the chunk, i.e.
-    // W_in row f0 + tid (h) or F + f0 + tid - kCols (g), for all 16 tokens.
-    float acc1[kRows] = {};
-    for (int k0 = 0; k0 < D; k0 += kK) {
-      __syncthreads();
-      for (int i = tid; i < kRows * kK; i += kThreads) {
-        const int r = i / kK, kk = i % kK;
-        xs[kk * kRows + r] =
-            (r < rows && k0 + kk < D) ? to_float(x[static_cast<long long>(row0 + r) * D + k0 + kk])
-                                      : 0.f;
-      }
-      for (int i = tid; i < 2 * kCols * kK; i += kThreads) {
-        const int n = i / kK, kk = i % kK;
-        const int f = f0 + n % kCols;
-        const long long wrow = (n < kCols ? 0 : F) + f;
-        ws[kk * kWsStride + n] =
-            (f < F && k0 + kk < D) ? to_float(w_in[wrow * D + k0 + kk]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kK; ++kk) {
-        const float w = ws[kk * kWsStride + tid];
-        const float4* a4 = reinterpret_cast<const float4*>(xs + kk * kRows);
+// Stage K columns [k0, k0 + kRowBytes / sizeof(T)) of a kRows-row tile into
+// dst. Tile row r is operand row row_of(r); columns at or past k_end are
+// zeros. A row with row_of(r) < 0 (past C, F or D) is left as it is: it
+// feeds only the products of its own output row or column, which are never
+// stored.
+template <typename T, int kRows, int kThreads, class RowOf>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const Operand<T>& op, RowOf row_of,
+                                          int k0, int k_end) {
+  constexpr int E = kChunk / sizeof(T);
+  constexpr int kChunks = kRowBytes / kChunk;
+  static_assert(kRows * kChunks % kThreads == 0, "every thread copies whole chunks");
 #pragma unroll
-        for (int r4 = 0; r4 < kRows / 4; ++r4) {
-          const float4 a = a4[r4];
-          acc1[4 * r4 + 0] += a.x * w;
-          acc1[4 * r4 + 1] += a.y * w;
-          acc1[4 * r4 + 2] += a.z * w;
-          acc1[4 * r4 + 3] += a.w * w;
-        }
-      }
-    }
-    __syncthreads();  // the W_in tile is dead; the slab takes its place
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const long long row = row_of(r);
+    if (row < 0) continue;
+    unsigned char* d = dst + r * kRowStride + c * kChunk;
+    const int k = k0 + c * E;
+    if (op.vec && k + E <= k_end) {
+      cp_async16(d, op.p + row * op.ld + k);
+    } else {
+      T* dt = reinterpret_cast<T*>(d);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) hs[r * 2 * kCols + tid] = acc1[r];
-    __syncthreads();
-
-    // Gate, in float32, then rounded to T before W_out.
-    for (int i = tid; i < kRows * kCols; i += kThreads) {
-      const int r = i / kCols, fl = i % kCols, f = f0 + fl;
-      float u = 0.f;
-      if (f < F) {
-        const float hv = hs[r * 2 * kCols + fl] + to_float(b_in[f]);
-        const float gv = hs[r * 2 * kCols + kCols + fl] + to_float(b_in[F + f]);
-        u = round_to<T>(hv * gelu_tanh(gv));
-      }
-      us[fl * kRows + r] = u;
-    }
-
-    // Phase 2: thread tid owns output columns tid + 256 j for all 16 tokens.
-    for (int fc = 0; fc < kCols; fc += kF) {
-      __syncthreads();
-      for (int i = tid; i < kMaxD * kF; i += kThreads) {
-        const int d = i / kF, ff = i % kF;
-        const int f = f0 + fc + ff;
-        wo[ff * kWoStride + d] =
-            (d < D && f < F) ? to_float(w_out[static_cast<long long>(d) * F + f]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ff = 0; ff < kF; ++ff) {
-        float w[kOut];
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) w[j] = wo[ff * kWoStride + tid + kThreads * j];
-        const float4* a4 = reinterpret_cast<const float4*>(us + (fc + ff) * kRows);
-#pragma unroll
-        for (int r4 = 0; r4 < kRows / 4; ++r4) {
-          const float4 a = a4[r4];
-#pragma unroll
-          for (int j = 0; j < kOut; ++j) {
-            acc[4 * r4 + 0][j] += a.x * w[j];
-            acc[4 * r4 + 1][j] += a.y * w[j];
-            acc[4 * r4 + 2][j] += a.z * w[j];
-            acc[4 * r4 + 3][j] += a.w * w[j];
-          }
-        }
-      }
+      for (int e = 0; e < E; ++e)
+        dt[e] = k + e < k_end ? op.p[row * op.ld + k + e] : from_float<T>(0.f);
     }
   }
+}
 
+// The products of one stage into the warp's accumulators: A rows are the
+// block's BM tile rows, B rows its BN tile columns, both K-contiguous. They
+// sum in a fresh partial that is added to acc by FADD (the tensor cores'
+// sums round toward zero). Each k step issues the warp's MT x NT
+// independent mmas back to back, so no mma waits on the one before.
+template <typename T, class S>
+__device__ __forceinline__ void mma_stage(float (&acc)[S::MT][S::NT][4], const unsigned char* st) {
+  static_assert(kRowBytes == 64, "a stage is two k steps of 32 bytes (bf16) or 8 floats");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp / S::kWarpsN) * S::WM, wn = (warp % S::kWarpsN) * S::WN;
+  float part[S::MT][S::NT][4] = {};
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int L = kRowStride / 4;  // floats per padded row
+    const float* as = reinterpret_cast<const float*>(st);
+    const float* bs = reinterpret_cast<const float*>(st + S::BM * kRowStride);
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r >= rows) continue;
+    for (int ks = 0; ks < 16; ks += 8) {  // two k8 steps
+      unsigned a_big[S::MT][4], a_small[S::MT][4], b_big[S::NT][2], b_small[S::NT][2];
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int d = tid + kThreads * j;
-      if (d >= D) continue;
-      if (gridDim.y == 1) {
-        y[static_cast<long long>(row0 + r) * D + d] = acc[r][j] + to_float(b_out[d]);
-      } else {
-        partial[(static_cast<long long>(blockIdx.y) * C + row0 + r) * D + d] = acc[r][j];
+      for (int i = 0; i < S::MT; ++i) {
+        const float* p = as + (wm + i * 16 + g) * L + ks + t;
+        split_tf32(p[0], a_big[i][0], a_small[i][0]);
+        split_tf32(p[8 * L], a_big[i][1], a_small[i][1]);
+        split_tf32(p[4], a_big[i][2], a_small[i][2]);
+        split_tf32(p[8 * L + 4], a_big[i][3], a_small[i][3]);
       }
+#pragma unroll
+      for (int j = 0; j < S::NT; ++j) {
+        const float* p = bs + (wn + j * 8 + g) * L + ks + t;
+        split_tf32(p[0], b_big[j][0], b_small[j][0]);
+        split_tf32(p[4], b_big[j][1], b_small[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) mma_tf32(part[i][j], a_small[i], b_big[j]);
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) mma_tf32(part[i][j], a_big[i], b_small[j]);
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) mma_tf32(part[i][j], a_big[i], b_big[j]);
+    }
+  } else {
+    const unsigned a_base = smem_addr(st), b_base = a_base + S::BM * kRowStride;
+#pragma unroll
+    for (int ks = 0; ks < 64; ks += 32) {  // two k16 steps of 32 bytes
+      unsigned a[S::MT][4], b[S::NT][2];
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+        ldmatrix_x4(a[i][0], a[i][1], a[i][2], a[i][3],
+                    a_base + (wm + i * 16 + (lane & 15)) * kRowStride + ks + (lane >> 4) * 16);
+#pragma unroll
+      for (int j = 0; j < S::NT; j += 2) {
+        const int n = wn + j * 8 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(b[j][0], b[j][1], b[j + 1][0], b[j + 1][1],
+                    b_base + n * kRowStride + ks + ((lane >> 3) & 1) * 16);
+      }
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) mma_bf16(part[i][j], a[i], b[j]);
     }
   }
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+}
+
+// acc += A[rows] . B[rows]^T over K columns [k_begin, k_end), through the
+// cp.async ring: stage t + kStages - 1 loads while stage t is multiplied.
+template <typename T, class S, class RowA, class RowB>
+__device__ __forceinline__ void mainloop(float (&acc)[S::MT][S::NT][4], unsigned char* smem,
+                                         const Operand<T>& a, RowA row_a, const Operand<T>& b,
+                                         RowB row_b, int k_begin, int k_end) {
+  constexpr int BK = kRowBytes / sizeof(T);
+  const int nk = (k_end - k_begin + BK - 1) / BK;
+  auto load = [&](int t) {
+    if (t < nk) {
+      unsigned char* st = smem + (t % kStages) * (S::BM + S::BN) * kRowStride;
+      const int k0 = k_begin + t * BK;
+      load_tile<T, S::BM, S::kThreads>(st, a, row_a, k0, k_end);
+      load_tile<T, S::BN, S::kThreads>(st + S::BM * kRowStride, b, row_b, k0, k_end);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kStages - 2>();  // stage t has landed ...
+    __syncthreads();                // ... for every thread, and stage t-1 is free
+    load(t + kStages - 1);
+    mma_stage<T, S>(acc, smem + (t % kStages) * (S::BM + S::BN) * kRowStride);
+  }
+}
+
+// Pass A. Block (bx, by) owns rows bx*BM.. of the chunk and gate columns
+// f0 = by*BN/2 .. f0 + BN/2. Tile column n = 16q + s is W_in row f0 + 8q + s
+// (h) for s < 8 and F + f0 + 8q + s - 8 (g) for s >= 8, so a warp's n8 tiles
+// 2p and 2p+1 hold h and g of the same columns in the same registers.
+template <typename T, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+geglu_gate_kernel(Operand<T> x, Operand<T> w_in, const T* __restrict__ b_in, T* __restrict__ u,
+                  int rows, int D, int F, int ldu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.x * S::BM, f0 = blockIdx.y * (S::BN / 2);
+  float acc[S::MT][S::NT][4] = {};
+  mainloop<T, S>(
+      acc, smem, x, [&](int r) -> long long { return m0 + r < rows ? m0 + r : -1; }, w_in,
+      [&](int r) -> long long {
+        const int f = f0 + 8 * (r >> 4) + (r & 7);
+        return f >= F ? -1 : (r & 8) ? F + f : f;
+      },
+      0, D);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp / S::kWarpsN) * S::WM, wn = (warp % S::kWarpsN) * S::WN;
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int p = 0; p < S::NT / 2; ++p)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm + i * 16 + (lane >> 2) + (r >> 1) * 8;
+        const int f = f0 + wn / 2 + p * 8 + 2 * (lane & 3) + (r & 1);
+        if (m < rows && f < F) {
+          const float hv = acc[i][2 * p][r] + to_float(b_in[f]);
+          const float gv = acc[i][2 * p + 1][r] + to_float(b_in[F + f]);
+          u[static_cast<long long>(m) * ldu + f] = from_float<T>(hv * gelu_tanh(gv));
+        }
+      }
+}
+
+// Pass B. Block (bx, by, s) owns rows bx*BM.., output columns by*BN.. and
+// the F columns [s*split_k, (s+1)*split_k) of the sum. One split writes y
+// with the bias; several write partials for geglu_reduce_kernel.
+template <typename T, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+geglu_out_kernel(Operand<T> u, Operand<T> w_out, const T* __restrict__ b_out, float* __restrict__ y,
+                 float* __restrict__ partial, int rows, int D, int F, int split_k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.x * S::BM, n0 = blockIdx.y * S::BN, s = blockIdx.z;
+  const int k_begin = s * split_k, k_end = min(F, k_begin + split_k);
+  float acc[S::MT][S::NT][4] = {};
+  mainloop<T, S>(
+      acc, smem, u, [&](int r) -> long long { return m0 + r < rows ? m0 + r : -1; }, w_out,
+      [&](int r) -> long long { return n0 + r < D ? n0 + r : -1; }, k_begin, k_end);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp / S::kWarpsN) * S::WM, wn = (warp % S::kWarpsN) * S::WN;
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm + i * 16 + (lane >> 2) + (r >> 1) * 8;
+        const int n = n0 + wn + j * 8 + 2 * (lane & 3) + (r & 1);
+        if (m >= rows || n >= D) continue;
+        const long long at = static_cast<long long>(m) * D + n;
+        if (gridDim.z == 1) {
+          y[at] = acc[i][j][r] + to_float(b_out[n]);
+        } else {
+          partial[static_cast<long long>(s) * rows * D + at] = acc[i][j][r];
+        }
+      }
 }
 
 // y = sum over splits of the partials, in split order, plus the bias.
@@ -187,44 +371,93 @@ __global__ void geglu_reduce_kernel(const float* __restrict__ partial, const T* 
 }
 
 template <typename T>
-int launch(const void* x, const void* w_in, const void* b_in, const void* w_out,
-           const void* b_out, void* y, void* partial, int C, int D, int F, int splits,
-           int device, void* stream) {
-  if (D > kMaxD || splits < 1) return cudaErrorInvalidValue;
+Operand<T> operand(const void* p, long long ld) {
+  const bool aligned = reinterpret_cast<std::uintptr_t>(p) % kChunk == 0;
+  return Operand<T>{static_cast<const T*>(p), ld, aligned && ld % (kChunk / sizeof(T)) == 0};
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory; above 48 KB it must ask.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, class S>
+cudaError_t gate(Operand<T> x, Operand<T> w_in, const T* b_in, T* u, int rows, int D, int F,
+                 int ldu, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(geglu_gate_kernel<T, S>, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((rows + S::BM - 1) / S::BM, (F + S::BN / 2 - 1) / (S::BN / 2));
+  geglu_gate_kernel<T, S><<<grid, S::kThreads, S::kSmem, stream>>>(x, w_in, b_in, u, rows, D, F, ldu);
+  return cudaGetLastError();
+}
+
+template <typename T, class S>
+cudaError_t out(Operand<T> u, Operand<T> w_out, const T* b_out, float* y, float* partial, int rows,
+                int D, int F, int splits, int split_k, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(geglu_out_kernel<T, S>, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((rows + S::BM - 1) / S::BM, (D + S::BN - 1) / S::BN, splits);
+  geglu_out_kernel<T, S><<<grid, S::kThreads, S::kSmem, stream>>>(u, w_out, b_out, y, partial, rows,
+                                                                   D, F, split_k);
+  return cudaGetLastError();
+}
+
+// The whole GEGLU over C rows, chunk_rows at a time through the u scratch
+// [chunk_rows, ldu]; tile_a and tile_b pick Large (0) or Small (1) per pass.
+template <typename T>
+int launch(const void* x, const void* w_in, const void* b_in, const void* w_out, const void* b_out,
+           void* y, void* u, void* partial, int C, int D, int F, int chunk_rows, int ldu, int tile_a,
+           int tile_b, int splits, int split_k, int device, void* stream) {
+  constexpr int BK = kRowBytes / sizeof(T);
+  if (C < 1 || D < 1 || F < 1 || chunk_rows < 1 || ldu < F || ldu % 8 != 0 || split_k < 1 ||
+      split_k % BK != 0 || splits != (F + split_k - 1) / split_k || (splits > 1 && !partial) ||
+      tile_a < 0 || tile_a > 1 || tile_b < 0 || tile_b > 1)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int nchunks = (F + kCols - 1) / kCols;
-  const int per = (nchunks + splits - 1) / splits;
-  if ((nchunks + per - 1) / per != splits) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((C + kRows - 1) / kRows, splits);
-  geglu_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(b_in),
-      static_cast<const T*>(w_out), static_cast<const T*>(b_out), static_cast<float*>(y),
-      static_cast<float*>(partial), C, D, F, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long size = static_cast<long long>(C) * D;
-  const int blocks = static_cast<int>((size + kThreads - 1) / kThreads < 4096
-                                          ? (size + kThreads - 1) / kThreads
-                                          : 4096);
-  geglu_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const T*>(b_out), static_cast<float*>(y),
-      splits, size, D);
-  return cudaGetLastError();
+  const T* bi = static_cast<const T*>(b_in);
+  const T* bo = static_cast<const T*>(b_out);
+  T* ut = static_cast<T*>(u);
+  const Operand<T> wi = operand<T>(w_in, D), wo = operand<T>(w_out, F), uo = operand<T>(u, ldu);
+  for (long long r0 = 0; r0 < C; r0 += chunk_rows) {
+    const int rows = static_cast<int>(C - r0 < chunk_rows ? C - r0 : chunk_rows);
+    const Operand<T> xo = operand<T>(static_cast<const T*>(x) + r0 * D, D);
+    float* yc = static_cast<float*>(y) + r0 * D;
+    float* pc = static_cast<float*>(partial);
+    err = tile_a == 0 ? gate<T, Large<T>>(xo, wi, bi, ut, rows, D, F, ldu, s)
+                      : gate<T, Small>(xo, wi, bi, ut, rows, D, F, ldu, s);
+    if (err != cudaSuccess) return err;
+    err = tile_b == 0 ? out<T, Large<T>>(uo, wo, bo, yc, pc, rows, D, F, splits, split_k, s)
+                      : out<T, Small>(uo, wo, bo, yc, pc, rows, D, F, splits, split_k, s);
+    if (err != cudaSuccess) return err;
+    if (splits == 1) continue;
+    const long long size = static_cast<long long>(rows) * D;
+    const long long want = (size + 255) / 256;
+    geglu_reduce_kernel<T><<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, s>>>(pc, bo, yc,
+                                                                                      splits, size, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 NR_EXPORT int geglu_f32(const void* x, const void* w_in, const void* b_in, const void* w_out,
-                        const void* b_out, void* y, void* partial, int C, int D, int F,
-                        int splits, int device, void* stream) {
-  return launch<float>(x, w_in, b_in, w_out, b_out, y, partial, C, D, F, splits, device, stream);
+                        const void* b_out, void* y, void* u, void* partial, int C, int D, int F,
+                        int chunk_rows, int ldu, int tile_a, int tile_b, int splits, int split_k,
+                        int device, void* stream) {
+  return launch<float>(x, w_in, b_in, w_out, b_out, y, u, partial, C, D, F, chunk_rows, ldu, tile_a,
+                       tile_b, splits, split_k, device, stream);
 }
 
 NR_EXPORT int geglu_bf16(const void* x, const void* w_in, const void* b_in, const void* w_out,
-                         const void* b_out, void* y, void* partial, int C, int D, int F,
-                         int splits, int device, void* stream) {
-  return launch<__nv_bfloat16>(x, w_in, b_in, w_out, b_out, y, partial, C, D, F, splits, device,
-                               stream);
+                         const void* b_out, void* y, void* u, void* partial, int C, int D, int F,
+                         int chunk_rows, int ldu, int tile_a, int tile_b, int splits, int split_k,
+                         int device, void* stream) {
+  return launch<__nv_bfloat16>(x, w_in, b_in, w_out, b_out, y, u, partial, C, D, F, chunk_rows, ldu,
+                               tile_a, tile_b, splits, split_k, device, stream);
 }

@@ -55,27 +55,72 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(37, 1024, 4096), (300, 96, 130)])
-def test_geglu_kernel_matches_plain(cuda, dtype, shape):
-    """float32 sums of up to 5,120 products in another order: 1e-4; in
-    bfloat16 the gated product may round one bfloat16 unit apart: 1e-3."""
+def _geglu_args(shape, dtype, device):
     c, d, f = shape
-    gen = torch.Generator(device=cuda).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     args = (
-        torch.randn(c, d, device=cuda, generator=gen),
-        torch.randn(2 * f, d, device=cuda, generator=gen) * d**-0.5,
-        torch.randn(2 * f, device=cuda, generator=gen) * 0.02,
-        torch.randn(d, f, device=cuda, generator=gen) * f**-0.5,
-        torch.randn(d, device=cuda, generator=gen) * 0.02,
+        torch.randn(c, d, device=device, generator=gen),
+        torch.randn(2 * f, d, device=device, generator=gen) * d**-0.5,
+        torch.randn(2 * f, device=device, generator=gen) * 0.02,
+        torch.randn(d, f, device=device, generator=gen) * f**-0.5,
+        torch.randn(d, device=device, generator=gen) * 0.02,
     )
-    args = tuple(a.to(dtype) for a in args)
+    return tuple(a.to(dtype) for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    [(37, 1024, 4096), (16, 1024, 4096), (512, 1024, 4096), (37, 1536, 6144), (300, 96, 130)],
+    ids=["request", "c16", "c512", "wide_d", "unaligned"],
+)
+def test_geglu_kernel_matches_plain(cuda, dtype, shape):
+    """float32 runs as 3xTF32, whose products are float32-accurate, summed in
+    another order over up to 6,144 + 1,536 terms: 1e-4. In bfloat16 the
+    gated product may round one bfloat16 unit apart from the plain
+    version's: 1e-3. (300, 96, 130) has F not a multiple of 4, so W_out's
+    rows are not 16-byte aligned and take the kernel's masked loads."""
+    args = _geglu_args(shape, dtype, cuda)
     before = geglu.launches, geglu.shapes[shape]
     got = geglu(*args)
     torch.cuda.synchronize()
     assert (geglu.launches, geglu.shapes[shape]) == (before[0] + 1, before[1] + 1)
     tol = 1e-4 if dtype == torch.float32 else 1e-3
     torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 100, 36), (130, 200, 520)])
+def test_geglu_kernel_takes_ragged_edges(cuda, dtype, shape):
+    """One row and one column; a D that ends inside a pipeline stage, whose
+    staged rows are zero past D; C past a tile and F past a gate block. Same
+    tolerances and reasons as above."""
+    args = _geglu_args(shape, dtype, cuda)
+    got = geglu(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geglu_kernel_is_deterministic(cuda, dtype):
+    """Split F sums are added in a fixed order, with no atomics: the same
+    inputs give the same bits on two launches (C=37 splits pass B 8 ways)."""
+    args = _geglu_args((37, 1024, 4096), dtype, cuda)
+    first = geglu(*args)
+    second = geglu(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_geglu_kernel_takes_unaligned_rows(cuda):
+    """x and W_in starting 4 bytes past a 16-byte boundary (contiguous views
+    at an offset): every row goes through the masked loads, which stage the
+    same values as cp.async, so the result is the same to the bit."""
+    args = list(_geglu_args((33, 64, 48), torch.float32, cuda))
+    shifted = [torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a) for a in args[:2]]
+    assert all(t.data_ptr() % 16 == 4 for t in shifted)
+    assert torch.equal(geglu(*shifted, *args[2:]), geglu(*args))
 
 
 def test_kernels_refuse_autograd(cuda):
