@@ -8,7 +8,9 @@ Phases, one line or a few each, exit code non-zero on any failure:
   2. build:   nvcc of every ops/csrc/*.cu, in parallel, into build/kernels/.
   3. kernels: each kernel against its plain PyTorch version on the card, at
               serving shapes and at D=1536 for the GEGLU, in float32 and
-              bfloat16, with the time of the kernel, of the plain version, of
+              bfloat16, and the attention at the flat eval's
+              [1, 8, 131072, 512] in float32, with the time of the kernel, of
+              the plain version, of
               one PyTorch library call that computes the same function (a
               yardstick the port never calls), the least time the card could
               take (the bound) and the kernel's share of it. A bfloat16 GEGLU
@@ -62,6 +64,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
     latent_attention,
     reference_attention,
 )
+from news_recommendation_project_v2_torch.ops.plan_sweep import graph_ms  # noqa: E402
 
 NUM_NEWS, DIM = 65_238, 1024
 N_REQUESTS = 64
@@ -88,7 +91,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, after a warm-up."""
+    """Mean time of ``fn`` over ``iters`` calls back to back, after a warm-up,
+    on CUDA events: where a call's host work outlasts its device work, this
+    is the host's time per call."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -185,8 +190,10 @@ KERNELS = {
 def measure(name: str, shape: tuple, dtype, gen) -> dict:
     """One kernel against its plain version on the same inputs: the largest
     absolute difference, the device times of the kernel, of the plain
-    version and of the library call, and the bound from the work's
-    operations and bytes."""
+    version and of the library call (calls captured in a CUDA graph and
+    replayed, so that the host's launch costs are left out of all three),
+    the kernel wrapper's time per call back to back (host costs included),
+    and the bound from the work's operations and bytes."""
     spec = KERNELS[name]
     args = spec["inputs"](shape, dtype, gen)
     got = spec["wrapper"](*args)
@@ -195,13 +202,14 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
     ops, nbytes = spec["work"](shape, args[0].element_size())
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    iters = 20 if ops < 1e10 else 5
+    iters, reps = (20, 10) if ops < 1e10 else (5, 1)
     r = dict(
         label=spec["label"].format(*shape),
         err=(got.float() - want.float()).abs().max().item(),
-        ms=cuda_ms(lambda: spec["wrapper"](*args), iters),
-        plain_ms=cuda_ms(lambda: spec["plain"](*args), iters),
-        library_ms=cuda_ms(lambda: spec["library"](*args), iters),
+        ms=graph_ms(lambda: spec["wrapper"](*args), reps),
+        call_ms=cuda_ms(lambda: spec["wrapper"](*args), iters),
+        plain_ms=graph_ms(lambda: spec["plain"](*args), reps),
+        library_ms=graph_ms(lambda: spec["library"](*args), reps),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
     )
@@ -224,7 +232,8 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
     log(
         f"  {name} {str(dtype)[6:]} {r['label']}: max_abs_err {r['err']:.3g} (tol {tol:.3g}) "
         f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}"
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}; "
+        f"call_ms {r['call_ms']:.4f}"
     )
     if "err64" in r:
         log(f"    vs float64: kernel {r['err64'][0]:.3g}, plain {r['err64'][1]:.3g}")
@@ -235,16 +244,18 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
 
 def kernel_phase(gen) -> None:
     """Every kernel vs its plain version at the serving shapes that bound the
-    path's range (one short and one 600-long history bucket; one request's
-    37 tokens and eight 600-token rows), in float32 and bfloat16, and the
-    GEGLU at D=1536, wider than a 1024 row."""
-    cases = [("latent_attention", (8, 8, l, 64, 512)) for l in (16, 600)]
+    path's range (a single request's 16 history rows, eight short and eight
+    600-long history rows; one request's 37 tokens and eight 600-token rows),
+    in float32 and bfloat16, the GEGLU at D=1536, wider than a 1024 row, and
+    the attention at the flat eval's [1, 8, 131072, 512] in float32."""
+    cases = [("latent_attention", (b, 8, l, 64, 512)) for b, l in ((1, 16), (8, 16), (8, 600))]
     cases += [("geglu", (c, DIM, 4 * DIM)) for c in (37, 4800)]
     cases += [("geglu", (37, 1536, 4 * 1536))]
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for name, shape in cases:
                 measure(name, shape, dtype, gen)
+        measure("latent_attention", (1, 8, 131072, 64, 512), torch.float32, gen)
 
 
 def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
@@ -262,14 +273,18 @@ def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
             record[name] = dict(
                 label=f"main path: {len(rows)} shapes, {sum(n for n, _ in rows)} launches, float32",
                 err=max(r["err"] for _, r in rows),
-                **{k: sum(n * r[k] for n, r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                **{
+                    k: sum(n * r[k] for n, r in rows)
+                    for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+                },
                 bound_by=max(by, key=by.get),
             )
             r = record[name]
             log(
                 f"  {name} summed over the main path's launches: kernel_ms {r['ms']:.4f} "
                 f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}"
+                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}; "
+                f"call_ms {r['call_ms']:.4f}"
             )
     return record
 

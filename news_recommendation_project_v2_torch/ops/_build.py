@@ -117,7 +117,7 @@ def check(name: str, code: int) -> None:
 def on_cpu(tensors) -> bool:
     """True when every tensor lies on the CPU: the wrappers' plain-version
     case. Any other placement must pass ``validate`` and launch the kernel."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def validate(name: str, tensors) -> None:
@@ -125,8 +125,8 @@ def validate(name: str, tensors) -> None:
     bfloat16, contiguous, and no autograd (the kernels are forward-only)."""
     import torch
 
-    dev, dtype = tensors[0].device, tensors[0].dtype
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    index, dtype = tensors[0].get_device(), tensors[0].dtype
+    if not all(t.is_cuda and t.get_device() == index for t in tensors):
         raise ValueError(
             f"{name}: inputs must all lie on one CUDA device (or all on the "
             f"CPU), got {[str(t.device) for t in tensors]}"

@@ -1,22 +1,127 @@
 """Latent cross-attention ``softmax(q k^T / sqrt(dh)) v``: the wrapper of the
-CUDA kernel (``csrc/latent_attention.cu``) and its plain PyTorch version.
+CUDA kernel (``csrc/latent_attention.cu``), its launch planner and its plain
+PyTorch version.
 
 Layouts as in the JAX package's ``fused_latent_attention``: q [B, H, L, dh]
 history queries; k, v [H, N, dh] latent keys and values shared by every batch
-row. Returns [B, H, L, dh] in q's type.
+row. Returns [B, H, L, dh] in q's type. Any N <= 1024 and dh <= 1024.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _SYMBOLS = {torch.float32: "latent_attention_f32", torch.bfloat16: "latent_attention_bf16"}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+# csrc/latent_attention.cu's block shapes by their rows (Large, Medium,
+# Pair, Small): the warps that split a logits stage's dh and a P.V stage's
+# columns, the latents of a P.V stage, the warps of a block and the blocks
+# an SM holds. Then the constants its shared memory is laid out by.
+SHAPES = {128: (1, 32, 4, 2), 64: (1, 32, 4, 3), 32: (4, 16, 8, 1), 16: (4, 16, 4, 2)}
+ROWS = tuple(SHAPES)
+SLICE_COLS = 16  # a slice of dh is a whole number of these columns
+MAX_N = MAX_DH = 1024
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
+_STAGES, _TILE_N, _PAD_N = 4, 64, 32
+
+
+def attention_smem(rows: int, n: int, dtype: torch.dtype) -> int:
+    """Shared memory of a block of ``rows`` folded rows: the cp.async ring
+    (each slot a logits stage of q and k rows, or a P.V stage of V rows), the
+    float32 logits [rows, N] with a padded stride, a scratch area (the warps'
+    partial logits where several warps split dh, then each warp's 8 staged
+    output rows) and the rows' offsets in o."""
+    es = _ELEMENT_BYTES[dtype]
+    warps_k, depth_v, warps, _ = SHAPES[rows]
+    logits_stage = (rows + _TILE_N) * (64 * warps_k + 16)
+    v_stage = depth_v * (_TILE_N * warps_k * es + (32 if es == 4 else 16))
+    scratch = max(warps_k * rows * _TILE_N if warps_k > 1 else 0, warps * 8 * (_TILE_N + 8))
+    p_rows = rows * (-(-n // _PAD_N) * _PAD_N + 4)
+    return _STAGES * max(logits_stage, v_stage) + (p_rows + scratch) * 4 + rows * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How ``latent_attention`` launches csrc/latent_attention.cu.
+
+    For each head the B*L query rows fold into one dimension M. Block
+    (bx, h, s) owns folded rows bx*rows.. and dh columns
+    [s*slice_cols, min(dh, (s+1)*slice_cols)); the grid is
+    (ceil(M / rows), H, slices)."""
+
+    rows: int
+    slices: int
+    slice_cols: int
+    smem_bytes: int
+    blocks: int
+
+
+def plan_attention(
+    b: int, h: int, l: int, n: int, dh: int, dtype: torch.dtype, sms: int
+) -> AttentionPlan:
+    """Block shape and slices of dh for a card with ``sms`` SMs, by rules
+    that follow times measured on an H100 (PERF.md, Findings):
+
+    * Large (128 rows) where its row tiles fill the card 8 times over (the
+      flat eval): fewest re-reads of K and V, tails negligible;
+    * else Medium (64 rows) where its row tiles fill the card once;
+    * else Pair (32 rows, 8 warps) where its tiles reach a quarter of the
+      SMs, else Small (16 rows). These two split each stage's dh over 4
+      warps, so a block's chain of stages is short; dh then splits into S
+      slices, no narrower than their 256-column P.V tile and no more than
+      one wave of blocks holds. Each slice recomputes its tile's logits and
+      re-reads K from L2, so at a few rows more blocks do not run faster:
+      the chain of stages in a block, not the number of SMs, sets the time.
+
+    A shape whose shared memory exceeds what a block may use is passed over
+    (large N falls to Small). Raises ``ValueError`` past N or dh of 1024."""
+    if min(b, h, l) < 1:
+        raise ValueError(f"latent_attention: needs B, H, L >= 1, got B={b} H={h} L={l}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"latent_attention: N={n} latents is past the kernel's limit of 1 to {MAX_N}")
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"latent_attention: dh={dh} is past the kernel's limit of 1 to {MAX_DH}")
+    m = b * l
+    want = {128: 8 * sms, 64: sms, 32: -(-sms // 4), 16: 0}
+    rows = next(
+        r for r in ROWS
+        if attention_smem(r, n, dtype) <= SMEM_LIMIT and -(-m // r) * h >= want[r]
+    )
+    tiles = -(-m // rows) * h
+    steps = -(-dh // SLICE_COLS)
+    warps_k, _, _, per_sm = SHAPES[rows]
+    slices = 1
+    if warps_k > 1:
+        slices = max(1, min(-(-dh // (_TILE_N * warps_k)), per_sm * sms // tiles))
+    slice_cols = -(-steps // slices) * SLICE_COLS
+    slices = -(-dh // slice_cols)
+    return AttentionPlan(rows, slices, slice_cols, attention_smem(rows, n, dtype), tiles * slices)
+
+
+# A serving call takes tens of microseconds on the card, so the wrapper's
+# host work is kept short: the plan is cached per shape, the SM count per
+# device and the loaded launcher per type, and the stream handle is read
+# without building a Stream object.
+_plan = functools.lru_cache(maxsize=1024)(plan_attention)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(dtype: torch.dtype):
+    return _build.function("latent_attention", _SYMBOLS[dtype], _ARGTYPES)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -49,11 +154,12 @@ def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.function("latent_attention", _SYMBOLS[q.dtype], _ARGTYPES)
-    code = fn(
+    index = q.get_device()
+    p = _plan(b, h, l, n, dh, q.dtype, _sm_count(index))
+    code = _launcher(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, l, n, dh, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, l, n, dh, p.rows, p.slices, p.slice_cols, index,
+        torch._C._cuda_getCurrentRawStream(index),  # the current stream's handle
     )
     _build.check("latent_attention", code)
     latent_attention.launches += 1

@@ -19,9 +19,14 @@ from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
     random_latent_params,
 )
+from news_recommendation_project_v2_torch.ops import _build
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
 from news_recommendation_project_v2_torch.ops.latent_attention import (
+    _ARGTYPES,
+    _SYMBOLS,
+    ROWS,
     latent_attention,
+    plan_attention,
     reference_attention,
 )
 
@@ -37,22 +42,120 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 8, 600, 64, 512), (2, 3, 5, 70, 100)])
-def test_attention_kernel_matches_plain(cuda, dtype, shape):
-    """Both sum in float32; a bfloat16 output may round one unit apart."""
+def _attention_args(shape, dtype, device):
     b, h, l, n, dh = shape
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(b, h, l, dh, device=cuda, generator=gen).to(dtype)
-    k = torch.randn(h, n, dh, device=cuda, generator=gen).to(dtype)
-    v = torch.randn(h, n, dh, device=cuda, generator=gen).to(dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return tuple(
+        torch.randn(*s, device=device, generator=gen).to(dtype)
+        for s in ((b, h, l, dh), (h, n, dh), (h, n, dh))
+    )
+
+
+def _attention_tol(want, dtype):
+    """Both sum in float32 (the kernel's products as 3xTF32, float32-accurate);
+    a bfloat16 output may round one unit apart."""
+    return 1e-5 if dtype == torch.float32 else 2**-8 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (8, 8, 600, 64, 512),
+        (2, 3, 5, 70, 100),
+        (3, 8, 37, 64, 512),
+        (8, 8, 64, 64, 512),
+        (1, 8, 16, 64, 512),
+        (4, 8, 300, 64, 512),
+        (1, 2, 20, 1024, 1024),
+    ],
+    ids=["b8_l600", "unaligned", "ragged_l37", "b8_l64", "request", "medium_rows", "limits"],
+)
+def test_attention_kernel_matches_plain(cuda, dtype, shape):
+    """Large (128-row), Medium and Small blocks as the planner picks them,
+    folded rows with an L that is no multiple of a tile, N past one 64-latent
+    tile, dh=100 (bfloat16 rows not 16-byte aligned: the masked loads), and
+    N = dh = 1024."""
+    q, k, v = _attention_args(shape, dtype, cuda)
     before = latent_attention.launches, latent_attention.shapes[shape]
     got = latent_attention(q, k, v)
     torch.cuda.synchronize()
     assert (latent_attention.launches, latent_attention.shapes[shape]) == (before[0] + 1, before[1] + 1)
     want = reference_attention(q, k, v)
-    tol = 1e-5 if dtype == torch.float32 else 2**-8 * want.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_attention_tol(want, dtype))
+
+
+@pytest.mark.parametrize("shape, split", [((3, 8, 37, 64, 512), True), ((8, 8, 64, 64, 512), False)])
+def test_attention_plan_splits_where_rows_cannot_fill(cuda, shape, split):
+    """On the card's own SM count: 111 folded rows split dh into slices, 512
+    do not; both agree with the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = plan_attention(*shape, torch.float32, sms)
+    assert (p.slices > 1) == split
+    q, k, v = _attention_args(shape, torch.float32, cuda)
+    torch.testing.assert_close(latent_attention(q, k, v), reference_attention(q, k, v), rtol=0, atol=1e-5)
+
+
+def _launch_attention(q, k, v, rows, slices, slice_cols):
+    """The kernel under a plan of the caller's choosing, past the planner."""
+    b, h, l, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _build.function("latent_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+    code = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, k.shape[1], dh,
+        rows, slices, slice_cols, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check("latent_attention", code)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("slice_cols", [16, 48, 128])
+def test_attention_kernel_every_block_shape(cuda, dtype, rows, slice_cols):
+    """Every block shape and slice width on one ragged shape (M = 111
+    folded rows, N = 70, dh = 100): a slice that ends inside a 64-column
+    tile, and the last slice short."""
+    q, k, v = _attention_args((3, 2, 37, 70, 100), dtype, cuda)
+    got = _launch_attention(q, k, v, rows, -(-100 // slice_cols), slice_cols)
+    torch.cuda.synchronize()
+    want = reference_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_attention_tol(want, dtype))
+
+
+def test_attention_kernel_refuses_a_bad_plan(cuda):
+    q, k, v = _attention_args((1, 1, 4, 8, 32), torch.float32, cuda)
+    for rows, slices, slice_cols in ((48, 1, 32), (16, 2, 32), (16, 4, 8)):
+        with pytest.raises(RuntimeError, match="latent_attention kernel failed"):
+            _launch_attention(q, k, v, rows, slices, slice_cols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_is_deterministic(cuda, dtype):
+    """Slices write disjoint columns, with no atomics: the same inputs give
+    the same bits on two launches, split (a single request) or not."""
+    for shape in ((1, 8, 16, 64, 512), (8, 8, 600, 64, 512)):
+        args = _attention_args(shape, dtype, cuda)
+        first = latent_attention(*args)
+        second = latent_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_attention_kernel_takes_unaligned_rows(cuda):
+    """q, k and v starting 4 bytes past a 16-byte boundary: every row goes
+    through the masked loads, which stage the same values as cp.async, so
+    the result is the same to the bit."""
+    args = _attention_args((2, 2, 40, 64, 128), torch.float32, cuda)
+    shifted = [torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a) for a in args]
+    assert all(t.data_ptr() % 16 == 4 for t in shifted)
+    assert torch.equal(latent_attention(*shifted), latent_attention(*args))
+
+
+def test_attention_wrapper_raises_past_the_limits(cuda):
+    q, k, v = _attention_args((1, 1, 4, 1025, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="past the kernel's limit of 1 to 1024"):
+        latent_attention(q, k, v)
 
 
 def _geglu_args(shape, dtype, device):
