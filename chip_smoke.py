@@ -10,10 +10,13 @@ Phases, one line or a few each, exit code non-zero on any failure:
               serving shapes and at D=1536 for the GEGLU, in float32 and
               bfloat16, and the attention at the flat eval's
               [1, 8, 131072, 512] in float32, with the time of the kernel, of
-              the plain version, of
-              one PyTorch library call that computes the same function (a
-              yardstick the port never calls), the least time the card could
-              take (the bound) and the kernel's share of it. A bfloat16 GEGLU
+              the plain version, of one PyTorch library call that computes
+              the same function (a yardstick the port never calls), the least
+              time the card could take (the bound) and the kernel's share of
+              it. Each time is taken twice (ops/timing.py): as calls back to
+              back, host costs included (ms, plain_ms, library_ms), and as
+              the device time of calls replayed from a CUDA graph
+              (device_ms, plain_device_ms, library_device_ms). A bfloat16 GEGLU
               is held to its tolerance beyond the one-unit roundings of gated
               values that lie at a bfloat16 tie (geglu_tie_allowance).
   4. serve:   a full-width latent tower (D=1024, 64 latents, 8 heads x 512)
@@ -64,7 +67,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
     latent_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.ops.plan_sweep import graph_ms  # noqa: E402
+from news_recommendation_project_v2_torch.ops.timing import cuda_ms, graph_ms  # noqa: E402
 
 NUM_NEWS, DIM = 65_238, 1024
 N_REQUESTS = 64
@@ -88,21 +91,6 @@ TOL = {
 }
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean time of ``fn`` over ``iters`` calls back to back, after a warm-up,
-    on CUDA events: where a call's host work outlasts its device work, this
-    is the host's time per call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def attention_inputs(shape, dtype, gen):
@@ -189,11 +177,12 @@ KERNELS = {
 
 def measure(name: str, shape: tuple, dtype, gen) -> dict:
     """One kernel against its plain version on the same inputs: the largest
-    absolute difference, the device times of the kernel, of the plain
-    version and of the library call (calls captured in a CUDA graph and
-    replayed, so that the host's launch costs are left out of all three),
-    the kernel wrapper's time per call back to back (host costs included),
-    and the bound from the work's operations and bytes."""
+    absolute difference; the times of the kernel's wrapper, of the plain
+    version and of the library call, each as calls back to back (host costs
+    included: ``ms``, ``plain_ms``, ``library_ms``) and as device times
+    (calls captured in a CUDA graph and replayed: ``device_ms``,
+    ``plain_device_ms``, ``library_device_ms``); and the bound from the
+    work's operations and bytes."""
     spec = KERNELS[name]
     args = spec["inputs"](shape, dtype, gen)
     got = spec["wrapper"](*args)
@@ -206,10 +195,12 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
     r = dict(
         label=spec["label"].format(*shape),
         err=(got.float() - want.float()).abs().max().item(),
-        ms=graph_ms(lambda: spec["wrapper"](*args), reps),
-        call_ms=cuda_ms(lambda: spec["wrapper"](*args), iters),
-        plain_ms=graph_ms(lambda: spec["plain"](*args), reps),
-        library_ms=graph_ms(lambda: spec["library"](*args), reps),
+        ms=cuda_ms(lambda: spec["wrapper"](*args), iters),
+        plain_ms=cuda_ms(lambda: spec["plain"](*args), iters),
+        library_ms=cuda_ms(lambda: spec["library"](*args), iters),
+        device_ms=graph_ms(lambda: spec["wrapper"](*args), reps),
+        plain_device_ms=graph_ms(lambda: spec["plain"](*args), reps),
+        library_device_ms=graph_ms(lambda: spec["library"](*args), reps),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
     )
@@ -233,7 +224,8 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
         f"  {name} {str(dtype)[6:]} {r['label']}: max_abs_err {r['err']:.3g} (tol {tol:.3g}) "
         f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
         f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}; "
-        f"call_ms {r['call_ms']:.4f}"
+        f"device: kernel {r['device_ms']:.4f} plain {r['plain_device_ms']:.4f} "
+        f"library {r['library_device_ms']:.4f}, share of bound {r['bound_ms'] / r['device_ms']:.1%}"
     )
     if "err64" in r:
         log(f"    vs float64: kernel {r['err64'][0]:.3g}, plain {r['err64'][1]:.3g}")
@@ -245,10 +237,14 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
 def kernel_phase(gen) -> None:
     """Every kernel vs its plain version at the serving shapes that bound the
     path's range (a single request's 16 history rows, eight short and eight
-    600-long history rows; one request's 37 tokens and eight 600-token rows),
+    600-long history rows, and two and four rows of the 256 and 600 history
+    buckets between them; one request's 37 tokens and eight 600-token rows),
     in float32 and bfloat16, the GEGLU at D=1536, wider than a 1024 row, and
     the attention at the flat eval's [1, 8, 131072, 512] in float32."""
-    cases = [("latent_attention", (b, 8, l, 64, 512)) for b, l in ((1, 16), (8, 16), (8, 600))]
+    cases = [
+        ("latent_attention", (b, 8, l, 64, 512))
+        for b, l in ((1, 16), (8, 16), (2, 256), (4, 256), (2, 600), (4, 600), (8, 600))
+    ]
     cases += [("geglu", (c, DIM, 4 * DIM)) for c in (37, 4800)]
     cases += [("geglu", (37, 1536, 4 * 1536))]
     with torch.no_grad():
@@ -256,6 +252,9 @@ def kernel_phase(gen) -> None:
             for name, shape in cases:
                 measure(name, shape, dtype, gen)
         measure("latent_attention", (1, 8, 131072, 64, 512), torch.float32, gen)
+
+
+TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "library_device_ms")
 
 
 def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
@@ -273,10 +272,7 @@ def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
             record[name] = dict(
                 label=f"main path: {len(rows)} shapes, {sum(n for n, _ in rows)} launches, float32",
                 err=max(r["err"] for _, r in rows),
-                **{
-                    k: sum(n * r[k] for n, r in rows)
-                    for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
-                },
+                **{k: sum(n * r[k] for n, r in rows) for k in (*TIMES, "bound_ms")},
                 bound_by=max(by, key=by.get),
             )
             r = record[name]
@@ -284,7 +280,8 @@ def main_path_phase(shapes: dict, gen) -> dict[str, dict]:
                 f"  {name} summed over the main path's launches: kernel_ms {r['ms']:.4f} "
                 f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
                 f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share of bound {r['bound_ms'] / r['ms']:.1%}; "
-                f"call_ms {r['call_ms']:.4f}"
+                f"device: kernel {r['device_ms']:.4f} plain {r['plain_device_ms']:.4f} "
+                f"library {r['library_device_ms']:.4f}, share of bound {r['bound_ms'] / r['device_ms']:.1%}"
             )
     return record
 
@@ -480,6 +477,9 @@ def main() -> int:
             "bound_ms": record[name]["bound_ms"],
             "bound_by": record[name]["bound_by"],
             "library_ms": record[name]["library_ms"],
+            "device_ms": record[name]["device_ms"],
+            "plain_device_ms": record[name]["plain_device_ms"],
+            "library_device_ms": record[name]["library_device_ms"],
         }
         for name, meta in KERNELS.items()
     ]

@@ -586,6 +586,18 @@ NR_EXPORT int latent_attention_f32(const void* q, const void* k, const void* v, 
   return launch<float>(q, k, v, o, B, H, L, N, dh, rows, slices, slice_cols, device, stream);
 }
 
+// Shared memory of a block of `rows` rows at N latents (-1: no such shape),
+// for ops/latent_attention.py's planner to be checked against.
+NR_EXPORT int latent_attention_smem(int rows, int N, int bf16) {
+  switch (rows) {
+    case Large::BM: return bf16 ? smem_bytes<__nv_bfloat16, Large>(N) : smem_bytes<float, Large>(N);
+    case Medium::BM: return bf16 ? smem_bytes<__nv_bfloat16, Medium>(N) : smem_bytes<float, Medium>(N);
+    case Pair::BM: return bf16 ? smem_bytes<__nv_bfloat16, Pair>(N) : smem_bytes<float, Pair>(N);
+    case Small::BM: return bf16 ? smem_bytes<__nv_bfloat16, Small>(N) : smem_bytes<float, Small>(N);
+    default: return -1;
+  }
+}
+
 NR_EXPORT int latent_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int L, int N, int dh, int rows, int slices,
                                     int slice_cols, int device, void* stream) {

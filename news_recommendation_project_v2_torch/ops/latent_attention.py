@@ -25,7 +25,9 @@ _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # csrc/latent_attention.cu's block shapes by their rows (Large, Medium,
 # Pair, Small): the warps that split a logits stage's dh and a P.V stage's
 # columns, the latents of a P.V stage, the warps of a block and the blocks
-# an SM holds. Then the constants its shared memory is laid out by.
+# an SM holds. Then the constants its shared memory is laid out by. The CUDA
+# source exports its own layout (``kernel_smem``); a card test holds
+# ``attention_smem`` to it for every block shape, N and type.
 SHAPES = {128: (1, 32, 4, 2), 64: (1, 32, 4, 3), 32: (4, 16, 8, 1), 16: (4, 16, 4, 2)}
 ROWS = tuple(SHAPES)
 SLICE_COLS = 16  # a slice of dh is a whole number of these columns
@@ -133,6 +135,29 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.einsum("bhln,hnd->bhld", probs, v.float()).to(q.dtype)
 
 
+def _launch(q, k, v, out, rows: int, slices: int, slice_cols: int) -> None:
+    """The kernel into ``out`` under the plan (rows, slices, slice_cols), on
+    q's device and its current stream; raises if the launcher refuses. The
+    wrapper checks the tensors first; the plan sweep and the card tests call
+    it with plans of their own."""
+    b, h, l, dh = q.shape
+    index = q.get_device()
+    code = _launcher(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, l, k.shape[1], dh, rows, slices, slice_cols, index,
+        torch._C._cuda_getCurrentRawStream(index),  # the current stream's handle
+    )
+    _build.check("latent_attention", code)
+
+
+def kernel_smem(rows: int, n: int, dtype: torch.dtype) -> int:
+    """Shared memory of a block of ``rows`` rows as the CUDA source lays it
+    out (-1: no such block shape), to hold ``attention_smem`` to it on the
+    card."""
+    fn = _build.function("latent_attention", "latent_attention_smem", [ctypes.c_int] * 3)
+    return fn(rows, n, int(dtype == torch.bfloat16))
+
+
 def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``latent_attention.launches`` counts the kernel launches and
@@ -154,14 +179,8 @@ def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    index = q.get_device()
-    p = _plan(b, h, l, n, dh, q.dtype, _sm_count(index))
-    code = _launcher(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, l, n, dh, p.rows, p.slices, p.slice_cols, index,
-        torch._C._cuda_getCurrentRawStream(index),  # the current stream's handle
-    )
-    _build.check("latent_attention", code)
+    p = _plan(b, h, l, n, dh, q.dtype, _sm_count(q.get_device()))
+    _launch(q, k, v, out, p.rows, p.slices, p.slice_cols)
     latent_attention.launches += 1
     latent_attention.shapes[(b, h, l, n, dh)] += 1
     return out

@@ -18,34 +18,16 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .latent_attention import _ARGTYPES, _SYMBOLS, ROWS, SLICE_COLS, plan_attention, reference_attention
+from .latent_attention import ROWS, SLICE_COLS, _launch, plan_attention, reference_attention
+from .timing import graph_ms
 
-SHAPES = [(1, 8, 16), (1, 8, 64), (1, 8, 128), (1, 8, 256), (8, 8, 64), (4, 8, 300), (8, 8, 600)]
-
-
-def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:
-    """Mean device time of ``fn``: ``reps`` calls captured in one CUDA graph
-    and replayed ``rounds`` times, so that the host's launch costs are left
-    out. ``fn`` must launch on the current stream."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    graph.replay()
-    start.record()
-    for _ in range(rounds):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * rounds)
+# (B, H, L) at N=64, dh=512: a single request's history buckets, then B·L
+# from 512 to 4,800 folded rows, the served buckets 256 and 600 at moderate B
+# among them.
+SHAPES = [
+    (1, 8, 16), (1, 8, 64), (1, 8, 128), (1, 8, 256), (8, 8, 64), (2, 8, 256), (4, 8, 256),
+    (2, 8, 600), (4, 8, 300), (4, 8, 600), (8, 8, 600),
+]
 
 
 def sweep(shape, dtype, gen) -> str:
@@ -56,7 +38,6 @@ def sweep(shape, dtype, gen) -> str:
     )
     out = torch.empty_like(q)
     want = reference_attention(q, k, v).float()
-    fn = _build.function("latent_attention", _SYMBOLS[dtype], _ARGTYPES)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = plan_attention(b, h, l, n, dh, dtype, sms)
     steps = -(-dh // SLICE_COLS)
@@ -68,9 +49,7 @@ def sweep(shape, dtype, gen) -> str:
             width = -(-steps // slices) * SLICE_COLS
 
             def call(rows=rows, slices=slices, width=width):
-                code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, n, dh,
-                          rows, slices, width, 0, torch.cuda.current_stream().cuda_stream)
-                _build.check("latent_attention", code)
+                _launch(q, k, v, out, rows, slices, width)
 
             call()
             torch.cuda.synchronize()
@@ -81,7 +60,8 @@ def sweep(shape, dtype, gen) -> str:
     best = sorted(times.items(), key=lambda kv: kv[1][0])[:4]
     return (
         f"{str(dtype)[6:]} B={b} H={h} L={l} N={n} dh={dh}: library {library:.4f} ms; "
-        f"plan rows={plan.rows} S={plan.slices} {times[(plan.rows, plan.slices)][0]:.4f} ms; fastest "
+        f"plan rows={plan.rows} S={plan.slices} {times[(plan.rows, plan.slices)][0]:.4f} ms "
+        f"({times[(plan.rows, plan.slices)][0] / library:.2f}x the library); fastest "
         + ", ".join(f"rows={r} S={s} {t:.4f} ms (err {e:.2g})" for (r, s), (t, e) in best)
     )
 

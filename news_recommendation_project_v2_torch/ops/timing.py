@@ -1,0 +1,49 @@
+"""Two ways to time a call on the card, for the smoke run and the plan sweep.
+
+``cuda_ms`` times calls back to back, host work included: where a call's
+host work outlasts its device work, it reads the host's time per call.
+``graph_ms`` captures calls in one CUDA graph and replays it, so that the
+host's launch costs are left out: the device time, with the inputs of one
+call warm in L2 for the next.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean time of ``fn`` over ``iters`` calls back to back, after a warm-up,
+    on CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Mean device time of ``fn``: ``reps`` calls captured in one CUDA graph
+    and replayed ``rounds`` times. ``fn`` must launch on the current stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * rounds)

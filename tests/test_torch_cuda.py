@@ -19,12 +19,13 @@ from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
     random_latent_params,
 )
-from news_recommendation_project_v2_torch.ops import _build
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
 from news_recommendation_project_v2_torch.ops.latent_attention import (
-    _ARGTYPES,
-    _SYMBOLS,
+    MAX_N,
     ROWS,
+    _launch,
+    attention_smem,
+    kernel_smem,
     latent_attention,
     plan_attention,
     reference_attention,
@@ -98,15 +99,20 @@ def test_attention_plan_splits_where_rows_cannot_fill(cuda, shape, split):
 
 def _launch_attention(q, k, v, rows, slices, slice_cols):
     """The kernel under a plan of the caller's choosing, past the planner."""
-    b, h, l, dh = q.shape
     out = torch.empty_like(q)
-    fn = _build.function("latent_attention", _SYMBOLS[q.dtype], _ARGTYPES)
-    code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l, k.shape[1], dh,
-        rows, slices, slice_cols, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check("latent_attention", code)
+    _launch(q, k, v, out, rows, slices, slice_cols)
     return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_planner_shared_memory_matches_the_kernel(cuda, dtype):
+    """The planner's ``attention_smem`` is the CUDA source's own layout for
+    every block shape and N, so the planner never picks a shape the launcher
+    refuses nor passes over one that fits."""
+    for rows in ROWS:
+        for n in range(1, MAX_N + 1):
+            assert attention_smem(rows, n, dtype) == kernel_smem(rows, n, dtype), (rows, n)
+    assert kernel_smem(48, 64, dtype) == -1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
