@@ -1,13 +1,53 @@
-"""Per-impression dense ranking over flat segments (host-side numpy)."""
+"""Ragged <-> flat segment helpers and per-impression dense ranking
+(host-side numpy)."""
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
+
+
+def lengths_to_offsets(lengths: np.ndarray) -> np.ndarray:
+    """[n] lengths -> [n+1] exclusive cumsum offsets."""
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
 
 
 def lengths_to_segment_ids(lengths: np.ndarray) -> np.ndarray:
     """[n] lengths -> [sum] int32 segment id per flat slot."""
     return np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+
+
+def truncate_flat_end_aligned(
+    flat: np.ndarray, lengths: np.ndarray, max_len: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Cap each segment of a flat ragged array at its most recent ``max_len``
+    items: returns the new flat array and per-segment lengths. No-op (the
+    same array) when nothing exceeds the cap."""
+    lengths = np.asarray(lengths)
+    if not len(lengths) or not (lengths > max_len).any():
+        return np.asarray(flat), lengths
+    offsets = lengths_to_offsets(lengths)
+    keep = np.minimum(lengths, max_len).astype(np.int64)
+    starts = offsets[1:] - keep  # end-aligned: the most recent items
+    keep_off = lengths_to_offsets(keep)
+    sel = np.repeat(starts, keep) + (np.arange(keep_off[-1]) - np.repeat(keep_off[:-1], keep))
+    return np.asarray(flat)[sel], keep
+
+
+def group_items(
+    items: np.ndarray,
+    counts: np.ndarray,
+    func: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+) -> np.ndarray:
+    """Split a flat array into a per-segment object array, optionally mapping
+    ``func`` over each segment."""
+    offsets = lengths_to_offsets(counts)
+    out = np.empty(len(counts), dtype=object)
+    for i in range(len(counts)):
+        seg = items[offsets[i] : offsets[i + 1]]
+        out[i] = func(seg) if func is not None else seg
+    return out
 
 
 def dense_rank_by_segment(scores: np.ndarray, counts: np.ndarray) -> np.ndarray:

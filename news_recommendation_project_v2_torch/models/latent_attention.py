@@ -66,6 +66,9 @@ class CrossAttention(nn.Module):
         k = k.reshape(n, hd, dh).permute(1, 0, 2).contiguous()
         v = v.reshape(n, hd, dh).permute(1, 0, 2).contiguous()
         ctx = latent_attention(q, k, v)  # [B, H, L, dh]
+        # q goes before the output's permuted copy is made: at the flat
+        # eval's chunks each of these blocks is gigabytes.
+        del q
         ctx = ctx.permute(0, 2, 1, 3).reshape(b, l, hd * dh)
         return F.linear(ctx, self.to_out.weight.to(cdt))
 
@@ -117,6 +120,7 @@ class LatentAttentionTower(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dim = dim  # the width of the per-token states and the pooled vector
         self.output_normalize = output_normalize
         self.latents = nn.Parameter(torch.randn(num_latents, dim))
         self.cross_attend_blocks = nn.ModuleList(

@@ -35,6 +35,9 @@ def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    # The graph allocates from a pool of its own: hand the warm-up's cached
+    # blocks back first, so a call of tens of GB still has room there.
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):

@@ -1,5 +1,5 @@
-"""Analytic batch sizing for serving: batch caps come from arithmetic on the
-shapes against the device's memory, not from probing for out-of-memory."""
+"""Analytic batch sizing: batch caps and chunk sizes come from arithmetic on
+the shapes against the device's memory, not from probing for out-of-memory."""
 
 from __future__ import annotations
 
@@ -7,9 +7,13 @@ from typing import Optional
 
 import torch
 
+from ..config import TowerConfig
+
 # The budget when the device reports none (the CPU): 16 GiB, as in the JAX
 # package.
 DEFAULT_BUDGET_BYTES = 16 * 1024**3
+
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
 def _budget(
@@ -28,6 +32,55 @@ def _floor_pow2(x: int, lo: int = 1024) -> int:
     while p * 2 <= x:
         p *= 2
     return p
+
+
+def flat_token_bytes(config: TowerConfig, bytes_per_el: Optional[int] = None) -> int:
+    """Per-token activation bytes of the flat scoring path
+    (``ops.scoring.FlatEvalPlan``): the widest of the GEGLU input (8·D) and
+    the q and attention-output blocks (2 × heads·dim_head), plus four D-wide
+    rows and the attention's per-token probabilities, at ``compute_dtype``'s
+    element size.
+
+    The port holds less at once: the gathered row and its LayerNorm (2·D,
+    the LayerNorm in float32 whatever the compute type) plus two
+    heads·dim_head blocks (q and its permuted copy, or the attention's
+    output and its permuted copy). The GEGLU's row-chunk scratch (at most
+    64 MB, ``ops.geglu.SCRATCH_LIMIT``) comes on top. PERF.md gives the
+    measured peak beside this model."""
+    b = bytes_per_el if bytes_per_el is not None else _DTYPE_BYTES.get(config.compute_dtype, 4)
+    if config.kind != "latent":
+        raise ValueError("flat scoring applies to token-local towers only")
+    d = config.reduced_dim
+    inner = config.num_heads * config.latent_dim_head
+    widest = max(8 * d, 2 * inner)
+    return (widest + 4 * d + config.num_heads * config.num_latents) * b
+
+
+def estimate_flat_chunk(
+    config: TowerConfig,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    bytes_per_el: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> int:
+    """Token-chunk size of the flat scoring path: ``fraction`` of the
+    device's memory over ``flat_token_bytes``, floored to a power of two so
+    chunk shapes are stable across datasets."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    return _floor_pow2(budget // max(flat_token_bytes(config, bytes_per_el), 1))
+
+
+def estimate_metric_rows(
+    max_len: int,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.125,
+    device: Optional[torch.device] = None,
+) -> int:
+    """Row-chunk size of the on-device metric pass (``eval.device_metrics``):
+    a row holds about sixteen [L]-wide float32 temporaries (the sort, the
+    tie-group cumulatives, the gains), floored to a power of two."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    return _floor_pow2(budget // max(16 * 4 * max(max_len, 1), 1), lo=64)
 
 
 def estimate_serve_batch_cap(

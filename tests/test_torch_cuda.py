@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from news_recommendation_project_v2_torch.config import TowerConfig
+from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
@@ -30,6 +31,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
+from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -242,6 +244,124 @@ def test_kernels_refuse_autograd(cuda):
     w_out, b_out = torch.randn(8, 16, device=cuda), torch.randn(8, device=cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
         geglu(x, w_in, b_in, w_out, b_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_past_2_31_elements(cuda, dtype):
+    """The flat eval's bfloat16 chunk gives q [1, 8, 524288, 512], 2^31
+    elements: one chunk more of rows puts every offset of the last head past
+    what 32 bits hold. Row pieces at both ends and across the middle match
+    the plain version."""
+    l = (1 << 19) + 128
+    q, k, v = _attention_args((1, 8, l, 64, 512), dtype, cuda)
+    assert q.numel() > 2**31
+    got = latent_attention(q, k, v)
+    for a in (0, (1 << 18) - 2048, l - 4096):
+        want = reference_attention(q[:, :, a : a + 4096], k, v)
+        torch.testing.assert_close(
+            got[:, :, a : a + 4096].float(), want.float(), rtol=0, atol=_attention_tol(want, dtype)
+        )
+
+
+def test_geglu_at_the_flat_chunk(cuda):
+    """C past the bfloat16 flat chunk of 524,288 rows (float32, so the
+    comparison has no bfloat16 rounding ties): the planner's row chunks at
+    the start, the middle and the end match the plain version."""
+    c = (1 << 19) + 64
+    x, w_in, b_in, w_out, b_out = _geglu_args((c, 1024, 4096), torch.float32, cuda)
+    got = geglu(x, w_in, b_in, w_out, b_out)
+    for a in (0, c // 2 - 1000, c - 2048):
+        want = reference_geglu(x[a : a + 2048], w_in, b_in, w_out, b_out)
+        torch.testing.assert_close(got[a : a + 2048], want, rtol=0, atol=1e-4)
+
+
+def _flat_world(cfg, rows=48, news=300, seed=0):
+    """A small MIND-like workload (histories straddling 256-token chunks),
+    a news table and the tower's weights."""
+    rng = np.random.default_rng(seed)
+    hist_lens = np.minimum(rng.geometric(1 / 20, rows), 200).astype(np.int32)
+    imp_lens = np.clip(rng.poisson(10, rows), 2, 40).astype(np.int32)
+    labels = (rng.random(int(imp_lens.sum())) < 0.3).astype(np.float32)
+    ends = np.cumsum(imp_lens)
+    labels[ends - imp_lens], labels[ends - 1] = 1.0, 0.0
+    return dict(
+        hist=(
+            rng.integers(0, news, int(hist_lens.sum())),
+            hist_lens,
+            rng.integers(0, news, int(imp_lens.sum())),
+            np.repeat(np.arange(rows), imp_lens),
+        ),
+        imp_lens=imp_lens,
+        labels=labels,
+        emb=(rng.standard_normal((news, cfg.reduced_dim)) * 0.5).astype(np.float32),
+        state=latent_state_dict_from_jax(random_latent_params(rng, cfg)),
+    )
+
+
+def _flat_tower(cfg, state, device):
+    tower = build_tower(cfg).to(device)
+    tower.load_state_dict(state)
+    return tower
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16), TowerConfig()],
+    ids=["small", "full_width"],
+)
+def test_flat_eval_on_cuda_matches_cpu(cuda, cfg):
+    """FlatEvalPlan on the card (both kernels, every chunk) against the same
+    plan on the CPU (plain versions); its metrics against DeviceMetricsPlan
+    over its own scores."""
+    w = _flat_world(cfg)
+    chunks = dict(chunk_tokens=256, cand_chunk=128)
+    before = latent_attention.launches, geglu.launches
+    plan = FlatEvalPlan(*w["hist"], device=cuda, **chunks)
+    got = plan.score(_flat_tower(cfg, w["state"], cuda), w["emb"])
+    n_chunks = len(plan.history.chunks)
+    assert n_chunks > 3
+    assert (latent_attention.launches, geglu.launches) == (before[0] + n_chunks, before[1] + n_chunks)
+    want = FlatEvalPlan(*w["hist"], device="cpu", **chunks).score(_flat_tower(cfg, w["state"], "cpu"), w["emb"])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    mplan = DeviceMetricsPlan(w["imp_lens"], w["labels"], hist_slots=np.arange(len(got)), device=cuda)
+    m = plan.metrics(_flat_tower(cfg, w["state"], cuda), w["emb"], mplan)
+    direct = mplan.compute(got)
+    for key in ("auc", "mrr", "ndcg5", "ndcg10"):
+        assert abs(m[key] - direct[key]) <= 1e-6, key
+
+
+def test_flat_segment_add_is_deterministic(cuda):
+    """The pool's segment-add sums each row's run in order and adds each row
+    once a chunk (no atomics race on a row): two runs give the same bits,
+    with rows straddling 64-token chunks."""
+    cfg = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
+    w = _flat_world(cfg, rows=200, seed=1)
+    tower = _flat_tower(cfg, w["state"], cuda)
+    plan = FlatEvalPlan(*w["hist"], chunk_tokens=64, cand_chunk=512, device=cuda)
+    first, second = plan.score(tower, w["emb"]), plan.score(tower, w["emb"])
+    assert first.tobytes() == second.tobytes()
+
+
+def test_flat_metrics_sync_the_host_once(cuda):
+    """FlatEvalPlan.metrics waits for the card once, for its five sums."""
+    import warnings
+
+    cfg = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
+    w = _flat_world(cfg)
+    tower = _flat_tower(cfg, w["state"], cuda)
+    emb = torch.from_numpy(w["emb"]).to(cuda)
+    plan = FlatEvalPlan(*w["hist"], chunk_tokens=256, device=cuda)
+    mplan = DeviceMetricsPlan(w["imp_lens"], w["labels"], hist_slots=np.arange(len(w["labels"])), device=cuda)
+    plan.metrics(tower, emb, mplan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plan.metrics(tower, emb, mplan, alpha=0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchroniz" in str(c.message) for c in caught) == 1
 
 
 @pytest.mark.parametrize(

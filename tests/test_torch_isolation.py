@@ -13,7 +13,9 @@ import torch
 
 import news_recommendation_project_v2_torch as port
 from news_recommendation_project_v2_torch.cli.serve import build_ranker
+from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import average_pool
+from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 from news_recommendation_project_v2_torch.serve import Ranker
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -81,3 +83,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_ranker(tmp_path, "dev")
     assert Ranker(average_pool, emb, ids, device="cpu").device.type == "cpu"
+    flat = ([0, 1, 2], [2, 1], [3, 0], [0, 1])  # hist_rev, hist_lens, cand_rev, cand_row
+    metric = ([1, 1], [1.0, 0.0])  # imp_lens, labels
+    for entry in (FlatEvalPlan, DeviceMetricsPlan):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(*(flat if entry is FlatEvalPlan else metric))
+    assert FlatEvalPlan(*flat, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="single label class"):
+        DeviceMetricsPlan(*metric, device="cpu")  # checked after the device
+    assert DeviceMetricsPlan([2], [1.0, 0.0], device="cpu").device.type == "cpu"
