@@ -38,11 +38,13 @@ Phases, one line or a few each, exit code non-zero on any failure:
               peak memory, each kernel's launches and shapes (counts set to
               0 just before one metrics run and read just after),
               impressions/s of three timed runs of each, a profiled metrics
-              run and its host syncs. Checks: 1 both kernels launched; 2 64
-              rows match the same plan on the CPU (1e-4); 3 score runs are
-              bit-identical; 4 metrics equal DeviceMetricsPlan.compute of
-              the scores (1e-6); 5 64 rows match the tower's padded, masked
-              call (1e-5); 6 bfloat16 within a norm-relative 3e-2 of
+              run and its host syncs. Checks: 1 both kernels launched; 2
+              about 64 rows centred on the float32 chunk boundaries, some
+              straddling two chunks, match the same plan on the CPU (1e-4);
+              3 score runs are bit-identical; 4 metrics equal
+              DeviceMetricsPlan.compute of the scores (1e-6); 5 the same
+              rows match the tower's padded, masked call (1e-5); 6 bfloat16
+              within a norm-relative 3e-2 of
               float32. Then each kernel against its plain version at every
               shape the flat eval launched it at, as in phase 5 (the plain
               versions on pieces of at most PIECE_ROWS rows).
@@ -62,7 +64,6 @@ import sys
 import threading
 import time
 import urllib.request
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -74,6 +75,7 @@ sys.path.insert(0, str(ROOT))
 
 from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
 from news_recommendation_project_v2_torch.config import TowerConfig  # noqa: E402
+from news_recommendation_project_v2_torch.data.grouping import lengths_to_offsets  # noqa: E402
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan  # noqa: E402
 from news_recommendation_project_v2_torch.models import build_tower  # noqa: E402
 from news_recommendation_project_v2_torch.models.convert import (  # noqa: E402
@@ -88,7 +90,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
     reference_attention,
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan  # noqa: E402
-from news_recommendation_project_v2_torch.ops.timing import cuda_ms, graph_ms  # noqa: E402
+from news_recommendation_project_v2_torch.ops.timing import count_syncs, cuda_ms, graph_ms  # noqa: E402
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
     estimate_flat_chunk,
     flat_token_bytes,
@@ -503,17 +505,27 @@ def serve_phase(device: str, work_dir: Path, num_news: int, tower_config: TowerC
     return dict(launches=total, shapes=shapes, rps=rps, cpu_diff=diff)
 
 
-def count_syncs(fn) -> int:
-    """How many times ``fn`` made the host wait for the card (PyTorch's sync
-    debug mode warns at each synchronizing call)."""
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+def boundary_rows(hist_lens: np.ndarray, chunk: int, n: int = 64) -> np.ndarray:
+    """About ``n`` rows, ascending, centred on the flat eval's token-chunk
+    boundaries: the rows whose tokens straddle two chunks, where the pool
+    carries a row's sum from one chunk into the next, and their neighbours."""
+    ends = np.cumsum(hist_lens)
+    cuts = np.arange(chunk, int(ends[-1]), chunk)
+    if not len(cuts):
+        return np.arange(min(n, len(hist_lens)))
+    half = max(1, n // (2 * len(cuts)))
+    mid = np.searchsorted(ends, cuts, side="right")  # the row holding token ``cut``
+    return np.unique(np.clip(mid[:, None] + np.arange(-half, half), 0, len(hist_lens) - 1))
+
+
+def take_rows(rows, hist_rev, hist_lens, cand_rev, imp_lens) -> tuple[tuple, np.ndarray]:
+    """The flat arrays of ``rows`` alone (candidate rows numbered 0 up), and
+    the positions of their candidate slots in the whole workload's."""
+    h_off, c_off = lengths_to_offsets(hist_lens), lengths_to_offsets(imp_lens)
+    hist = np.concatenate([np.arange(h_off[r], h_off[r + 1]) for r in rows])
+    slots = np.concatenate([np.arange(c_off[r], c_off[r + 1]) for r in rows])
+    cand_row = np.repeat(np.arange(len(rows)), imp_lens[rows])
+    return (hist_rev[hist], hist_lens[rows], cand_rev[slots], cand_row), slots
 
 
 def padded_scores(tower, emb, hist_rev, hist_lens, cand_rev, cand_row) -> np.ndarray:
@@ -629,18 +641,22 @@ def flat_eval_run(dtype, state: dict, emb: torch.Tensor, mplan, work: tuple) -> 
         raise AssertionError(f"check 4: {direct} vs {results[0]}")
 
     if dtype == torch.float32:
-        n = 64
-        tokens, slots = int(hist_lens[:n].sum()), int(imp_lens[:n].sum())
-        head = (hist_rev[:tokens], hist_lens[:n], cand_rev[:slots], cand_row[:slots])
+        rows = boundary_rows(hist_lens, chunk)
+        sub, slots = take_rows(rows, hist_rev, hist_lens, cand_rev, imp_lens)
+        ends = np.cumsum(hist_lens)
+        cuts = np.arange(chunk, int(ends[-1]), chunk)
+        straddle = sum(bool(((ends[r] - hist_lens[r] < cuts) & (cuts < ends[r])).any()) for r in rows)
+        which = f"{len(rows)} rows about the {len(cuts)} chunk boundaries ({straddle} straddle one)"
+        card = scores[0][slots]
         cpu_tower = build_tower(cfg)
         cpu_tower.load_state_dict(state)
-        cpu = FlatEvalPlan(*head, chunk_tokens=1024, cand_chunk=1024, device="cpu").score(cpu_tower, emb.cpu())
-        diff = np.abs(cpu - scores[0][:slots]).max()
-        log(f"  check 2: {n} rows' scores vs the same FlatEvalPlan on the CPU: max difference {diff:.3g} (tol 1e-4)")
-        if not diff <= 1e-4:
-            raise AssertionError(f"check 2: card and CPU differ by {diff}")
-        diff = np.abs(padded_scores(tower, emb, *head) - scores[0][:slots]).max()
-        log(f"  check 5: {n} rows' flat scores vs the padded, masked tower call: max difference {diff:.3g} (tol 1e-5)")
+        cpu = FlatEvalPlan(*sub, chunk_tokens=1024, cand_chunk=1024, device="cpu").score(cpu_tower, emb.cpu())
+        diff = np.abs(cpu - card).max()
+        log(f"  check 2: {which}: scores vs the same FlatEvalPlan on the CPU: max difference {diff:.3g} (tol 1e-4)")
+        if not (straddle and diff <= 1e-4):
+            raise AssertionError(f"check 2: card and CPU differ by {diff}; {straddle} rows straddle a chunk")
+        diff = np.abs(padded_scores(tower, emb, *sub) - card).max()
+        log(f"  check 5: {which}: flat scores vs the padded, masked tower call: max difference {diff:.3g} (tol 1e-5)")
         if not diff <= 1e-5:
             raise AssertionError(f"check 5: flat and padded paths differ by {diff}")
     return dict(

@@ -8,7 +8,6 @@ from typing import Optional
 EMBEDDING_DIM = 1024
 REDUCED_DIM = EMBEDDING_DIM
 IMPRESSION_MAXLEN = 600
-NUM_WORKERS = 4  # threads of the host metric suite (eval.metrics.score_batch)
 
 # Static shape buckets: ragged history / impression lengths pad up to the
 # nearest bucket, so the serving path sees a small, fixed set of shapes.

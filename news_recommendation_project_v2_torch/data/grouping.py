@@ -3,8 +3,6 @@
 
 from __future__ import annotations
 
-from typing import Callable, Optional
-
 import numpy as np
 
 
@@ -35,18 +33,12 @@ def truncate_flat_end_aligned(
     return np.asarray(flat)[sel], keep
 
 
-def group_items(
-    items: np.ndarray,
-    counts: np.ndarray,
-    func: Optional[Callable[[np.ndarray], np.ndarray]] = None,
-) -> np.ndarray:
-    """Split a flat array into a per-segment object array, optionally mapping
-    ``func`` over each segment."""
+def group_items(items: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Split a flat array into a per-segment object array."""
     offsets = lengths_to_offsets(counts)
     out = np.empty(len(counts), dtype=object)
     for i in range(len(counts)):
-        seg = items[offsets[i] : offsets[i + 1]]
-        out[i] = func(seg) if func is not None else seg
+        out[i] = items[offsets[i] : offsets[i + 1]]
     return out
 
 

@@ -266,10 +266,14 @@ class DeviceMetricsPlan:
         self, hist_scores: Optional[torch.Tensor], alpha: Union[None, float, torch.Tensor] = None
     ) -> torch.Tensor:
         """Composition with this plan's constants (``compose_scores``);
-        ``alpha`` overrides the plan's."""
-        return compose_scores(
-            self.baseline, self.hist_slots, hist_scores, alpha=self.alpha if alpha is None else alpha
-        )
+        ``alpha`` overrides the plan's. A numeric alpha becomes a float32
+        scalar on the device by a fill, not a copy from the host: no sync."""
+        alpha = self.alpha if alpha is None else alpha
+        if isinstance(alpha, torch.Tensor):
+            alpha = alpha.to(self.device, torch.float32)
+        elif alpha is not None:
+            alpha = torch.full((), float(alpha), dtype=torch.float32, device=self.device)
+        return compose_scores(self.baseline, self.hist_slots, hist_scores, alpha=alpha)
 
     @staticmethod
     def finalize(sums) -> dict[str, float]:

@@ -13,10 +13,14 @@ a candidate's metric score is ``1/rank``.
 from __future__ import annotations
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
+
+_ROW_CHUNK = 256  # rows one thread scores at a time
+_WORKERS = 4
 
 # ---------------------------------------------------------------------------
 # Per-row formulas (cross-checks and tiny inputs).
@@ -157,46 +161,23 @@ def _score_chunk(
 
 
 def score_batch(
-    scores: np.ndarray,
-    labels: np.ndarray,
-    lens: np.ndarray,
-    chunk: int = 256,
-    num_workers: Optional[int] = None,
+    scores: np.ndarray, labels: np.ndarray, lens: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized (auc, mrr, ndcg5, ndcg10) per row over padded matrices.
 
     ``scores`` is [N, L] padded with -inf; ``labels`` [N, L] padded with 0;
-    ``lens`` [N] real lengths. Chunks of rows fan out to ``num_workers``
-    threads (default ``config.NUM_WORKERS``): the work is numpy, which
-    releases the GIL.
+    ``lens`` [N] real lengths. Chunks of ``_ROW_CHUNK`` rows fan out to
+    ``_WORKERS`` threads: the work is numpy, which releases the GIL.
     """
-    from ..config import NUM_WORKERS
-
-    n, _ = scores.shape
+    n = scores.shape[0]
     out = (np.empty(n), np.empty(n), np.empty(n), np.empty(n))
-    starts = range(0, n, chunk)
-    workers = NUM_WORKERS if num_workers is None else num_workers
-    if workers <= 1 or len(starts) <= 1:
-        for a in starts:
-            b = min(a + chunk, n)
-            _score_chunk(scores[a:b], labels[a:b], lens[a:b], a, out)
-    else:
-        from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            futures = [
-                pool.submit(
-                    _score_chunk,
-                    scores[a : min(a + chunk, n)],
-                    labels[a : min(a + chunk, n)],
-                    lens[a : min(a + chunk, n)],
-                    a,
-                    out,
-                )
-                for a in starts
-            ]
-            for f in futures:
-                f.result()  # re-raises a single-class ValueError here
+    def run(a: int) -> None:
+        b = min(a + _ROW_CHUNK, n)
+        _score_chunk(scores[a:b], labels[a:b], lens[a:b], a, out)
+
+    with ThreadPoolExecutor(max_workers=_WORKERS) as pool:
+        list(pool.map(run, range(0, n, _ROW_CHUNK)))  # re-raises a single-class ValueError
     return out
 
 

@@ -26,7 +26,7 @@ import torch
 
 from ..data.grouping import truncate_flat_end_aligned
 from ..device import resolve_device
-from ..eval.device_metrics import DeviceMetricsPlan, compose_scores, metric_sums
+from ..eval.device_metrics import DeviceMetricsPlan, metric_sums
 
 DEFAULT_FLAT_CHUNK = 64 * 1024
 EPS = 1e-8  # cosine norm clamp
@@ -202,14 +202,7 @@ class FlatEvalPlan:
         overrides the plan's blend weight."""
         if not _same_device(metrics_plan.device, self.device):
             raise ValueError(f"the metrics plan lies on {metrics_plan.device}, this plan on {self.device}")
-        scores = self._scores(tower, news_emb, query_news_emb, normalize)
-        if alpha is None:
-            alpha = metrics_plan.alpha
-        if isinstance(alpha, torch.Tensor):
-            alpha = alpha.to(self.device, torch.float32)
-        elif alpha is not None:  # a fill, not a copy from the host: no sync
-            alpha = torch.full((), float(alpha), dtype=torch.float32, device=self.device)
-        full = compose_scores(metrics_plan.baseline, metrics_plan.hist_slots, scores, alpha=alpha)
+        full = metrics_plan.compose(self._scores(tower, news_emb, query_news_emb, normalize), alpha)
         return metrics_plan.finalize(metric_sums(full, metrics_plan.grids).tolist())
 
 

@@ -1,4 +1,5 @@
-"""Two ways to time a call on the card, for the smoke run and the plan sweep.
+"""Measures of a call on the card, for the smoke run, the plan sweep and the
+card tests: two timers, and a count of the host's waits.
 
 ``cuda_ms`` times calls back to back, host work included: where a call's
 host work outlasts its device work, it reads the host's time per call.
@@ -8,6 +9,8 @@ call warm in L2 for the next.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -50,3 +53,16 @@ def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * rounds)
+
+
+def count_syncs(fn) -> int:
+    """How many times ``fn`` made the host wait for the card (PyTorch's sync
+    debug mode warns at each synchronizing call)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)

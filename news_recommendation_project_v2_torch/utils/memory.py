@@ -34,7 +34,7 @@ def _floor_pow2(x: int, lo: int = 1024) -> int:
     return p
 
 
-def flat_token_bytes(config: TowerConfig, bytes_per_el: Optional[int] = None) -> int:
+def flat_token_bytes(config: TowerConfig) -> int:
     """Per-token activation bytes of the flat scoring path
     (``ops.scoring.FlatEvalPlan``): the widest of the GEGLU input (8·D) and
     the q and attention-output blocks (2 × heads·dim_head), plus four D-wide
@@ -47,7 +47,7 @@ def flat_token_bytes(config: TowerConfig, bytes_per_el: Optional[int] = None) ->
     output and its permuted copy). The GEGLU's row-chunk scratch (at most
     64 MB, ``ops.geglu.SCRATCH_LIMIT``) comes on top. PERF.md gives the
     measured peak beside this model."""
-    b = bytes_per_el if bytes_per_el is not None else _DTYPE_BYTES.get(config.compute_dtype, 4)
+    b = _DTYPE_BYTES.get(config.compute_dtype, 4)
     if config.kind != "latent":
         raise ValueError("flat scoring applies to token-local towers only")
     d = config.reduced_dim
@@ -60,14 +60,13 @@ def estimate_flat_chunk(
     config: TowerConfig,
     hbm_budget_bytes: Optional[int] = None,
     fraction: float = 0.25,
-    bytes_per_el: Optional[int] = None,
     device: Optional[torch.device] = None,
 ) -> int:
     """Token-chunk size of the flat scoring path: ``fraction`` of the
     device's memory over ``flat_token_bytes``, floored to a power of two so
     chunk shapes are stable across datasets."""
     budget = _budget(hbm_budget_bytes, fraction, device)
-    return _floor_pow2(budget // max(flat_token_bytes(config, bytes_per_el), 1))
+    return _floor_pow2(budget // max(flat_token_bytes(config), 1))
 
 
 def estimate_metric_rows(

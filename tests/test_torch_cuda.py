@@ -32,6 +32,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     reference_attention,
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
+from news_recommendation_project_v2_torch.ops.timing import count_syncs
 
 pytestmark = pytest.mark.cuda
 
@@ -344,8 +345,6 @@ def test_flat_segment_add_is_deterministic(cuda):
 
 def test_flat_metrics_sync_the_host_once(cuda):
     """FlatEvalPlan.metrics waits for the card once, for its five sums."""
-    import warnings
-
     cfg = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
     w = _flat_world(cfg)
     tower = _flat_tower(cfg, w["state"], cuda)
@@ -354,14 +353,7 @@ def test_flat_metrics_sync_the_host_once(cuda):
     mplan = DeviceMetricsPlan(w["imp_lens"], w["labels"], hist_slots=np.arange(len(w["labels"])), device=cuda)
     plan.metrics(tower, emb, mplan)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            plan.metrics(tower, emb, mplan, alpha=0.5)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert sum("synchroniz" in str(c.message) for c in caught) == 1
+    assert count_syncs(lambda: plan.metrics(tower, emb, mplan, alpha=0.5)) == 1
 
 
 @pytest.mark.parametrize(
