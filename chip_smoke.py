@@ -48,11 +48,34 @@ Phases, one line or a few each, exit code non-zero on any failure:
               float32. Then each kernel against its plain version at every
               shape the flat eval launched it at, as in phase 5 (the plain
               versions on pieces of at most PIECE_ROWS rows).
-The line before the last but one holds the kernels' record as JSON, one
-entry per kernel and path ("path": "serve" from phase 5, "flat_eval" from
-phase 6); the line before the last the card's name and power limit; the last
-line is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
-result.
+  7. train:   training at full width in float32. 7a: one flat batch at B=64
+              (T = 2,048): the margin and InfoNCE losses and every
+              parameter's gradient on the card against the CPU from the same
+              weights (1e-5 and a norm-relative 1e-4), both kernels launched
+              forward, and two runs of 5 steps from one state giving the
+              same parameter bits. 7b: bench.py's worst-case batch (B=2048,
+              T = 65,536; flat_inputs copied here), margin and InfoNCE (K=5):
+              3 warm-up and 20 timed steps with the loss fetched every step,
+              ms/step, pairs/s, the peak memory, the device time by part (the
+              kernels' forward, cuBLAS forward, the plain backward, the
+              optimizer), a profiled step and its host syncs (want 1), with
+              the launch counts set to 0 just before the timed steps and
+              read just after. 7c: TowerTrainer (flat_train, flat_eval,
+              device_metrics) on bench.py's trained-metrics fixture against
+              the same trainer on the CPU, epoch by epoch, and bench.py's AUC
+              gate of 0.58; then at full width, 2 epochs on 20,000 train
+              and 5,000 val rows of the learnable fixture and 1 epoch on
+              bench.py's MIND-small-scale rows (50,000 train, 10,000 val):
+              pairs/s end to end, the steps by T, the eval's time, the
+              metrics. Then each kernel against its
+              plain version at every shape the timed train steps launched it
+              at, as in phase 5.
+The line before the last holds the kernels' record as JSON, one entry per
+kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
+"train" from phase 7); phase 1's line holds the card's name and power limit
+as nvidia-smi gives them; the last line is {"ok": true, "device": {...}}.
+Without CUDA it exits 2 and prints no result; any failed check raises and
+exits 1.
 """
 
 from __future__ import annotations
@@ -74,7 +97,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
-from news_recommendation_project_v2_torch.config import TowerConfig  # noqa: E402
+from news_recommendation_project_v2_torch.config import HISTORY_BUCKETS, TowerConfig, TrainConfig  # noqa: E402
+from news_recommendation_project_v2_torch.data.compiler import CompiledBehaviors, compile_behaviors  # noqa: E402
+from news_recommendation_project_v2_torch.data.synthetic import (  # noqa: E402
+    align_embeddings,
+    synthetic_learnable_behaviors,
+)
 from news_recommendation_project_v2_torch.data.grouping import lengths_to_offsets  # noqa: E402
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan  # noqa: E402
 from news_recommendation_project_v2_torch.models import build_tower  # noqa: E402
@@ -91,6 +119,13 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan  # noqa: E402
 from news_recommendation_project_v2_torch.ops.timing import count_syncs, cuda_ms, graph_ms  # noqa: E402
+from news_recommendation_project_v2_torch.train.step import (  # noqa: E402
+    flat_infonce_loss,
+    flat_infonce_step,
+    flat_margin_loss,
+    flat_margin_step,
+)
+from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer  # noqa: E402
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
     estimate_flat_chunk,
     flat_token_bytes,
@@ -203,6 +238,16 @@ KERNELS = {
         "replaces": "news_recommendation_project_v2_tpu/ops/pallas_geglu.py:29",
     },
 }
+
+def kernel_launches() -> dict:
+    return {k: v["wrapper"].launches for k, v in KERNELS.items()}
+
+
+def zero_launches() -> None:
+    for spec in KERNELS.values():
+        spec["wrapper"].launches = 0
+        spec["wrapper"].shapes.clear()
+
 
 # The plain versions run on pieces of at most this many rows. At the flat
 # eval's chunks one call would not fit on the card beside the graph-capture
@@ -462,15 +507,13 @@ def serve_phase(device: str, work_dir: Path, num_news: int, tower_config: TowerC
             "http_rank": http_rank,
         }
         launches, results = {}, {}
-        for spec in KERNELS.values():
-            spec["wrapper"].launches = 0
-            spec["wrapper"].shapes.clear()
+        zero_launches()
         for path, run in paths.items():
-            before = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+            before = kernel_launches()
             results[path] = run()
             sync()
-            launches[path] = {k: v["wrapper"].launches - before[k] for k, v in KERNELS.items()}
-        total = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+            launches[path] = {k: n - before[k] for k, n in kernel_launches().items()}
+        total = kernel_launches()
         shapes = {k: collections.Counter(v["wrapper"].shapes) for k, v in KERNELS.items()}
     finally:
         server.shutdown()
@@ -581,13 +624,11 @@ def flat_eval_run(dtype, state: dict, emb: torch.Tensor, mplan, work: tuple) -> 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for spec in KERNELS.values():
-        spec["wrapper"].launches = 0
-        spec["wrapper"].shapes.clear()
+    zero_launches()
     t0 = time.perf_counter()
     first = metrics()
     first_s = time.perf_counter() - t0
-    launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+    launches = kernel_launches()
     shapes = {k: collections.Counter({(s, dtype): n for s, n in v["wrapper"].shapes.items()})
               for k, v in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated() - base
@@ -691,6 +732,367 @@ def flat_eval_phase(gen) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 20
+MIND_VAL_ROWS = 10_000  # val rows of 7c's MIND-small-scale epoch
+CHECK_B = 64
+# Card against CPU on one step: both compute float32-accurate products (the
+# kernels as 3xTF32) summed in other orders.
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
+# The bench_trained_metrics fixture on the card against the CPU: the CPU
+# test's tolerances (tests/test_torch_trainer.py).
+EPOCH_LOSS_REL, EPOCH_METRIC_ABS = 1e-5, 2e-3
+METRIC_KEYS = ("auc", "mrr", "ndcg5", "ndcg10")
+LOSSES = {
+    "margin": (flat_margin_loss, flat_margin_step, {"margin": TrainConfig().margin}),
+    "infonce": (flat_infonce_loss, flat_infonce_step, {}),
+}
+
+
+def flat_inputs(B: int, rng: np.random.Generator, num_news: int = NUM_NEWS):
+    """benchmarks/train_profile.py's worst-case flat batch (no dedup, U = B;
+    histories geometric with mean 29, capped at 600; tokens padded to a
+    power of two of at least 1,024), draw for draw, as numpy arrays (a CPU
+    test holds the two equal). Returns (T, live tokens, batch)."""
+    lens = np.clip(rng.geometric(1 / 29.0, size=B), 1, 600).astype(np.int64)
+    total = int(lens.sum())
+    T = max(1024, 1 << int(np.ceil(np.log2(total))))
+    tok_idx = np.zeros(T, np.int32)
+    tok_idx[:total] = rng.integers(0, num_news, total)
+    tok_rows = np.full(T, B, np.int32)
+    tok_rows[:total] = np.repeat(np.arange(B, dtype=np.int32), lens)
+    return T, total, (
+        tok_idx,
+        tok_rows,
+        lens.astype(np.float32),
+        rng.integers(0, B, B).astype(np.int32),
+        rng.integers(0, num_news, B).astype(np.int32),
+        rng.integers(0, num_news, B).astype(np.int32),
+        np.ones(B, np.float32),
+    )
+
+
+def with_negatives(batch: tuple, rng: np.random.Generator, k: int = TRAIN_K) -> tuple:
+    """The batch with K negatives a pair, the InfoNCE step's input."""
+    return batch[:5] + (rng.integers(0, NUM_NEWS, (len(batch[3]), k)).astype(np.int32),) + batch[6:]
+
+
+def on(batch: tuple, device) -> tuple:
+    return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+
+def full_tower(state: dict, device):
+    tower = build_tower(TowerConfig(kind="latent"))
+    tower.load_state_dict(state)
+    return tower.to(device)
+
+
+def norm_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def train_check_phase(state: dict, emb: torch.Tensor) -> None:
+    """7a: full width, float32, one flat batch at B=64 (T = 2,048): the
+    margin and InfoNCE losses and every parameter's gradient on the card
+    against the CPU from the same weights; both kernels launched forward;
+    two runs of 5 steps from one state give the same parameter bits."""
+    rng = np.random.default_rng(SEED + 7)
+    T, total, batch = flat_inputs(CHECK_B, rng)
+    batches = {"margin": batch, "infonce": with_negatives(batch, rng)}
+    emb_cpu = emb.cpu()
+    for name, b in batches.items():
+        loss_fn, _, kw = LOSSES[name]
+        losses, grads = {}, {}
+        for dev, table in (("cuda", emb), ("cpu", emb_cpu)):
+            tower = full_tower(state, dev)
+            before = kernel_launches()
+            loss = loss_fn(tower, table, on(b, dev), **kw)
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = {k: n - before[k] for k, n in kernel_launches().items()}
+            losses[dev] = loss.item()
+            grads[dev] = {n: p.grad.detach().cpu() for n, p in tower.named_parameters()}
+            del tower, loss
+        worst = max((norm_rel(grads["cuda"][n], g), n) for n, g in grads["cpu"].items())
+        gap = abs(losses["cuda"] - losses["cpu"])
+        log(
+            f"  7a {name}: B={CHECK_B}, T={T:,} ({total:,} live tokens): loss card {losses['cuda']:.7f} "
+            f"CPU {losses['cpu']:.7f}, difference {gap:.3g} (tol {LOSS_TOL:g}); largest gradient "
+            f"difference {worst[0]:.3g} norm-relative ({worst[1]}; tol {GRAD_TOL:g}); forward launches {launched}"
+        )
+        if not (gap <= LOSS_TOL and worst[0] <= GRAD_TOL and min(launched.values()) >= 1):
+            raise AssertionError(f"7a {name}: card and CPU differ (loss {gap}, gradient {worst}) or {launched}")
+    cuda_batches = {name: on(b, "cuda") for name, b in batches.items()}
+    finals = []
+    for _ in range(2):
+        tower = full_tower(state, "cuda")
+        opt = make_optimizer(TrainConfig(), tower.parameters())
+        for i in range(5):
+            name = ("margin", "infonce")[i % 2]
+            _, step_fn, kw = LOSSES[name]
+            step_fn(tower, opt, emb, cuda_batches[name], **kw)
+        torch.cuda.synchronize()
+        finals.append([p.detach().clone() for p in tower.parameters()])
+    same = all(torch.equal(a, b) for a, b in zip(*finals))
+    log(f"  7a: two runs of 5 steps (margin and InfoNCE in turn) from one state give the same parameter bits: {same}")
+    if not same:
+        raise AssertionError("7a: two runs of 5 steps from one state differ")
+
+
+CUBLAS_NAMES = ("gemm", "gemv", "xmma", "cutlass")
+
+
+def device_ms_by_kernel(fn) -> tuple[object, dict]:
+    """``fn()``'s result and its device time by kernel name (ms), under the
+    profiler, synchronized at the end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {
+        e.key: e.self_device_time_total / 1e3
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    }
+
+
+def step_split(tower, opt, emb, batch, name: str) -> dict:
+    """One step's device time by part, each part under the profiler with a
+    synchronize after it: the forward's hand-written kernels, its cuBLAS
+    GEMMs and the rest of it; the plain backward's GEMMs (cuBLAS: the
+    linears, the GEGLU recompute, the attention's einsums) and the rest of it
+    (GELU, softmax, reductions, copies); the optimizer (clip and AdamW)."""
+    loss_fn, _, kw = LOSSES[name]
+    loss, fwd = device_ms_by_kernel(lambda: loss_fn(tower, emb, batch, **kw))
+    _, bwd = device_ms_by_kernel(loss.backward)
+    _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+
+    def part(times, test):
+        return sum(ms for key, ms in times.items() if test(key))
+
+    def ours(key):
+        return any(k in key for k in ("geglu_gate_kernel", "geglu_out_kernel", "geglu_reduce_kernel",
+                                      "latent_attention_kernel"))
+
+    def cublas(key):
+        return any(k in key.lower() for k in CUBLAS_NAMES) and not ours(key)
+
+    split = {
+        "forward kernels": part(fwd, ours),
+        "forward cuBLAS": part(fwd, cublas),
+        "forward rest": part(fwd, lambda k: not ours(k) and not cublas(k)),
+        "backward GEMMs": part(bwd, cublas),
+        "backward rest": part(bwd, lambda k: not cublas(k)),
+        "optimizer": sum(optim.values()),
+    }
+    split["total"] = sum(split.values())
+    top = sorted(bwd.items(), key=lambda kv: -kv[1])[:6]
+    log(
+        f"  7b {name}: one step's device time by part (ms): "
+        + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
+        + f"; total {split['total']:.2f}"
+    )
+    for key, ms in top:
+        log(f"    backward {ms:9.3f} ms  {key[:100]}")
+    return split
+
+
+def train_step_phase(state: dict, emb: torch.Tensor, card: str) -> dict:
+    """7b: full width, float32, bench.py's worst-case batch (B=2048,
+    T = 65,536), margin and InfoNCE (K=5): 3 warm-up steps, then 20 timed
+    steps with the loss fetched every step (as bench.py's bench_train_flat
+    does), the peak memory, the device time by part, a profiled step, host
+    syncs a step. Launch counts are set to 0 just before the timed steps and
+    read just after. Returns the launches and the launches by shape."""
+    rng = np.random.default_rng(SEED)
+    T, total, batch = flat_inputs(TRAIN_B, rng)
+    batches = {"margin": batch, "infonce": with_negatives(batch, rng)}
+    launches = collections.Counter()
+    shapes = {k: collections.Counter() for k in KERNELS}
+    for name, b in batches.items():
+        _, step_fn, kw = LOSSES[name]
+        tower = full_tower(state, "cuda")
+        opt = make_optimizer(TrainConfig(), tower.parameters())
+        args = on(b, "cuda")
+
+        def step():
+            return float(step_fn(tower, opt, emb, args, **kw))
+
+        warm = [step() for _ in range(3)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(TRAIN_STEPS)]
+        dt = (time.perf_counter() - t0) / TRAIN_STEPS
+        launches.update(kernel_launches())
+        for k, v in KERNELS.items():
+            shapes[k].update({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+        peak = torch.cuda.max_memory_allocated() - base
+        log(
+            f"  7b {name}: B={TRAIN_B}, T={T:,} ({total:,} live tokens), float32: {dt * 1e3:.2f} ms/step, "
+            f"{TRAIN_B / dt:,.0f} pairs/s over {TRAIN_STEPS} steps (loss fetched every step) on {card}; "
+            f"losses {warm[0]:.5f} -> {losses[-1]:.5f}; peak memory above the tables and weights "
+            f"{peak / 1e9:.3f} GB; launches {dict(kernel_launches())}"
+        )
+        if not all(np.isfinite(warm + losses)):
+            raise AssertionError(f"7b {name}: a loss is not finite: {warm + losses}")
+        step_split(tower, opt, emb, args, name)
+        profile_call(f"{name} train step (B={TRAIN_B})", step, top=8)
+        syncs = count_syncs(step)
+        log(f"  7b {name}: host syncs in one step with its loss fetched: {syncs} (want 1)")
+        if syncs != 1:
+            raise AssertionError(f"7b {name}: a step synced {syncs} times")
+        del tower, opt, args
+    return dict(launches=dict(launches), shapes=shapes)
+
+
+def learnable_split(num_rows: int, n_train: int, dim: int, seed: int):
+    imps, hist, emb = synthetic_learnable_behaviors(num_news=200, num_rows=num_rows, dim=dim, noise=0.05, seed=seed)
+    ct = compile_behaviors(imps[:n_train], hist[:n_train]).with_history_view()
+    cv = compile_behaviors(imps[n_train:], hist[n_train:]).with_history_view()
+    return ct, cv, align_embeddings(ct.news_ids, emb), align_embeddings(cv.news_ids, emb)
+
+
+def trainer_phase() -> None:
+    """7c: TowerTrainer on the card (flat_train, flat_eval, device_metrics).
+    1. bench.py's bench_trained_metrics fixture (600/200 rows, d=64, 8
+       latents of 8 heads x 16, lr 3e-4, batch 128, 3 epochs), each epoch's
+       loss and val metrics against the same trainer on the CPU; the best val
+       AUC must pass bench.py's gate of 0.58.
+    2. Full width, batch 2048, margin (full_width_epochs): the learnable
+       fixture at D=1024 (20,000 train and 5,000 val rows, about 10.5
+       history tokens a row, steps of T = 8,192 or less), 2 epochs; then
+       bench.py's MIND-small-scale rows (build_workload: 50,000 train rows,
+       33 history tokens a row, steps of T = 2,048 or 4,096, and 10,000 val
+       rows), 1 epoch."""
+    ct, cv, emb_t, emb_v = learnable_split(800, 600, 64, seed=7)
+    cfg = TowerConfig(kind="latent", reduced_dim=64, num_latents=8, latent_dim_head=16)
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(0), cfg))
+    histories = {}
+    for dev in ("cuda", "cpu"):
+        tower = build_tower(cfg)
+        tower.load_state_dict(state)
+        trainer = TowerTrainer(
+            tower, ct, emb_t, compiled_val=cv, news_emb_val=emb_v,
+            cfg=TrainConfig(learning_rate=3e-4, num_epochs=3, batch_size=128, seed=0),
+            device_metrics=True, device=dev,
+        )
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        histories[dev] = trainer.train()
+        log(f"  7c fixture on {dev}: 3 epochs in {time.perf_counter() - t0:.2f}s")
+        if dev == "cuda" and min(n - before[k] for k, n in kernel_launches().items()) < 1:
+            raise AssertionError("7c: the trainer on the card launched no kernel")
+    worst_loss = worst_metric = 0.0
+    for got, want in zip(histories["cuda"], histories["cpu"]):
+        worst_loss = max(worst_loss, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        worst_metric = max(worst_metric, *(abs(got["val"][k] - want["val"][k]) for k in METRIC_KEYS))
+        log(
+            f"  7c fixture epoch {got['epoch']}: loss card {got['loss']:.7f} CPU {want['loss']:.7f}; val "
+            + ", ".join(f"{k} {got['val'][k]:.5f}/{want['val'][k]:.5f}" for k in METRIC_KEYS)
+        )
+    best = max(h["val"]["auc"] for h in histories["cuda"])
+    log(
+        f"  7c fixture: largest loss difference {worst_loss:.3g} relative (tol {EPOCH_LOSS_REL:g}), "
+        f"largest val metric difference {worst_metric:.3g} (tol {EPOCH_METRIC_ABS:g}); best val AUC "
+        f"{best:.4f} (bench.py's gate 0.58)"
+    )
+    if not (worst_loss <= EPOCH_LOSS_REL and worst_metric <= EPOCH_METRIC_ABS and best > 0.58):
+        raise AssertionError(f"7c: the fixture on the card: {worst_loss}, {worst_metric}, AUC {best}")
+
+    ct, cv, emb_t, emb_v = learnable_split(25_000, 20_000, DIM, seed=7)
+    full_width_epochs("learnable fixture", ct, cv, emb_t, emb_v, epochs=2)
+    # bench.py's MIND-small-scale rows, an N(0, 1) table made on the card as
+    # benchmarks/train_bench.py's main_epoch makes it.
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    ct = mind_behaviors(np.random.default_rng(SEED), FLAT_ROWS)
+    cv = mind_behaviors(np.random.default_rng(SEED + 1), MIND_VAL_ROWS)
+    full_width_epochs("MIND-small scale", ct, cv, emb, emb, epochs=1)
+
+
+
+def mind_behaviors(rng: np.random.Generator, num_rows: int) -> CompiledBehaviors:
+    """build_workload's rows as a trainer's CompiledBehaviors over a table
+    of NUM_NEWS news: every row has history, and every impression holds
+    both classes."""
+    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, NUM_NEWS)
+    rows = np.arange(num_rows, dtype=np.int32)
+    return CompiledBehaviors(
+        news_ids=np.arange(NUM_NEWS).astype(str),
+        imp_rev=cand_rev,
+        imp_row=np.repeat(rows, imp_lens),
+        imp_lens=imp_lens,
+        hist_rev=hist_rev,
+        hist_row=np.repeat(rows, hist_lens),
+        hist_lens=hist_lens,
+        hist_row_index=rows,
+        labels_flat=labels.astype(np.int8),
+        label_present=True,
+    )
+
+
+def full_width_epochs(label: str, ct, cv, emb_t, emb_v, epochs: int) -> None:
+    """TowerTrainer at full width (device_metrics), margin, batch 2048: per
+    epoch the wall time of its steps and pairs/s end to end (bench's
+    main_epoch measure: sampling, host batch building, steps), the steps by
+    T (the attention's launches in the epoch), the eval of both splits and
+    the metrics. Checks: the loss is finite, the metrics lie in [0, 1], and
+    every step launched the attention kernel once."""
+    pos = np.bincount(ct.imp_row[ct.labels_flat == 1], minlength=ct.num_rows)
+    pairs = int(np.maximum(pos, ct.imp_lens - pos).sum())  # the margin sampler's pairs an epoch
+    tokens = np.minimum(ct.hist_lens, HISTORY_BUCKETS[-1])
+    log(
+        f"  7c {label}: {ct.num_rows:,} train rows ({int(tokens.sum()):,} history tokens, {tokens.mean():.1f} "
+        f"a row; {pairs:,} pairs an epoch), {cv.num_rows:,} val rows"
+    )
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig()))
+    trainer = TowerTrainer(
+        full_tower(state, "cuda"), ct, emb_t, compiled_val=cv, news_emb_val=emb_v,
+        cfg=TrainConfig(batch_size=TRAIN_B, num_epochs=epochs, seed=0), device_metrics=True,
+    )
+    for epoch in range(1, epochs + 1):
+        zero_launches()
+        t0 = time.perf_counter()
+        loss = trainer.train_one_epoch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        by_t = collections.Counter()
+        for (_, _, length, _, _), n in latent_attention.shapes.items():
+            by_t[length] += n
+        train_scores, val_scores = trainer.evaluate()
+        t2 = time.perf_counter()
+        log(
+            f"  7c {label} epoch {epoch}: {t1 - t0:.2f}s, {pairs / (t1 - t0):,.0f} pairs/s end to end, "
+            f"{sum(by_t.values())} steps by T {dict(sorted(by_t.items()))}, loss {loss:.5f}; "
+            f"eval of both splits {t2 - t1:.2f}s; val {val_scores}"
+        )
+        values = [train_scores[k] for k in METRIC_KEYS] + [val_scores[k] for k in METRIC_KEYS]
+        steps = -(-pairs // TRAIN_B)
+        if not (np.isfinite(loss) and all(0.0 <= v <= 1.0 for v in values) and sum(by_t.values()) == steps):
+            raise AssertionError(f"7c {label} epoch {epoch}: loss {loss}, metrics {values}, {by_t} for {steps} steps")
+
+
+def train_phase(gen, card: str) -> dict:
+    """Phase 7: training at full width on the card (7a, 7b, 7c)."""
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig()))
+    # An unnormalized N(0, 1) table made on the card, as bench.py's
+    # bench_train_flat makes it.
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=gen)
+    train_check_phase(state, emb)
+    record = train_step_phase(state, emb, card)
+    del emb
+    torch.cuda.empty_cache()
+    trainer_phase()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -743,6 +1145,12 @@ def main() -> int:
     launches = {name: sum(r["launches"][name] for r in runs.values()) for name in KERNELS}
     records["flat_eval"] = (main_path_phase(flat, gen, path="flat eval"), launches)
 
+    log("phase 7 training: the flat-token step and TowerTrainer at full width, float32 (TF32 off)")
+    train = train_phase(gen, card)
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape the timed train steps launched them at:")
+    records["train"] = (main_path_phase(train["shapes"], gen, path="train"), train["launches"])
+
     kernels = [
         {
             "name": name,
@@ -767,7 +1175,6 @@ def main() -> int:
     ]
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
-    print(card)
     print(
         json.dumps(
             {

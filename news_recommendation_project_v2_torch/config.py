@@ -1,4 +1,5 @@
-"""Constants and the user-tower configuration (the port's own copy)."""
+"""Constants, the user-tower configuration and the training settings (the
+port's own copy)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from typing import Optional
 EMBEDDING_DIM = 1024
 REDUCED_DIM = EMBEDDING_DIM
 IMPRESSION_MAXLEN = 600
+
+# The default training seed, as in the JAX package.
+DEFAULT_SEED = 1234
 
 # Static shape buckets: ragged history / impression lengths pad up to the
 # nearest bucket, so the serving path sees a small, fixed set of shapes.
@@ -41,6 +45,32 @@ class TowerConfig:
     as_built: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings: a global-norm clip, then AdamW (betas 0.9 and
+    0.999, eps 1e-8, ``weight_decay`` on every parameter); the margin-2
+    ranking loss or InfoNCE against ``num_neg_per_pos`` sampled negatives."""
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 0.5
+    margin: float = 2.0
+    num_epochs: int = 5
+    batch_size: int = 512
+    num_neg_per_pos: int = 5
+    max_neg_ratio: Optional[float] = None
+    max_pos_ratio: Optional[float] = None
+    seed: int = DEFAULT_SEED
+    loss: str = "margin"  # margin | infonce
+    # ReduceLROnPlateau(patience): multiply the lr by ``plateau_factor`` after
+    # ``plateau_patience`` epochs without val-metric improvement. 0 disables.
+    plateau_patience: int = 0
+    plateau_factor: float = 0.1
+    # Fetch the step loss to the host every N steps (each fetch waits for the
+    # card); every step's loss is still recorded.
+    loss_sync_every: int = 1
 
 
 def tower_kwargs_for_dim(dim: Optional[int]) -> dict:

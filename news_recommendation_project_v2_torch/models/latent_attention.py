@@ -10,6 +10,11 @@ The cross-attention runs through ``ops.latent_attention`` and the
 feed-forward through ``ops.geglu``: CUDA kernels on the card, their plain
 versions on the CPU. Matmuls run in ``compute_dtype``; LayerNorm, softmax and
 the pool stay float32, as in the JAX package's mixed precision.
+
+The tower trains through both kernels: under autograd each wrapper goes
+through its ``torch.autograd.Function`` (the kernel forward, a plain
+backward), and the casts to ``compute_dtype`` are differentiable. Like the
+JAX tower it has no dropout, so a train step needs no random stream.
 """
 
 from __future__ import annotations
@@ -147,9 +152,17 @@ class LatentAttentionTower(nn.Module):
         h = ff.fn(_layer_norm(ff.norm, h)) + h
         if attention_mask is None:
             return h
-        # Pool in float32; the denominator is guarded for fully padded rows.
         m = attention_mask.float()
-        pooled = (h.float() * m[..., None]).sum(dim=1) / m.sum(dim=1, keepdim=True).clamp_min(1.0)
-        if self.output_normalize:
-            pooled = pooled / torch.sqrt((pooled * pooled).sum(-1, keepdim=True) + 1e-12)
+        pooled = pool_epilogue((h.float() * m[..., None]).sum(dim=1), m.sum(dim=1), self.output_normalize)
         return pooled.to(h.dtype)
+
+
+def pool_epilogue(sums: torch.Tensor, lens: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """The tower's pool after the sum of each row's token states, in float32:
+    ``sums`` [R, D] over ``max(lens, 1)`` tokens (a fully padded row stays
+    zero), then, if ``normalize``, the L2 norm. The padded call and the flat
+    paths (the eval's chunks, the train step) all end with it."""
+    user = sums / lens.clamp_min(1.0)[:, None]
+    if normalize:
+        user = user / torch.sqrt((user * user).sum(-1, keepdim=True) + 1e-12)
+    return user

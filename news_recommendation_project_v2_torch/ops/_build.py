@@ -122,7 +122,10 @@ def on_cpu(tensors) -> bool:
 
 def validate(name: str, tensors) -> None:
     """What the kernels take: tensors on one CUDA device, all float32 or all
-    bfloat16, contiguous, and no autograd (the kernels are forward-only)."""
+    bfloat16, contiguous, and no autograd recording. The wrappers reach a
+    kernel only through their ``torch.autograd.Function``, whose forward runs
+    with grad mode off; the refusal guards direct calls of a kernel, which
+    has no backward of its own."""
     import torch
 
     index, dtype = tensors[0].get_device(), tensors[0].dtype
@@ -142,6 +145,6 @@ def validate(name: str, tensors) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() (serving) -- training needs its backward first"
+            f"{name}: the CUDA kernel is forward-only; under autograd call "
+            f"ops.{name}.{name}, whose autograd Function gives it a backward"
         )

@@ -5,6 +5,10 @@
 x is [C, D]; the weights are in ``nn.Linear`` layout (W_in [2F, D], b_in [2F],
 W_out [D, F], b_out [D]), i.e. the transposes of the JAX ``fused_geglu``'s
 kernels. Returns float32 [C, D]. Any D >= 1 and F >= 1.
+
+The call goes through ``GegluFunction``: the kernel forward, and a backward
+in plain ops. The TPU kernel is forward-only and the JAX
+package trains through the XLA feed-forward, whose gradient this is.
 """
 
 from __future__ import annotations
@@ -110,10 +114,9 @@ def reference_geglu(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
     return F.linear(u, w_out.float(), b_out.float())
 
 
-def geglu(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+def _forward(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
     """CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. ``geglu.launches`` counts the kernel launches and
-    ``geglu.shapes`` counts them by (C, D, F)."""
+    raise. Counts the launches on ``geglu``."""
     tensors = (x, w_in, b_in, w_out, b_out)
     if _build.on_cpu(tensors):
         return reference_geglu(*tensors)
@@ -148,6 +151,57 @@ def geglu(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
     geglu.launches += 1
     geglu.shapes[(c, d, f)] += 1
     return y
+
+
+def geglu_backward(x, w_in, b_in, w_out, b_out, grad):
+    """The gradients (dx, dW_in, db_in, dW_out, db_out) of the plain
+    version, in float32: ``[h | g]`` is recomputed (a [C, 2F] block, 2 GB at
+    the training step's C = 65,536 and D = 1024, freed here), the tanh-GELU
+    gate differentiated, then both linears."""
+    f = w_out.shape[-1]
+    x32, w_in32, w_out32, dy = x.float(), w_in.float(), w_out.float(), grad.float()
+    hg = F.linear(x32, w_in32, b_in.float())
+    h, g = hg[:, :f], hg[:, f:]
+    gate = F.gelu(g, approximate="tanh")
+    u = (h * gate).to(x.dtype).float()  # the forward's rounding, straight through
+    d_w_out = dy.T @ u
+    del u
+    du = dy @ w_out32
+    d_hg = torch.empty_like(hg)
+    torch.mul(du, gate, out=d_hg[:, :f])
+    del gate
+    d_hg[:, f:] = torch.ops.aten.gelu_backward(du.mul_(h), g, approximate="tanh")
+    del hg, h, g, du
+    dx = d_hg @ w_in32
+    d_w_in = d_hg.T @ x32
+    d_b_in = d_hg.sum(0)
+    return (
+        dx.to(x.dtype), d_w_in.to(w_in.dtype), d_b_in.to(b_in.dtype),
+        d_w_out.to(w_out.dtype), dy.sum(0).to(b_out.dtype),
+    )
+
+
+class GegluFunction(torch.autograd.Function):
+    """``geglu`` with a backward: the forward is the kernel on CUDA (its
+    plain version on the CPU), run with grad mode off as every ``Function``
+    forward is; the backward is ``geglu_backward`` in plain ops."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, b_in, w_out, b_out):
+        ctx.save_for_backward(x, w_in, b_in, w_out, b_out)
+        return _forward(x, w_in, b_in, w_out, b_out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return geglu_backward(*ctx.saved_tensors, grad)
+
+
+def geglu(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The call goes through ``GegluFunction``, which records a graph
+    only where autograd records. ``geglu.launches`` counts the kernel
+    launches and ``geglu.shapes`` counts them by (C, D, F)."""
+    return GegluFunction.apply(x, w_in, b_in, w_out, b_out)
 
 
 geglu.launches = 0

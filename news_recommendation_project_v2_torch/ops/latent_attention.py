@@ -5,6 +5,9 @@ PyTorch version.
 Layouts as in the JAX package's ``fused_latent_attention``: q [B, H, L, dh]
 history queries; k, v [H, N, dh] latent keys and values shared by every batch
 row. Returns [B, H, L, dh] in q's type. Any N <= 1024 and dh <= 1024.
+
+The call goes through ``LatentAttentionFunction``: the kernel forward, and the JAX package's plain backward (``pallas_attention.py::_bwd``;
+the TPU kernel has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -158,10 +161,9 @@ def kernel_smem(rows: int, n: int, dtype: torch.dtype) -> int:
     return fn(rows, n, int(dtype == torch.bfloat16))
 
 
-def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. ``latent_attention.launches`` counts the kernel launches and
-    ``latent_attention.shapes`` counts them by (B, H, L, N, dh)."""
+    raise. Counts the launches on ``latent_attention``."""
     if _build.on_cpu((q, k, v)):
         return reference_attention(q, k, v)
     _build.validate("latent_attention", (q, k, v))
@@ -184,6 +186,49 @@ def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     latent_attention.launches += 1
     latent_attention.shapes[(b, h, l, n, dh)] += 1
     return out
+
+
+def attention_backward(q, k, v, grad):
+    """The gradients (dq, dk, dv) of ``softmax(q k^T / sqrt(dh)) v`` as the
+    JAX package's ``_bwd`` computes them: the probabilities recomputed in
+    float32, then einsums. k and v are shared by every batch row, so dk and
+    dv sum over B and L."""
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, grad))
+    probs = torch.softmax(torch.einsum("bhld,hnd->bhln", q32, k32) * scale, dim=-1)
+    dprobs = torch.einsum("bhld,hnd->bhln", g32, v32)
+    dlogits = probs * (dprobs - (probs * dprobs).sum(-1, keepdim=True))
+    del dprobs
+    dv = torch.einsum("bhln,bhld->hnd", probs, g32)
+    del probs
+    dq = torch.einsum("bhln,hnd->bhld", dlogits, k32) * scale
+    dk = torch.einsum("bhln,bhld->hnd", dlogits, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class LatentAttentionFunction(torch.autograd.Function):
+    """``latent_attention`` with a backward: the forward is the kernel on
+    CUDA (its plain version on the CPU), run with grad mode off as every
+    ``Function`` forward is; the backward is ``attention_backward`` in plain
+    ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return attention_backward(*ctx.saved_tensors, grad)
+
+
+def latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The call goes through ``LatentAttentionFunction``, which records
+    a graph only where autograd records. ``latent_attention.launches`` counts
+    the kernel launches and ``latent_attention.shapes`` counts them by
+    (B, H, L, N, dh)."""
+    return LatentAttentionFunction.apply(q, k, v)
 
 
 latent_attention.launches = 0

@@ -24,12 +24,32 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..config import TowerConfig
 from ..data.grouping import truncate_flat_end_aligned
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan, metric_sums
+from ..models.latent_attention import pool_epilogue
+from ..utils.memory import estimate_flat_chunk
 
 DEFAULT_FLAT_CHUNK = 64 * 1024
 EPS = 1e-8  # cosine norm clamp
+
+
+def _auto_flat_chunk(out_dim: int, num_tokens: int, device) -> int:
+    """The flat eval's token chunk when the caller gives none: the memory
+    model's (``utils.memory.estimate_flat_chunk``, a quarter of the device's
+    memory) for the latent geometry scaled to ``out_dim``, the only
+    flat-capable tower family; but no larger than ``num_tokens`` rounded up
+    to a power of two (at least 1,024), since a chunk past the data is all
+    pad."""
+    cfg = TowerConfig(
+        kind="latent",
+        reduced_dim=out_dim,
+        num_latents=min(64, out_dim),
+        latent_dim_head=max(8, out_dim // 2),
+    )
+    data = max(1024, 1 << max(int(num_tokens) - 1, 0).bit_length())
+    return min(estimate_flat_chunk(cfg, device=device), data)
 
 
 def _pad_to_grid(arr: np.ndarray, chunk: int, fill) -> np.ndarray:
@@ -100,10 +120,7 @@ class _HistoryChunks:
             # Gone before the next chunk's tower runs: at the eval's chunk
             # sizes one chunk's states are a gigabyte.
             del h
-        user = acc[: self.num_rows] / self.lens.clamp_min(1.0)[:, None]
-        if normalize:
-            user = user / torch.sqrt((user * user).sum(-1, keepdim=True) + 1e-12)
-        return user
+        return pool_epilogue(acc[: self.num_rows], self.lens, normalize)
 
 
 @torch.inference_mode()

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version on the same inputs, and the tower on the card against the same tower
-on the CPU. Every test here skips without CUDA.
+version on the same inputs, forward and, under autograd, backward; the tower,
+the flat eval and the train step on the card against the same on the CPU;
+determinism and host syncs. Every test here skips without CUDA.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports JAX, so there run
@@ -13,14 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from news_recommendation_project_v2_torch.config import TowerConfig
+from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
+from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
+from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
     random_latent_params,
 )
+from news_recommendation_project_v2_torch.ops.geglu import _forward as geglu_forward
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
+from news_recommendation_project_v2_torch.ops.latent_attention import _forward as attention_forward
 from news_recommendation_project_v2_torch.ops.latent_attention import (
     MAX_N,
     ROWS,
@@ -33,6 +38,13 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
+from news_recommendation_project_v2_torch.train.step import (
+    flat_infonce_loss,
+    flat_infonce_step,
+    flat_margin_loss,
+    flat_margin_step,
+)
+from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -236,15 +248,144 @@ def test_geglu_kernel_takes_unaligned_rows(cuda):
 
 
 def test_kernels_refuse_autograd(cuda):
+    """A kernel has no backward of its own: called directly while autograd
+    records, it raises. The wrappers take it under autograd only through
+    their ``autograd.Function``, whose forward runs with grad mode off, and
+    launch it there."""
     q = torch.randn(1, 1, 4, 8, device=cuda, requires_grad=True)
     k = torch.randn(1, 2, 8, device=cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
-        latent_attention(q, k, k)
+        attention_forward(q, k, k)
     x = torch.randn(3, 8, device=cuda, requires_grad=True)
     w_in, b_in = torch.randn(32, 8, device=cuda), torch.randn(32, device=cuda)
     w_out, b_out = torch.randn(8, 16, device=cuda), torch.randn(8, device=cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
-        geglu(x, w_in, b_in, w_out, b_out)
+        geglu_forward(x, w_in, b_in, w_out, b_out)
+    before = latent_attention.launches, geglu.launches
+    assert latent_attention(q, k, k).grad_fn is not None
+    assert geglu(x, w_in, b_in, w_out, b_out).grad_fn is not None
+    assert (latent_attention.launches, geglu.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _norm_rel(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.mark.parametrize("rows", [3, 1000, 65536])
+def test_attention_function_gradients_match_plain_autograd(cuda, rows):
+    """Full width, float32, T ragged token rows ([1, 8, T, 512] against the
+    64 latents): the Function (the kernel forward, the plain backward) against
+    autograd through the plain version on the card. The backward recomputes
+    the probabilities from the same inputs in the same arithmetic: a
+    norm-relative 1e-5."""
+    q, k, v = (t.requires_grad_() for t in _attention_args((1, 8, rows, 64, 512), torch.float32, cuda))
+    grad = torch.randn(q.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    before = latent_attention.launches
+    got = torch.autograd.grad(latent_attention(q, k, v), (q, k, v), grad)
+    assert latent_attention.launches == before + 1
+    want = torch.autograd.grad(reference_attention(q, k, v), (q, k, v), grad)
+    for g, w in zip(got, want):
+        assert _norm_rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("rows", [3, 1000, 65536])
+def test_geglu_function_gradients_match_plain_autograd(cuda, rows):
+    """Full width, float32, C = T ragged rows (D=1024, F=4096): the
+    Function (the kernel forward, the plain backward) against autograd
+    through the plain version on the card: a norm-relative 1e-5."""
+    args = tuple(t.requires_grad_() for t in _geglu_args((rows, 1024, 4096), torch.float32, cuda))
+    grad = torch.randn(rows, 1024, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    before = geglu.launches
+    got = torch.autograd.grad(geglu(*args), args, grad)
+    assert geglu.launches == before + 1
+    want = torch.autograd.grad(reference_geglu(*args), args, grad)
+    for g, w in zip(got, want):
+        assert _norm_rel(g, w) <= 1e-5
+
+
+SMALL_TOWER = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
+
+
+def _train_batch(rng, b=48, k=5, news=300):
+    """A flat batch as TowerTrainer builds one: deduped rows' tokens padded to
+    1,024 (pad row b), pad pairs, -1 negatives."""
+    lens = rng.integers(1, 40, 30)
+    total = int(lens.sum())
+    tok_rows = np.full(1024, b, np.int32)
+    tok_rows[:total] = np.repeat(np.arange(30), lens)
+    neg = rng.integers(0, news, (b, k)).astype(np.int32)
+    neg[rng.random((b, k)) < 0.2] = -1
+    return (
+        rng.integers(0, news, 1024).astype(np.int32), tok_rows, np.pad(lens, (0, b - 30)).astype(np.float32),
+        np.pad(rng.integers(0, 30, 40), (0, b - 40)).astype(np.int32),
+        np.pad(rng.integers(0, news, 40), (0, b - 40)).astype(np.int32), neg,
+        np.pad(np.ones(40, np.float32), (0, b - 40)),
+    )
+
+
+@pytest.mark.parametrize("loss", ["margin", "infonce"])
+def test_train_step_on_cuda_matches_cpu(cuda, loss):
+    """The small-width flat loss and every gradient on the card (both kernels
+    forward, under their Functions) against the CPU from the same weights:
+    loss within 1e-5, gradients within a norm-relative 1e-4."""
+    rng = np.random.default_rng(0)
+    state = latent_state_dict_from_jax(random_latent_params(rng, SMALL_TOWER))
+    batch = _train_batch(rng)
+    if loss == "margin":
+        batch = batch[:5] + (batch[5][:, 0].clip(0),) + batch[6:]
+    emb = (rng.standard_normal((300, 64)) * 0.5).astype(np.float32)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        tower = _flat_tower(SMALL_TOWER, state, dev)
+        table = torch.from_numpy(emb).to(dev)
+        args = (tower, table, tuple(torch.from_numpy(a).to(dev) for a in batch))
+        value = flat_margin_loss(*args, margin=2.0) if loss == "margin" else flat_infonce_loss(*args)
+        value.backward()
+        out[key] = value.item(), {n: p.grad.cpu() for n, p in tower.named_parameters()}
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5
+    for name, g in out["cpu"][1].items():
+        assert _norm_rel(out["card"][1][name], g) <= 1e-4, name
+
+
+def test_train_steps_are_deterministic_on_cuda(cuda):
+    """Five steps, margin and InfoNCE in turn, twice from one state: the same
+    parameter bits (the pool and the pair gather's backward sum in a fixed
+    order; no atomics)."""
+    rng = np.random.default_rng(1)
+    state = latent_state_dict_from_jax(random_latent_params(rng, SMALL_TOWER))
+    nce = tuple(torch.from_numpy(a).to(cuda) for a in _train_batch(rng))
+    margin = nce[:5] + (nce[5][:, 0].clamp_min(0),) + nce[6:]
+    emb = torch.randn(300, 64, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    finals = []
+    for _ in range(2):
+        tower = _flat_tower(SMALL_TOWER, state, cuda)
+        opt = make_optimizer(TrainConfig(learning_rate=1e-3), tower.parameters())
+        for i in range(5):
+            if i % 2:
+                flat_infonce_step(tower, opt, emb, nce)
+            else:
+                flat_margin_step(tower, opt, emb, margin, 2.0)
+        finals.append([p.detach().clone() for p in tower.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*finals))
+    assert not torch.equal(finals[0][0], state["latents"].to(cuda))
+
+
+def test_train_epoch_syncs_the_host_once_a_step(cuda):
+    """With loss_sync_every=1 an epoch waits for the card once a step, for
+    its loss: the batches reach the card by asynchronous copies from pinned
+    memory, and the clip picks its scale on the card."""
+    imps, hist, emb = synthetic_learnable_behaviors(num_news=80, num_rows=120, dim=64, noise=0.05, seed=3)
+    c = compile_behaviors(imps, hist).with_history_view()
+    tower = build_tower(SMALL_TOWER)
+    trainer = TowerTrainer(
+        tower, c, align_embeddings(c.news_ids, emb), cfg=TrainConfig(batch_size=64, seed=0),
+        device=cuda,
+    )
+    trainer.train_one_epoch()
+    torch.cuda.synchronize()
+    steps = len(list(trainer._epoch_batches_flat()))
+    assert steps > 3
+    assert count_syncs(trainer.train_one_epoch) == steps
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,10 +13,13 @@ import torch
 
 import news_recommendation_project_v2_torch as port
 from news_recommendation_project_v2_torch.cli.serve import build_ranker
+from news_recommendation_project_v2_torch.config import TowerConfig
+from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
-from news_recommendation_project_v2_torch.models import average_pool
+from news_recommendation_project_v2_torch.models import average_pool, build_tower
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 from news_recommendation_project_v2_torch.serve import Ranker
+from news_recommendation_project_v2_torch.train.trainer import TowerTrainer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "news_recommendation_project_v2_torch"
@@ -55,7 +58,7 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 25
 
 
 def test_every_kernel_source_ships_with_the_package():
@@ -92,3 +95,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     with pytest.raises(ValueError, match="single label class"):
         DeviceMetricsPlan(*metric, device="cpu")  # checked after the device
     assert DeviceMetricsPlan([2], [1.0, 0.0], device="cpu").device.type == "cpu"
+    c = compile_behaviors(["N1-1 N2-0"], ["N3 N1"]).with_history_view()
+    tower = build_tower(TowerConfig(reduced_dim=8, num_latents=2, num_heads=1, latent_dim_head=8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TowerTrainer(tower, c, np.eye(3, 8, dtype=np.float32))
+    trainer = TowerTrainer(tower, c, np.eye(3, 8, dtype=np.float32), device="cpu")
+    assert trainer.device.type == "cpu" and next(trainer.tower.parameters()).device.type == "cpu"
