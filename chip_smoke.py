@@ -65,15 +65,50 @@ Phases, one line or a few each, exit code non-zero on any failure:
               the same trainer on the CPU, epoch by epoch, and bench.py's AUC
               gate of 0.58; then at full width, 2 epochs on 20,000 train
               and 5,000 val rows of the learnable fixture and 1 epoch on
-              bench.py's MIND-small-scale rows (50,000 train, 10,000 val):
+              half of bench.py's MIND-small-scale rows (25,000 train, 5,000
+              val):
               pairs/s end to end, the steps by T, the eval's time, the
               metrics. Then each kernel against its
               plain version at every shape the timed train steps launched it
               at, as in phase 5.
+  8. padded: the other towers and the padded path at full width (float32,
+              TF32 off, unless bfloat16 is named), each part printing JSON
+              lines ({"part": ...}). 8a: final_attention (hidden 4096),
+              transformer (as_built False and True) and latent forward on
+              [64, 600] MIND-like histories with an all-pad row: the card
+              against the CPU on four rows (1e-4 of the output's scale),
+              bfloat16 compute against float32 (norm-relative 3e-2), all
+              finite. 8b: score_all_impressions(flat_tokens=False) over
+              build_workload per tower, batches from estimate_tower_batch:
+              impressions/s, peak memory against tower_activation_bytes,
+              the busy share of a profiled run, the padding share; the
+              latent tower's padded scores against its flat eval capped at
+              600 (1e-5), its launches counted. 8c.1: one padded step per
+              tower at B=64 against the CPU (1e-5, norm-relative 1e-4 for
+              the whole gradient and for each parameter; final_attention's
+              ReLU sign flips masked out, zero-gradient leaves under 1e-6 in
+              norm; dropout off), two 5-step runs with dropout on
+              bit-identical.
+              8c.2: 20 timed margin steps per tower at B=512, flat_inputs's
+              histories padded to each batch's bucket: ms/step, pairs/s,
+              peak memory, device time by part, one host sync a step (the
+              latent tower's launches counted). 8c.3: TowerTrainer(
+              flat_train=False, flat_eval=False) on bench.py's fixture (d=64)
+              for final_attention and transformer against the CPU. 8c.4: one
+              full-width epoch per tower on the learnable fixture: pairs/s,
+              a fixed train batch's loss falling, val metrics. 8d:
+              ClassificationTrainer then JointTowerTrainer (a blend over its
+              baseline, a reducer) on the d=64 fixture against the CPU, and
+              one full-width epoch each. 8e: build_ranker with
+              final_attention and transformer over phase 4's requests:
+              requests/s, the CPU ranker's order and scores within 1e-5.
+              Then each kernel against its plain version at every shape the
+              padded eval and the timed padded steps launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
-"train" from phase 7); phase 1's line holds the card's name and power limit
-as nvidia-smi gives them; the last line is {"ok": true, "device": {...}}.
+"train" from phase 7, "padded_eval" and "padded_train" from phase 8); phase
+1's line holds the card's name and power limit as nvidia-smi gives them; the
+last line is {"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
 exits 1.
 """
@@ -81,6 +116,7 @@ exits 1.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -97,18 +133,38 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
-from news_recommendation_project_v2_torch.config import HISTORY_BUCKETS, TowerConfig, TrainConfig  # noqa: E402
+from news_recommendation_project_v2_torch.config import (  # noqa: E402
+    HISTORY_BUCKETS,
+    TowerConfig,
+    TrainConfig,
+    bucket_for,
+    tower_kwargs_for_dim,
+)
 from news_recommendation_project_v2_torch.data.compiler import CompiledBehaviors, compile_behaviors  # noqa: E402
 from news_recommendation_project_v2_torch.data.synthetic import (  # noqa: E402
     align_embeddings,
     synthetic_learnable_behaviors,
 )
-from news_recommendation_project_v2_torch.data.grouping import lengths_to_offsets  # noqa: E402
+from news_recommendation_project_v2_torch.data.grouping import gather_end_aligned, lengths_to_offsets  # noqa: E402
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan  # noqa: E402
 from news_recommendation_project_v2_torch.models import build_tower  # noqa: E402
 from news_recommendation_project_v2_torch.models.convert import (  # noqa: E402
+    classification_head_state_dict_from_jax,
     latent_state_dict_from_jax,
+    random_classification_head_params,
     random_latent_params,
+    random_reducing_params,
+    random_tower_params,
+    random_weighted_sum_params,
+    reducing_state_dict_from_jax,
+    tower_state_dict_from_jax,
+    weighted_sum_state_dict_from_jax,
+)
+from news_recommendation_project_v2_torch.models.layers import dense  # noqa: E402
+from news_recommendation_project_v2_torch.models.towers import (  # noqa: E402
+    ClassificationHead,
+    ReducingModel,
+    WeightedSumModel,
 )
 from news_recommendation_project_v2_torch.ops import _build  # noqa: E402
 from news_recommendation_project_v2_torch.ops.encode import save_embeddings  # noqa: E402
@@ -117,18 +173,32 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa:
     latent_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan  # noqa: E402
+from news_recommendation_project_v2_torch.ops.scoring import (  # noqa: E402
+    FlatEvalPlan,
+    _bucket_plan,
+    score_all_impressions,
+)
 from news_recommendation_project_v2_torch.ops.timing import count_syncs, cuda_ms, graph_ms  # noqa: E402
 from news_recommendation_project_v2_torch.train.step import (  # noqa: E402
+    apply_step,
     flat_infonce_loss,
     flat_infonce_step,
     flat_margin_loss,
     flat_margin_step,
+    padded_infonce_loss,
+    padded_margin_loss,
 )
-from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer  # noqa: E402
+from news_recommendation_project_v2_torch.train.trainer import (  # noqa: E402
+    ClassificationTrainer,
+    JointTowerTrainer,
+    TowerTrainer,
+    make_optimizer,
+)
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
     estimate_flat_chunk,
+    estimate_tower_batch,
     flat_token_bytes,
+    tower_activation_bytes,
 )
 
 NUM_NEWS, DIM = 65_238, 1024
@@ -154,6 +224,10 @@ TOL = {
 }
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def since(t_start: float) -> str:
+    return f"[{time.perf_counter() - t_start:.1f}s]"
 
 
 def attention_inputs(shape, dtype, gen):
@@ -362,6 +436,12 @@ def kernel_phase(gen) -> None:
 TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "library_device_ms")
 
 
+# (kernel, shape, type) -> measure()'s record, so that a shape two paths
+# launch (the padded eval's and the padded train steps' largest) is measured
+# once in a run.
+MEASURED: dict = {}
+
+
 def main_path_phase(shapes: dict, gen, path: str = "main path") -> dict[str, dict]:
     """Every kernel vs its plain version at each (shape, type) ``path``
     launched it at. Per kernel, the times and the bound are summed over the
@@ -371,7 +451,10 @@ def main_path_phase(shapes: dict, gen, path: str = "main path") -> dict[str, dic
     with torch.no_grad():
         for name, counts in shapes.items():
             keys = sorted(counts, key=lambda k: (str(k[1]), k[0]))
-            rows = [(counts[k], measure(name, k[0], k[1], gen)) for k in keys]
+            for k in keys:
+                if (name, *k) not in MEASURED:
+                    MEASURED[(name, *k)] = measure(name, k[0], k[1], gen)
+            rows = [(counts[k], MEASURED[(name, *k)]) for k in keys]
             by = {"operations": 0.0, "bytes": 0.0}
             for n, r in rows:
                 by[r["bound_by"]] += n * r["bound_ms"]
@@ -545,7 +628,7 @@ def serve_phase(device: str, work_dir: Path, num_news: int, tower_config: TowerC
     for (_, cands), got, want in zip(requests[:4], results["rank_batch"], cpu.rank_batch(requests[:4])):
         a, b = dict(got), dict(want)
         diff = max(diff, max(abs(a[c] - b[c]) for c in cands))
-    return dict(launches=total, shapes=shapes, rps=rps, cpu_diff=diff)
+    return dict(launches=total, shapes=shapes, rps=rps, cpu_diff=diff, requests=requests)
 
 
 def boundary_rows(hist_lens: np.ndarray, chunk: int, n: int = 64) -> np.ndarray:
@@ -595,8 +678,8 @@ def padded_scores(tower, emb, hist_rev, hist_lens, cand_rev, cand_row) -> np.nda
 def flat_eval_run(dtype, state: dict, emb: torch.Tensor, mplan, work: tuple) -> dict:
     """One type's flat eval over the whole workload, as bench.py runs it:
     the main-path run (launch counts set to 0 just before and read just
-    after, the peak memory), three timed ``score`` and ``metrics`` runs
-    after a warm-up, a profiled ``metrics`` run, a count of its host syncs,
+    after, the peak memory, which warms every shape), three timed ``score``
+    and ``metrics`` runs, a profiled ``metrics`` run, a count of its host syncs,
     and the checks of this type."""
     hist_lens, imp_lens, hist_rev, cand_rev, cand_row, _ = work
     kind = str(dtype)[6:]
@@ -647,7 +730,6 @@ def flat_eval_run(dtype, state: dict, emb: torch.Tensor, mplan, work: tuple) -> 
         if n == 0:
             raise AssertionError(f"check 1: the {kind} flat eval never launched the {name} kernel")
 
-    score()
     score_s, scores = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -737,7 +819,9 @@ def flat_eval_phase(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 20
-MIND_VAL_ROWS = 10_000  # val rows of 7c's MIND-small-scale epoch
+# 7c's epoch at MIND-small's scale runs on half of bench.py's rows (its
+# train rows drawn as build_workload draws them), to keep the smoke's time.
+MIND_TRAIN_ROWS, MIND_VAL_ROWS = FLAT_ROWS // 2, 5_000
 CHECK_B = 64
 # Card against CPU on one step: both compute float32-accurate products (the
 # kernels as 3xTF32) summed in other orders.
@@ -861,14 +945,14 @@ def device_ms_by_kernel(fn) -> tuple[object, dict]:
     }
 
 
-def step_split(tower, opt, emb, batch, name: str) -> dict:
+def step_split(opt, loss_call, label: str) -> dict:
     """One step's device time by part, each part under the profiler with a
-    synchronize after it: the forward's hand-written kernels, its cuBLAS
-    GEMMs and the rest of it; the plain backward's GEMMs (cuBLAS: the
-    linears, the GEGLU recompute, the attention's einsums) and the rest of it
-    (GELU, softmax, reductions, copies); the optimizer (clip and AdamW)."""
-    loss_fn, _, kw = LOSSES[name]
-    loss, fwd = device_ms_by_kernel(lambda: loss_fn(tower, emb, batch, **kw))
+    synchronize after it: the forward (``loss_call()``)'s hand-written
+    kernels, its cuBLAS GEMMs and the rest of it; the plain backward's GEMMs
+    (cuBLAS: the linears, the GEGLU recompute, the attention's einsums) and
+    the rest of it (GELU, softmax, reductions, copies); the optimizer (clip
+    and AdamW)."""
+    loss, fwd = device_ms_by_kernel(loss_call)
     _, bwd = device_ms_by_kernel(loss.backward)
     _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
 
@@ -893,7 +977,7 @@ def step_split(tower, opt, emb, batch, name: str) -> dict:
     split["total"] = sum(split.values())
     top = sorted(bwd.items(), key=lambda kv: -kv[1])[:6]
     log(
-        f"  7b {name}: one step's device time by part (ms): "
+        f"  {label}: one step's device time by part (ms): "
         + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
         + f"; total {split['total']:.2f}"
     )
@@ -943,7 +1027,8 @@ def train_step_phase(state: dict, emb: torch.Tensor, card: str) -> dict:
         )
         if not all(np.isfinite(warm + losses)):
             raise AssertionError(f"7b {name}: a loss is not finite: {warm + losses}")
-        step_split(tower, opt, emb, args, name)
+        loss_fn, _, kw = LOSSES[name]
+        step_split(opt, lambda: loss_fn(tower, emb, args, **kw), f"7b {name}")
         profile_call(f"{name} train step (B={TRAIN_B})", step, top=8)
         syncs = count_syncs(step)
         log(f"  7b {name}: host syncs in one step with its loss fetched: {syncs} (want 1)")
@@ -969,9 +1054,9 @@ def trainer_phase() -> None:
     2. Full width, batch 2048, margin (full_width_epochs): the learnable
        fixture at D=1024 (20,000 train and 5,000 val rows, about 10.5
        history tokens a row, steps of T = 8,192 or less), 2 epochs; then
-       bench.py's MIND-small-scale rows (build_workload: 50,000 train rows,
-       33 history tokens a row, steps of T = 2,048 or 4,096, and 10,000 val
-       rows), 1 epoch."""
+       bench.py's MIND-small-scale rows at half depth (build_workload's
+       draws: 25,000 train rows, 33 history tokens a row, steps of T = 2,048
+       or 4,096, and 5,000 val rows), 1 epoch."""
     ct, cv, emb_t, emb_v = learnable_split(800, 600, 64, seed=7)
     cfg = TowerConfig(kind="latent", reduced_dim=64, num_latents=8, latent_dim_head=16)
     state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(0), cfg))
@@ -1012,7 +1097,7 @@ def trainer_phase() -> None:
     # bench.py's MIND-small-scale rows, an N(0, 1) table made on the card as
     # benchmarks/train_bench.py's main_epoch makes it.
     emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
-    ct = mind_behaviors(np.random.default_rng(SEED), FLAT_ROWS)
+    ct = mind_behaviors(np.random.default_rng(SEED), MIND_TRAIN_ROWS)
     cv = mind_behaviors(np.random.default_rng(SEED + 1), MIND_VAL_ROWS)
     full_width_epochs("MIND-small scale", ct, cv, emb, emb, epochs=1)
 
@@ -1093,6 +1178,532 @@ def train_phase(gen, card: str) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the padded path and the other towers on the card
+# ---------------------------------------------------------------------------
+
+PADDED_KINDS = ("latent", "final_attention", "transformer")
+FWD_B, FWD_L = 64, 600
+FWD_CPU_ROWS = [0, 1, 2, 3]  # a full row, the all-pad row and two MIND-like rows, on the CPU
+PADDED_B = TrainConfig().batch_size
+CHECK_L = 32  # 8c.1's history window: the CPU's share of the check stays small
+# The learnable fixture at full width, half of 7c's 20,000 train rows: one
+# epoch per tower of 40,000 margin pairs, 20 steps of 2,048.
+LEARN_ROWS, LEARN_TRAIN = 12_500, 10_000
+
+
+def padded_tower(kind: str, state: dict, device, compute: str = "float32", **overrides):
+    tower = build_tower(TowerConfig(kind=kind, compute_dtype=compute, **overrides))
+    tower.load_state_dict(state)
+    return tower.to(device)
+
+
+def tower_states(cfg_overrides: dict | None = None, seed: int = SEED + 8) -> dict:
+    """Random weights of every user tower from one numpy seed, as
+    ``state_dict``s (full width unless overridden)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for kind in PADDED_KINDS:
+        cfg = TowerConfig(kind=kind, **(cfg_overrides or {}))
+        out[kind] = tower_state_dict_from_jax(kind, random_tower_params(rng, cfg))
+    return out
+
+
+def part_line(part: str, **fields) -> None:
+    """One JSON line of a phase 8 part's figures."""
+    log(json.dumps({"part": part, **fields}))
+
+
+def padded_from_flat(flat: tuple, total: int, width: int | None = None) -> tuple[int, tuple]:
+    """A flat_inputs batch as TowerTrainer._epoch_batches pads one: each
+    row's history end-aligned into [B, L], L the bucket of the longest (or
+    ``width``), then the pair columns. Returns (L, batch)."""
+    tok_idx, _, lens, hist_rev, pos, neg, mask = flat
+    lens = lens.astype(np.int64)
+    L = width or bucket_for(int(lens.max()), HISTORY_BUCKETS)
+    idx, hmask = gather_end_aligned(tok_idx[:total], np.cumsum(lens), lens, L, out_rows=len(lens))
+    return L, (idx, hmask, hist_rev, pos, neg, mask)
+
+
+def padded_forward_phase(states: dict) -> None:
+    """8a: every tower's forward at full width on [64, 600] MIND-like
+    histories (one full row, one all pad): float32 on the card against the
+    CPU on four of the rows (rows are independent), within 1e-4 of the
+    output's scale; bfloat16 compute within a norm-relative 3e-2 of float32;
+    every value finite, the all-pad row's too."""
+    rng = np.random.default_rng(SEED + 81)
+    lens = np.clip(rng.geometric(1 / 29.0, FWD_B), 1, FWD_L)
+    lens[0], lens[1] = FWD_L, 0
+    mask = (np.arange(FWD_L)[None] < lens[:, None]).astype(np.float32)
+    emb = rng.standard_normal((FWD_B, FWD_L, DIM), dtype=np.float32) * mask[..., None]
+    x, m = torch.from_numpy(emb).cuda(), torch.from_numpy(mask).cuda()
+    for name, kind, extra in (
+        ("final_attention", "final_attention", {}),
+        ("transformer", "transformer", {}),
+        ("transformer as_built", "transformer", {"as_built": True}),
+        ("latent", "latent", {}),
+    ):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            f32 = padded_tower(kind, states[kind], "cuda", **extra)(x, m).float()
+            bf16 = padded_tower(kind, states[kind], "cuda", "bfloat16", **extra)(x, m).float()
+            cpu = padded_tower(kind, states[kind], "cpu", **extra)(
+                torch.from_numpy(emb[FWD_CPU_ROWS]), torch.from_numpy(mask[FWD_CPU_ROWS])
+            )
+        rel = ((f32[FWD_CPU_ROWS].cpu() - cpu).abs().max() / cpu.abs().max()).item()
+        bf_rel = norm_rel(bf16, f32)
+        finite = bool(torch.isfinite(f32).all() and torch.isfinite(bf16).all())
+        part_line(
+            "8a", tower=name, shape=[FWD_B, FWD_L, DIM], cpu_rel=rel, cpu_tol=1e-4, bf16_norm_rel=bf_rel,
+            bf16_tol=3e-2, finite=finite, all_pad_row_norm=f32[1].norm().item(), seconds=time.perf_counter() - t0,
+        )
+        if not (rel <= 1e-4 and bf_rel <= 3e-2 and finite):
+            raise AssertionError(f"8a {name}: CPU {rel}, bfloat16 {bf_rel}, finite {finite}")
+
+
+def padded_eval_phase(states: dict, gen) -> dict:
+    """8b: score_all_impressions(flat_tokens=False) over bench.py's
+    build_workload for each tower, float32, batches sized by
+    estimate_tower_batch (at most TrainConfig's 512): the main-path run (the
+    launch counts set to 0 just before and read just after, timed, the peak
+    memory against tower_activation_bytes at that batch and the largest
+    bucket), then a profiled run (the device's busy share). The padding
+    share is the padded tokens the tower runs over the real ones. The
+    latent tower's padded scores must match its flat eval capped at the
+    largest bucket within 1e-5."""
+    work = build_workload(np.random.default_rng(SEED))
+    hist_lens, _, hist_rev, cand_rev, cand_row, _ = work
+    cap = HISTORY_BUCKETS[-1]
+    real = int(np.minimum(hist_lens, cap).sum())
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=gen)
+    emb = emb / torch.linalg.norm(emb, dim=1, keepdim=True)
+    record = {}
+    for kind in PADDED_KINDS:
+        cfg = TowerConfig(kind=kind)
+        tower = padded_tower(kind, states[kind], "cuda")
+        batch = min(PADDED_B, estimate_tower_batch(cfg, cap, device="cuda"))
+        plan = _bucket_plan(hist_lens, HISTORY_BUCKETS, batch)
+        padded = sum(len(starts) * length for length, _, starts, _, _ in plan)
+
+        def run():
+            return score_all_impressions(tower, emb, hist_rev, hist_lens, cand_rev, cand_row, batch_size=batch)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        scores = run()
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches()
+        shapes = {k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+                  for k, v in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = profile_call(f"{kind} padded eval", run, top=8)
+        fields = dict(
+            tower=kind, batch=batch, rows=FLAT_ROWS, seconds=seconds, impressions_per_s=FLAT_ROWS / seconds,
+            peak_gb=peak / 1e9, model_gb=tower_activation_bytes(cfg, batch, cap) / 1e9,
+            busy_share=prof["busy_ms"] / prof["wall_ms"], padded_tokens=padded, real_tokens=real,
+            padding_share=padded / real, launches=launches,
+        )
+        if not (scores.shape == (len(cand_rev),) and np.isfinite(scores).all()):
+            raise AssertionError(f"8b {kind}: scores of shape {scores.shape}, finite {np.isfinite(scores).all()}")
+        if kind == "latent":
+            flat = FlatEvalPlan(
+                hist_rev, hist_lens, cand_rev, cand_row,
+                chunk_tokens=estimate_flat_chunk(cfg, device="cuda"), max_len=cap,
+            ).score(tower, emb)
+            fields.update(flat_max_diff=float(np.abs(flat - scores).max()), flat_tol=1e-5)
+            if min(launches.values()) < 1 or not fields["flat_max_diff"] <= 1e-5:
+                raise AssertionError(f"8b latent: launches {launches}, padded vs flat {fields['flat_max_diff']}")
+            record = dict(launches=launches, shapes=shapes)
+        part_line("8b", **fields)
+        del tower
+        torch.cuda.empty_cache()
+    return record
+
+
+# Leaves whose gradient is 0 but for rounding: the readout's bias adds the
+# same to every token's weight of a dimension, which its normalisation over
+# the history cancels. No norm-relative error exists there; both devices'
+# gradients are held under ZERO_TOL in norm, as the CPU tests hold them.
+ZERO_LEAVES = {"transformer": ("linear1.bias",)}
+ZERO_TOL = 1e-6
+RELU_LAYERS = (1, 2, 4)  # final_attention's linears whose output goes through a ReLU
+
+
+def relu_flips(state: dict, batch: tuple, emb: torch.Tensor, emb_cpu: torch.Tensor) -> dict:
+    """final_attention's real tokens whose ReLU input (after linear1, linear2,
+    linear4) has another sign on the card than on the CPU, as {layer: [B, L]
+    bool}: at each such token one term of the gradient sums of that linear
+    and every linear before it is in on one device and out on the other."""
+    signs = []
+    for dev, table in (("cuda", emb), ("cpu", emb_cpu)):
+        tower = padded_tower("final_attention", state, dev, dropout_rate=0.0)
+        idx, mask = (torch.from_numpy(a).to(dev) for a in batch[:2])
+        with torch.no_grad():
+            z1 = dense(tower.linear1, table[idx.long()] * mask[..., None], torch.float32)
+            z2 = dense(tower.linear2, F.relu(z1), torch.float32)
+            z4 = dense(tower.linear4, dense(tower.linear3, F.relu(z2), torch.float32), torch.float32)
+        signs.append([(z > 0).cpu() for z in (z1, z2, z4)])
+    real = torch.from_numpy(batch[1]) > 0
+    return {j: (a != b).any(-1) & real for j, a, b in zip(RELU_LAYERS, *signs)}
+
+
+def step_grads(kind: str, state: dict, batch: tuple, emb: torch.Tensor, emb_cpu: torch.Tensor, margin: float):
+    """One padded margin step's loss and gradients ({name: tensor} on the
+    host) on the card and on the CPU, dropout off."""
+    losses, grads = {}, {}
+    for dev, table in (("cuda", emb), ("cpu", emb_cpu)):
+        tower = padded_tower(kind, state, dev, dropout_rate=0.0)
+        loss = padded_margin_loss(tower, table, on(batch, dev), margin)
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in tower.named_parameters() if p.grad is not None}
+        del tower, loss
+    return losses, grads
+
+
+def leaf_gaps(grads: dict, names) -> dict:
+    """The norm-relative gap of each named leaf between the card and the CPU."""
+    return {n: norm_rel(grads["cuda"][n], grads["cpu"][n]) for n in names}
+
+
+def padded_check_phase(states: dict, emb: torch.Tensor) -> None:
+    """8c.1: one padded margin step per tower at B=64 (histories end-aligned
+    into 32 clicks), dropout off: the loss on the card within 1e-5 of the
+    CPU's, all parameters' gradients as one vector and each parameter's
+    within a norm-relative 1e-4, with two exceptions, each reported:
+
+    - ``ZERO_LEAVES``, whose gradient is 0 but for rounding, are held under
+      ``ZERO_TOL`` in norm on both devices;
+    - where final_attention has a ReLU input at zero, of one sign on the card
+      and the other on the CPU, that token's term of the linear's gradient
+      and of every earlier linear's is in on one device and out on the other
+      (one term of about 2,000). On the batch itself only the leaves that no
+      such flip feeds are held each to 1e-4; then the flipped tokens are
+      masked out (final_attention is per token up to its readout, so the
+      other tokens' values do not move), no flip may remain, and every leaf
+      is held to 1e-4.
+
+    Then two runs of 5 steps (margin and InfoNCE in turn) with dropout on,
+    masks from one seeded CUDA generator, give the same parameter bits."""
+    rng = np.random.default_rng(SEED + 83)
+    T, total, flat = flat_inputs(CHECK_B, rng)
+    L, batch = padded_from_flat(flat, total, CHECK_L)
+    nce = batch[:4] + (rng.integers(0, NUM_NEWS, (CHECK_B, TRAIN_K)).astype(np.int32),) + batch[5:]
+    emb_cpu = emb.cpu()
+    margin = TrainConfig().margin
+    for kind in PADDED_KINDS:
+        t0 = time.perf_counter()
+        losses, grads = step_grads(kind, states[kind], batch, emb, emb_cpu, margin)
+        zero = ZERO_LEAVES.get(kind, ())
+        whole = norm_rel(torch.cat([grads["cuda"][n].flatten() for n in grads["cpu"]]),
+                         torch.cat([g.flatten() for g in grads["cpu"].values()]))
+        gap = abs(losses["cuda"] - losses["cpu"])
+        zero_norms = {n: max(grads[d][n].norm().item() for d in grads) for n in zero}
+        fields, ok = {}, gap <= LOSS_TOL and whole <= GRAD_TOL and all(v < ZERO_TOL for v in zero_norms.values())
+        flips = relu_flips(states[kind], batch, emb, emb_cpu) if kind == "final_attention" else {}
+        fed = max([j for j, f in flips.items() if f.any()], default=0)
+        held = [n for n in grads["cpu"] if n not in zero and not (n.startswith("linear") and int(n[6]) <= fed)]
+        gaps = leaf_gaps(grads, held)
+        worst = max((v, n) for n, v in gaps.items())
+        ok = ok and worst[0] <= GRAD_TOL
+        if flips:
+            flipped = torch.stack(list(flips.values())).any(0).numpy()
+            reduced = (batch[0], batch[1] * ~flipped) + batch[2:]
+            left = sum(int(f.sum()) for f in relu_flips(states[kind], reduced, emb, emb_cpu).values())
+            r_losses, r_grads = step_grads(kind, states[kind], reduced, emb, emb_cpu, margin)
+            r_worst = max((v, n) for n, v in leaf_gaps(r_grads, r_grads["cpu"]).items())
+            fields = dict(
+                flipped_tokens=int(flipped.sum()), flips_left=left, flips_masked_loss_gap=abs(r_losses["cuda"] - r_losses["cpu"]),
+                flips_masked_worst_leaf_norm_rel=r_worst[0], flips_masked_worst_leaf=r_worst[1],
+            )
+            ok = ok and left == 0 and fields["flips_masked_loss_gap"] <= LOSS_TOL and r_worst[0] <= GRAD_TOL
+        finals = []
+        for _ in range(2):
+            tower = padded_tower(kind, states[kind], "cuda")
+            opt = make_optimizer(TrainConfig(), tower.parameters())
+            drops = torch.Generator(device="cuda").manual_seed(SEED)
+            args = on(batch, "cuda"), on(nce, "cuda")
+            for i in range(5):
+                if i % 2:
+                    apply_step(opt, padded_infonce_loss(tower, emb, args[1], drops))
+                else:
+                    apply_step(opt, padded_margin_loss(tower, emb, args[0], margin, drops))
+            torch.cuda.synchronize()
+            finals.append([p.detach().clone() for p in tower.parameters()])
+        same = all(torch.equal(a, b) for a, b in zip(*finals))
+        part_line(
+            "8c.1", tower=kind, B=CHECK_B, L=L, loss_card=losses["cuda"], loss_cpu=losses["cpu"], loss_gap=gap,
+            loss_tol=LOSS_TOL, grad_norm_rel=whole, grad_tol=GRAD_TOL, leaves_held=len(held),
+            leaves=len(grads["cpu"]), worst_leaf_norm_rel=worst[0], worst_leaf=worst[1],
+            relu_sign_flips={f"linear{j}": int(f.sum()) for j, f in flips.items()}, zero_leaf_norms=zero_norms,
+            zero_tol=ZERO_TOL, **fields, five_steps_bit_identical=same, seconds=time.perf_counter() - t0,
+        )
+        if not (ok and same):
+            raise AssertionError(f"8c.1 {kind}: loss {gap}, gradient {whole}, worst leaf {worst}, {fields}, "
+                                 f"zero leaves {zero_norms}, bit-identical {same}")
+
+
+def padded_step_phase(states: dict, emb: torch.Tensor) -> dict:
+    """8c.2: 20 timed padded margin steps per tower at B=512 (TrainConfig's
+    batch; no dedup, the worst case), dropout on, each step a new batch of
+    flat_inputs's histories padded to its own bucket, after a warm-up step,
+    the loss fetched every step: ms/step, pairs/s, the peak memory, the
+    device time by part, host syncs a step. The latent tower's launches are
+    counted from 0 over its timed steps."""
+    rng = np.random.default_rng(SEED + 84)
+    widths, batches = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        _, total, flat = flat_inputs(PADDED_B, rng)
+        L, b = padded_from_flat(flat, total)
+        widths.append(L)
+        batches.append(on(b, "cuda"))
+    by_l = dict(sorted(collections.Counter(widths[1:]).items()))
+    margin = TrainConfig().margin
+    record = {}
+    for kind in PADDED_KINDS:
+        tower = padded_tower(kind, states[kind], "cuda")
+        opt = make_optimizer(TrainConfig(), tower.parameters())
+        drops = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def step(b):
+            return float(apply_step(opt, padded_margin_loss(tower, emb, b, margin, drops)))
+
+        warm = [step(batches[0])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        losses = [step(b) for b in batches[1:]]
+        dt = (time.perf_counter() - t0) / TRAIN_STEPS
+        if kind == "latent":
+            record = dict(
+                launches=kernel_launches(),
+                shapes={k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+                        for k, v in KERNELS.items()},
+            )
+        peak = torch.cuda.max_memory_allocated() - base
+        split = step_split(opt, lambda: padded_margin_loss(tower, emb, batches[-1], margin, drops), f"8c.2 {kind}")
+        syncs = count_syncs(lambda: step(batches[-1]))
+        part_line(
+            "8c.2", tower=kind, B=PADDED_B, steps_by_L=by_l, ms_per_step=dt * 1e3, pairs_per_s=PADDED_B / dt,
+            peak_gb=peak / 1e9, device_ms_by_part=split, host_syncs_per_step=syncs,
+            loss_first=warm[0], loss_last=losses[-1],
+        )
+        if not (np.isfinite(warm + losses).all() and syncs == 1):
+            raise AssertionError(f"8c.2 {kind}: losses {warm + losses}, {syncs} host syncs a step")
+        del tower, opt
+        torch.cuda.empty_cache()
+    if min(record["launches"].values()) < TRAIN_STEPS:
+        raise AssertionError(f"8c.2: the latent steps launched {record['launches']}")
+    return record
+
+
+def compare_histories(part: str, label: str, card: list, cpu: list) -> None:
+    """Epoch by epoch, card against CPU with the CPU tests' tolerances."""
+    worst_loss = worst_metric = 0.0
+    for got, want in zip(card, cpu, strict=True):
+        worst_loss = max(worst_loss, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        worst_metric = max(worst_metric, *(abs(got["val"][k] - want["val"][k]) for k in METRIC_KEYS))
+    part_line(
+        part, trainer=label, epochs=len(card), loss_rel=worst_loss, loss_tol=EPOCH_LOSS_REL,
+        metric_abs=worst_metric, metric_tol=EPOCH_METRIC_ABS, val_auc=[h["val"]["auc"] for h in card],
+    )
+    if not (worst_loss <= EPOCH_LOSS_REL and worst_metric <= EPOCH_METRIC_ABS):
+        raise AssertionError(f"{part} {label}: card and CPU differ: loss {worst_loss}, metrics {worst_metric}")
+
+
+SMALL_PADDED = dict(reduced_dim=64, embedding_dim=64, hidden_dim=128, num_layers=1, dropout_rate=0.0)
+FIXTURE_TRAIN = dict(learning_rate=3e-4, num_epochs=2, batch_size=128, seed=0)
+
+
+def padded_fixture_phase() -> None:
+    """8c.3: TowerTrainer(flat_train=False, flat_eval=False) on bench.py's
+    trained-metrics fixture (d=64, 600/200 rows, 2 epochs), final_attention
+    and transformer, on the card against the CPU."""
+    ct, cv, emb_t, emb_v = learnable_split(800, 600, 64, seed=7)
+    states = tower_states(SMALL_PADDED, seed=0)
+    for kind in ("final_attention", "transformer"):
+        histories = {}
+        for dev in ("cuda", "cpu"):
+            trainer = TowerTrainer(
+                padded_tower(kind, states[kind], dev, **SMALL_PADDED), ct, emb_t, compiled_val=cv,
+                news_emb_val=emb_v, cfg=TrainConfig(**FIXTURE_TRAIN), flat_train=False, flat_eval=False, device=dev,
+            )
+            histories[dev] = trainer.train()
+        compare_histories("8c.3", kind, histories["cuda"], histories["cpu"])
+
+
+def held_loss(tower, table, batch, margin: float) -> float:
+    with torch.no_grad():
+        return padded_margin_loss(tower, table, batch, margin).item()
+
+
+def padded_epoch_phase(states: dict) -> None:
+    """8c.4: one full-width epoch per tower on the learnable fixture (10,000
+    train rows, batch 2048, margin, the padded step and eval): pairs/s end
+    to end, the loss of one fixed batch of train pairs (drawn by another
+    sampler seed) before and after it, which must fall, and the val
+    metrics."""
+    ct, cv, emb_t, emb_v = learnable_split(LEARN_ROWS, LEARN_TRAIN, DIM, seed=7)
+    pairs = margin_pairs(ct)
+    cfg = TrainConfig(batch_size=TRAIN_B, num_epochs=1, seed=0)
+    for kind in PADDED_KINDS:
+        tower = padded_tower(kind, states[kind], "cuda")
+        trainer = TowerTrainer(
+            tower, ct, emb_t, compiled_val=cv, news_emb_val=emb_v, cfg=cfg, flat_train=False, flat_eval=False
+        )
+        probe = TowerTrainer(tower, ct, emb_t, cfg=dataclasses.replace(cfg, seed=1), flat_train=False, flat_eval=False)
+        held = on(next(probe._epoch_batches()), "cuda")
+        before = held_loss(tower, probe.news_emb_train, held, cfg.margin)
+        t0 = time.perf_counter()
+        loss = trainer.train_one_epoch()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = held_loss(tower, probe.news_emb_train, held, cfg.margin)
+        t1 = time.perf_counter()
+        _, val = trainer.evaluate()
+        part_line(
+            "8c.4", tower=kind, pairs=pairs, seconds=seconds, pairs_per_s=pairs / seconds, epoch_loss=loss,
+            held_loss_before=before, held_loss_after=after, eval_seconds=time.perf_counter() - t1, val=val,
+        )
+        if not (np.isfinite(loss) and after < before and all(0.0 <= val[k] <= 1.0 for k in METRIC_KEYS)):
+            raise AssertionError(f"8c.4 {kind}: loss {loss}, held loss {before} -> {after}, val {val}")
+        del tower, trainer, probe
+        torch.cuda.empty_cache()
+
+
+def head_and_blend(dim: int, rng: np.random.Generator) -> tuple:
+    head = ClassificationHead(dim, dim)
+    head.load_state_dict(classification_head_state_dict_from_jax(random_classification_head_params(rng, dim, dim)))
+    blend, reduce = WeightedSumModel(), ReducingModel(dim, dim)
+    blend.load_state_dict(weighted_sum_state_dict_from_jax(random_weighted_sum_params(rng)))
+    reduce.load_state_dict(reducing_state_dict_from_jax(random_reducing_params(rng, dim, dim)))
+    return head, blend, reduce
+
+
+def joint_phase() -> None:
+    """8d: ClassificationTrainer, then JointTowerTrainer blending the tower's
+    cosine with that scorer's baseline and reducing both tables. On
+    bench.py's fixture (d=64, final_attention, 2 epochs) on the card against
+    the CPU, both joint runs on the card scorer's baseline; then at full
+    width (the transformer tower) one epoch each on the learnable fixture:
+    pairs/s end to end and the val metrics."""
+    ct, cv, emb_t, emb_v = learnable_split(800, 600, 64, seed=7)
+    state = tower_states(SMALL_PADDED, seed=0)["final_attention"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        head, blend, reduce = head_and_blend(64, np.random.default_rng(SEED + 85))
+        clf = ClassificationTrainer(
+            head, ct, emb_t, compiled_val=cv, news_emb_val=emb_v, cfg=TrainConfig(**FIXTURE_TRAIN), device=dev
+        )
+        runs[dev] = {"classification": clf.train()}
+        if dev == "cuda":
+            base = clf.baseline_scores(emb_t), clf.baseline_scores(emb_v)
+        joint = JointTowerTrainer(
+            padded_tower("final_attention", state, dev, **SMALL_PADDED), ct, emb_t, blend=blend, reduce=reduce,
+            baseline_train=base[0], baseline_val=base[1], compiled_val=cv, news_emb_val=emb_v,
+            cfg=TrainConfig(**FIXTURE_TRAIN), flat_eval=False, device=dev,
+        )
+        runs[dev]["joint"] = joint.train()
+    for name in ("classification", "joint"):
+        compare_histories("8d", name, runs["cuda"][name], runs["cpu"][name])
+
+    ct, cv, emb_t, emb_v = learnable_split(LEARN_ROWS, LEARN_TRAIN, DIM, seed=7)
+    head, blend, reduce = head_and_blend(DIM, np.random.default_rng(SEED + 86))
+    cfg = TrainConfig(batch_size=TRAIN_B, num_epochs=1, seed=0)
+    clf = ClassificationTrainer(head, ct, emb_t, compiled_val=cv, news_emb_val=emb_v, cfg=cfg)
+    timed_epoch("classification", clf, margin_pairs(ct))
+    joint = JointTowerTrainer(
+        padded_tower("transformer", tower_states()["transformer"], "cuda"), ct, emb_t, blend=blend, reduce=reduce,
+        baseline_train=clf.baseline_scores(emb_t), baseline_val=clf.baseline_scores(emb_v),
+        compiled_val=cv, news_emb_val=emb_v, cfg=cfg, flat_eval=False,
+    )
+    timed_epoch("joint", joint, margin_pairs(ct))
+
+
+def margin_pairs(ct) -> int:
+    """The margin sampler's pairs an epoch: per impression the larger of its
+    positives and negatives."""
+    pos = np.bincount(ct.imp_row[ct.labels_flat == 1], minlength=ct.num_rows)
+    return int(np.maximum(pos, ct.imp_lens - pos).sum())
+
+
+def timed_epoch(name: str, trainer, pairs: int) -> None:
+    """8d at full width: one epoch, pairs/s end to end, then the eval."""
+    t0 = time.perf_counter()
+    loss = trainer.train_one_epoch()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _, val = trainer.evaluate()
+    part_line("8d", trainer=name, width=DIM, pairs=pairs, seconds=seconds, pairs_per_s=pairs / seconds,
+              epoch_loss=loss, val=val)
+    if not (np.isfinite(loss) and all(0.0 <= val[k] <= 1.0 for k in METRIC_KEYS)):
+        raise AssertionError(f"8d {name}: loss {loss}, val {val}")
+
+
+def padded_serve_phase(states: dict, work_dir: Path, requests: list) -> None:
+    """8e: Ranker (through cli.serve.build_ranker, as ``nrtorch-serve
+    --tower`` builds it) with final_attention and with transformer at full
+    width over phase 4's 64 MIND-like requests: requests/s of three timed
+    rank_batch runs; every request's ranking in the CPU ranker's order and
+    its scores within 1e-5."""
+    for kind in ("final_attention", "transformer"):
+        ckpt = work_dir / f"{kind}.pt"
+        torch.save(states[kind], ckpt)
+        cfg = TowerConfig(kind=kind, **tower_kwargs_for_dim(DIM))  # as nrtorch-serve --tower KIND --dim DIM
+        ranker = build_ranker(work_dir / "emb", "MINDsmall_dev", ckpt, cfg, device="cuda")
+        got = ranker.rank_batch(requests)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ranker.rank_batch(requests)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        want = build_ranker(work_dir / "emb", "MINDsmall_dev", ckpt, cfg, device="cpu").rank_batch(requests)
+        same_order = all([c for c, _ in g] == [c for c, _ in w] for g, w in zip(got, want, strict=True))
+        diff = max(abs(a - b) for g, w in zip(got, want) for (_, a), (_, b) in zip(g, w))
+        for (_, cands), ranked in zip(requests, got):
+            check_ranked(ranked, cands)
+        part_line(
+            "8e", tower=kind, requests=len(requests), requests_per_s=[len(requests) / t for t in times],
+            same_order=same_order, max_score_diff=diff, tol=1e-5,
+        )
+        if not (same_order and diff <= 1e-5):
+            raise AssertionError(f"8e {kind}: order {same_order}, score difference {diff}")
+
+
+def padded_phase(gen, work_dir: Path, requests: list) -> dict:
+    """Phase 8 (8a-8e), each part's wall time printed; returns the latent
+    tower's kernel launches and shapes on the padded eval and the padded
+    train steps."""
+    states = tower_states()
+    seconds = {}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return out
+
+    timed("8a", padded_forward_phase, states)
+    evals = timed("8b", padded_eval_phase, states, gen)
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=gen)
+    timed("8c.1", padded_check_phase, states, emb)
+    steps = timed("8c.2", padded_step_phase, states, emb)
+    del emb
+    torch.cuda.empty_cache()
+    timed("8c.3", padded_fixture_phase)
+    timed("8c.4", padded_epoch_phase, states)
+    timed("8d", joint_phase)
+    timed("8e", padded_serve_phase, states, work_dir, requests)
+    log(json.dumps({"part": "8 wall seconds", **seconds}))
+    return dict(eval=evals, train=steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1115,10 +1726,10 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    log("phase 3 kernels vs plain versions on the card, at serving shapes:")
+    log("phase 3 kernels vs plain versions on the card, at serving shapes: " + since(t_start))
     kernel_phase(gen)
 
-    log("phase 4 serve: full-width latent tower behind build_ranker (TF32 off)")
+    log("phase 4 serve: full-width latent tower behind build_ranker (TF32 off) " + since(t_start))
     work_dir = ROOT / "build" / "smoke"
     work_dir.mkdir(parents=True, exist_ok=True)
     serve = serve_phase("cuda", work_dir, NUM_NEWS, TowerConfig(kind="latent"))
@@ -1130,14 +1741,17 @@ def main() -> int:
     if not serve["cpu_diff"] <= 1e-4:
         raise AssertionError(f"GPU and CPU rankers disagree by {serve['cpu_diff']}")
 
-    log("phase 5 kernels vs plain versions at every shape the main path launched them at:")
+    log("phase 5 kernels vs plain versions at every shape the main path launched them at: " + since(t_start))
     served = {
         name: collections.Counter({(s, torch.float32): n for s, n in counts.items()})
         for name, counts in serve["shapes"].items()
     }
     records = {"serve": (main_path_phase(served, gen), serve["launches"])}
 
-    log("phase 6 flat eval: FlatEvalPlan + DeviceMetricsPlan at full width, MIND-small scale (TF32 off)")
+    log(
+        "phase 6 flat eval: FlatEvalPlan + DeviceMetricsPlan at full width, MIND-small scale (TF32 off) "
+        + since(t_start)
+    )
     runs = flat_eval_phase(gen)
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape the flat eval launched them at:")
@@ -1145,11 +1759,25 @@ def main() -> int:
     launches = {name: sum(r["launches"][name] for r in runs.values()) for name in KERNELS}
     records["flat_eval"] = (main_path_phase(flat, gen, path="flat eval"), launches)
 
-    log("phase 7 training: the flat-token step and TowerTrainer at full width, float32 (TF32 off)")
+    log("phase 7 training: the flat-token step and TowerTrainer at full width, float32 (TF32 off) " + since(t_start))
     train = train_phase(gen, card)
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape the timed train steps launched them at:")
     records["train"] = (main_path_phase(train["shapes"], gen, path="train"), train["launches"])
+
+    log(
+        "phase 8 the padded path and the other towers at full width, float32 (TF32 off) unless bfloat16 "
+        "is named " + since(t_start)
+    )
+    padded = padded_phase(gen, work_dir, serve["requests"])
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape the padded eval and train steps launched them at:")
+    records["padded_eval"] = (
+        main_path_phase(padded["eval"]["shapes"], gen, path="padded eval"), padded["eval"]["launches"]
+    )
+    records["padded_train"] = (
+        main_path_phase(padded["train"]["shapes"], gen, path="padded train"), padded["train"]["launches"]
+    )
 
     kernels = [
         {

@@ -150,8 +150,8 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=Path, default=None,
                         help="tower state_dict saved with torch.save (omit = "
                              "mean-pool scorer)")
-    parser.add_argument("--tower", default="latent", choices=["latent"],
-                        help="tower kind (the port has the latent tower so far)")
+    parser.add_argument("--tower", default="latent",
+                        choices=["latent", "final_attention", "transformer"])
     parser.add_argument("--dim", type=int, default=None,
                         help="tower dim override; must match the checkpoint's "
                              "training --dim")

@@ -8,6 +8,7 @@ from typing import Optional
 
 EMBEDDING_DIM = 1024
 REDUCED_DIM = EMBEDDING_DIM
+NUM_HIDDEN_LAYERS = 1  # transformer tower layers
 IMPRESSION_MAXLEN = 600
 
 # The default training seed, as in the JAX package.
@@ -38,7 +39,7 @@ class TowerConfig:
     reduced_dim: int = REDUCED_DIM
     hidden_dim: int = 4096
     num_heads: int = 8
-    num_layers: int = 1
+    num_layers: int = NUM_HIDDEN_LAYERS
     num_latents: int = 64
     latent_dim_head: int = 512
     dropout_rate: float = 0.1

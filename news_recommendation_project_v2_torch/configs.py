@@ -1,7 +1,7 @@
-"""Preset experiment configurations. This slice ports config[1]: the latent
-user tower trained on frozen news embeddings, the flat-token step, and
-epoch evals with the MIND metrics computed on the device. The other presets
-(the frozen mean-pool scorer, end-to-end encoder training, the multi-GPU
+"""Preset experiment configurations. This port has config[0], the frozen
+mean-pool scorer (no training, the bucketed eval), and config[1]: a user
+tower trained on frozen news embeddings, with epoch evals and the MIND
+metrics. The other presets (end-to-end encoder training, the multi-GPU
 configurations) wait for their modules (ROADMAP.md §1)."""
 
 from __future__ import annotations
@@ -12,9 +12,29 @@ import numpy as np
 
 from .config import TowerConfig, TrainConfig
 from .data.compiler import CompiledBehaviors
-from .models import build_tower
-from .models.convert import latent_state_dict_from_jax, random_latent_params
+from .eval.ranker import compose_final_scores, history_candidate_slots
+from .models import average_pool, build_tower, supports_flat_scoring
+from .models.convert import random_tower_params, tower_state_dict_from_jax
+from .ops.scoring import score_all_impressions
 from .train.trainer import TowerTrainer
+
+
+def run_config0(compiled: CompiledBehaviors, news_embeddings: np.ndarray, device=None) -> dict:
+    """Config[0]: no training; each user vector is the mean of its history's
+    embeddings (the most recent ``HISTORY_BUCKETS[-1]`` clicks), candidates
+    scored by cosine, the MIND metrics. ``device=None`` means CUDA."""
+    slots, cand_rows = history_candidate_slots(compiled)
+    view = compiled.with_history_view()
+    scores = score_all_impressions(
+        average_pool,
+        news_embeddings,
+        view.hist_rev,
+        view.hist_lens,
+        compiled.imp_rev[slots],
+        cand_rows,
+        device=device,
+    )
+    return compose_final_scores(compiled, history_scores=scores).metrics
 
 
 def run_config1(
@@ -26,15 +46,19 @@ def run_config1(
     tower_cfg: Optional[TowerConfig] = None,
     device=None,
 ) -> dict:
-    """Config[1]: train the latent tower, return the last epoch's val (or,
-    without a val set, train) metrics. The tower starts from random weights
-    drawn from ``train_cfg.seed`` with numpy (``random_latent_params``).
-    ``device=None`` means CUDA."""
+    """Config[1]: train the user tower of ``tower_cfg`` (default: the latent
+    tower at the table's width), return the last epoch's val (or, without a
+    val set, train) metrics. The tower starts from random weights drawn
+    from ``train_cfg.seed`` with numpy (``random_tower_params``). The flat
+    step and the fused flat eval where the tower is token-local
+    (``supports_flat_scoring``), the padded step and the bucketed eval
+    otherwise. ``device=None`` means CUDA."""
     tower_cfg = tower_cfg or _sized_tower(news_embeddings.shape[1])
     train_cfg = train_cfg or TrainConfig(num_epochs=2, batch_size=256)
     tower = build_tower(tower_cfg)
-    params = random_latent_params(np.random.default_rng(train_cfg.seed), tower_cfg)
-    tower.load_state_dict(latent_state_dict_from_jax(params))
+    params = random_tower_params(np.random.default_rng(train_cfg.seed), tower_cfg)
+    tower.load_state_dict(tower_state_dict_from_jax(tower_cfg.kind, params))
+    flat = supports_flat_scoring(tower_cfg)
     trainer = TowerTrainer(
         tower,
         compiled.with_history_view(),
@@ -42,7 +66,9 @@ def run_config1(
         compiled_val=compiled_val.with_history_view() if compiled_val else None,
         news_emb_val=news_embeddings_val,
         cfg=train_cfg,
-        device_metrics=True,  # epoch evals fetch five scalars
+        flat_train=flat,
+        flat_eval=flat,
+        device_metrics=flat,  # epoch evals fetch five scalars
         device=device,
     )
     last = trainer.train()[-1]

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
@@ -31,6 +33,34 @@ def truncate_flat_end_aligned(
     keep_off = lengths_to_offsets(keep)
     sel = np.repeat(starts, keep) + (np.arange(keep_off[-1]) - np.repeat(keep_off[:-1], keep))
     return np.asarray(flat)[sel], keep
+
+
+def gather_end_aligned(
+    flat: np.ndarray,
+    ends: np.ndarray,
+    lens: np.ndarray,
+    width: int,
+    out_rows: Optional[int] = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pack end-aligned windows of a flat ragged array into a padded block.
+
+    Row ``j`` holds ``flat[ends[j]-min(lens[j],width) : ends[j]]``
+    left-justified and zero-padded to ``width`` (the most recent ``width``
+    items of each segment), with its float32 mask; ``out_rows`` pads extra
+    all-zero rows. Returns int32 indices [out_rows, width] and the mask."""
+    n = len(ends)
+    out_rows = n if out_rows is None else out_rows
+    idx = np.zeros((out_rows, width), np.int32)
+    mask = np.zeros((out_rows, width), np.float32)
+    if n:
+        lens = np.minimum(np.asarray(lens), width)
+        starts = np.asarray(ends) - lens
+        pos = np.arange(width)
+        valid = pos[None, :] < lens[:, None]
+        gp = np.minimum(starts[:, None] + pos[None, :], max(len(flat) - 1, 0))
+        idx[:n] = np.where(valid, np.asarray(flat)[gp], 0)
+        mask[:n] = valid
+    return idx, mask
 
 
 def group_items(items: np.ndarray, counts: np.ndarray) -> np.ndarray:

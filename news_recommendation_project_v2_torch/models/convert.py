@@ -1,76 +1,285 @@
-"""JAX/flax parameters -> the port's ``state_dict``.
+"""JAX/flax parameters -> the port's ``state_dict``s, and random parameters
+in the JAX layout.
 
-The inverse of the JAX package's ``convert_latent_attention``: a flax
-``Dense.kernel`` is [in, out] and a torch ``Linear.weight`` [out, in], so
-kernels transpose; a flax ``LayerNorm.scale`` is a torch ``weight``. Arrays
-arrive as numpy (or anything ``np.asarray`` reads) and leave as float32
-tensors; ``load_state_dict`` casts them to the tower's parameter type.
+Each ``*_state_dict_from_jax`` is the inverse of one of the JAX package's
+converters (``models/convert_towers.py``): a flax ``Dense.kernel`` is
+[in, out] and a torch ``Linear.weight`` [out, in], so kernels transpose; a
+flax ``LayerNorm.scale`` is a torch ``weight``; an ``Embed.embedding`` is an
+``Embedding.weight``. Arrays arrive as numpy (or anything ``np.asarray``
+reads) and leave as float32 tensors; ``load_state_dict`` casts them to the
+module's parameter type. Params may come with or without the outer
+``{"params": ...}``.
+
+The ``random_*_params`` generators draw every weight from one numpy
+generator, so one seed gives both packages the same weights: flax kernels
+[in, out] at LeCun-normal scale, LayerNorm scales and all biases perturbed so
+that they matter.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+
+from ..config import TowerConfig
+from .attention import INTERMEDIATE_SIZE
+
+StateDict = dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def random_latent_params(rng: np.random.Generator, cfg) -> dict:
-    """Random latent-tower parameters of ``cfg``'s (a ``TowerConfig``)
-    widths, as numpy in the JAX package's layout (flax kernels [in, out],
-    LeCun-normal scale; LayerNorm scales and all biases perturbed so that they
-    matter). One seed gives both packages the same weights."""
-    d, inner = cfg.reduced_dim, cfg.num_heads * cfg.latent_dim_head
+def _params(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params.get("params", params)
 
-    def normal(*shape, scale=1.0):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
 
-    def dense(i, o, bias=True):
-        p = {"kernel": normal(i, o, scale=i**-0.5)}
+def _put_dense(sd: StateDict, prefix: str, dense: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(dense["kernel"]).T)
+    if "bias" in dense:
+        sd[f"{prefix}.bias"] = _t(dense["bias"])
+
+
+def _put_ln(sd: StateDict, prefix: str, ln: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(ln["scale"])
+    sd[f"{prefix}.bias"] = _t(ln["bias"])
+
+
+def _with_prefix(prefix: str, sd: StateDict) -> StateDict:
+    return {f"{prefix}{k}": v for k, v in sd.items()}
+
+
+# -- random parameters in the JAX layout ---------------------------------------
+
+
+class _Draw:
+    """Weight shapes from one numpy generator."""
+
+    def __init__(self, rng: np.random.Generator):
+        self.rng = rng
+
+    def normal(self, *shape, scale=1.0) -> np.ndarray:
+        return self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    def dense(self, i: int, o: int, bias: bool = True) -> dict:
+        p = {"kernel": self.normal(i, o, scale=i**-0.5)}
         if bias:
-            p["bias"] = normal(o, scale=0.02)
+            p["bias"] = self.normal(o, scale=0.02)
         return p
 
-    def ln():
-        return {"scale": 1.0 + normal(d, scale=0.1), "bias": normal(d, scale=0.1)}
+    def ln(self, d: int) -> dict:
+        return {"scale": 1.0 + self.normal(d, scale=0.1), "bias": self.normal(d, scale=0.1)}
 
+
+def random_latent_params(rng: np.random.Generator, cfg: TowerConfig) -> dict:
+    """A latent tower of ``cfg``'s widths."""
+    w = _Draw(rng)
+    d, inner = cfg.reduced_dim, cfg.num_heads * cfg.latent_dim_head
     return {
         "params": {
-            "latents": normal(cfg.num_latents, d),
-            "cross_prenorm": ln(),
-            "cross_prenorm_context": ln(),
+            "latents": w.normal(cfg.num_latents, d),
+            "cross_prenorm": w.ln(d),
+            "cross_prenorm_context": w.ln(d),
             "cross_attn": {
-                "to_q": dense(d, inner, bias=False),
-                "to_kv": dense(d, 2 * inner, bias=False),
-                "to_out": dense(inner, d, bias=False),
+                "to_q": w.dense(d, inner, bias=False),
+                "to_kv": w.dense(d, 2 * inner, bias=False),
+                "to_out": w.dense(inner, d, bias=False),
             },
-            "ff_prenorm": ln(),
-            "cross_ff": {"proj_in": dense(d, 8 * d), "proj_out": dense(4 * d, d)},
+            "ff_prenorm": w.ln(d),
+            "cross_ff": {"proj_in": w.dense(d, 8 * d), "proj_out": w.dense(4 * d, d)},
         }
     }
 
 
-def latent_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """A ``LatentAttentionTower`` param tree (with or without the outer
-    ``{"params": ...}``) -> a ``state_dict`` for the port's tower."""
-    p = params.get("params", params)
+def random_final_attention_params(rng: np.random.Generator, cfg: TowerConfig) -> dict:
+    """A ``FinalAttention`` of ``cfg``'s ``reduced_dim`` and ``hidden_dim``."""
+    w = _Draw(rng)
+    d, h = cfg.reduced_dim, cfg.hidden_dim
+    return {
+        "params": {
+            "linear1": w.dense(d, h),
+            "linear2": w.dense(h, h),
+            "linear3": w.dense(h, d),
+            "linear4": w.dense(d, h),
+            "linear5": w.dense(h, d, bias=False),
+        }
+    }
+
+
+def _random_encoder(w: _Draw, d: int, num_layers: int) -> dict:
+    return {
+        f"layer_{i}": {
+            "attention": {"qkv_proj": w.dense(d, 3 * d), "o_proj": w.dense(d, d)},
+            "g_mlp": {
+                "up_gate_proj": w.dense(d, 2 * INTERMEDIATE_SIZE, bias=False),
+                "down_proj": w.dense(INTERMEDIATE_SIZE, d),
+            },
+            "attn_layernorm": w.ln(d),
+            "g_mlp_layernorm": w.ln(d),
+        }
+        for i in range(num_layers)
+    }
+
+
+def random_transformer_params(rng: np.random.Generator, cfg: TowerConfig) -> dict:
+    """A ``TransformerTower`` of ``cfg``'s ``reduced_dim`` and ``num_layers``."""
+    w = _Draw(rng)
+    d = cfg.reduced_dim
+    return {"params": {"encoder": _random_encoder(w, d, cfg.num_layers), "linear1": w.dense(d, d)}}
+
+
+def random_token_attention_pool_params(rng: np.random.Generator, hidden_size: int, num_layers: int) -> dict:
+    """A ``TokenAttentionPool`` (its encoder; the pool has no parameters)."""
+    return {"params": {"encoder": _random_encoder(_Draw(rng), hidden_size, num_layers)}}
+
+
+def random_classification_head_params(
+    rng: np.random.Generator, in_dim: int, hidden_dim: int, out_dim: int = 1
+) -> dict:
+    w = _Draw(rng)
+    return {
+        "params": {
+            "linear_1": w.dense(in_dim, hidden_dim),
+            "linear_2": w.dense(hidden_dim, hidden_dim),
+            "linear_3": w.dense(hidden_dim, out_dim),
+        }
+    }
+
+
+def random_weighted_sum_params(rng: np.random.Generator) -> dict:
+    """A ``WeightedSumModel``: ``alpha`` drawn away from its zero init."""
+    return {"params": {"alpha": _Draw(rng).normal(scale=0.5)}}
+
+
+def random_reducing_params(rng: np.random.Generator, input_dim: int, output_dim: int) -> dict:
+    w = _Draw(rng)
+    return {"params": {"linear": w.dense(input_dim, output_dim), "linear2": w.dense(output_dim, output_dim)}}
+
+
+RANDOM_TOWER_PARAMS = {
+    "final_attention": random_final_attention_params,
+    "transformer": random_transformer_params,
+    "latent": random_latent_params,
+}
+
+
+def random_tower_params(rng: np.random.Generator, cfg: TowerConfig) -> dict:
+    """Random parameters of the user tower of ``cfg.kind``."""
+    return RANDOM_TOWER_PARAMS[cfg.kind](rng, cfg)
+
+
+# -- flax params -> port state_dicts -------------------------------------------
+
+
+def latent_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_latent_attention``'s inverse (``LatentAttentionTower``)."""
+    p = _params(params)
     attn, ff = "cross_attend_blocks.0", "cross_attend_blocks.1"
     sd = {"latents": _t(p["latents"])}
-    for prefix, ln in (
-        (f"{attn}.norm", "cross_prenorm"),
-        (f"{attn}.norm_context", "cross_prenorm_context"),
-        (f"{ff}.norm", "ff_prenorm"),
-    ):
-        sd[f"{prefix}.weight"] = _t(p[ln]["scale"])
-        sd[f"{prefix}.bias"] = _t(p[ln]["bias"])
+    _put_ln(sd, f"{attn}.norm", p["cross_prenorm"])
+    _put_ln(sd, f"{attn}.norm_context", p["cross_prenorm_context"])
+    _put_ln(sd, f"{ff}.norm", p["ff_prenorm"])
     for name in ("to_q", "to_kv", "to_out"):
-        sd[f"{attn}.fn.{name}.weight"] = _t(np.asarray(p["cross_attn"][name]["kernel"]).T)
-    for idx, name in (("0", "proj_in"), ("2", "proj_out")):
-        dense = p["cross_ff"][name]
-        sd[f"{ff}.fn.net.{idx}.weight"] = _t(np.asarray(dense["kernel"]).T)
-        sd[f"{ff}.fn.net.{idx}.bias"] = _t(dense["bias"])
+        _put_dense(sd, f"{attn}.fn.{name}", p["cross_attn"][name])
+    _put_dense(sd, f"{ff}.fn.net.0", p["cross_ff"]["proj_in"])
+    _put_dense(sd, f"{ff}.fn.net.2", p["cross_ff"]["proj_out"])
     return sd
+
+
+def _dense_layers(p: Mapping[str, Any], names) -> StateDict:
+    sd: StateDict = {}
+    for name in names:
+        _put_dense(sd, name, p[name])
+    return sd
+
+
+def final_attention_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_final_attention``'s inverse (``FinalAttention``)."""
+    return _dense_layers(_params(params), ("linear1", "linear2", "linear3", "linear4", "linear5"))
+
+
+def _encoder_state_dict(encoder: Mapping[str, Any]) -> StateDict:
+    """A ``TransformerEncoder``'s layers ``layer_{i}`` -> ``layer.{i}.*``."""
+    sd: StateDict = {}
+    for i in range(len(encoder)):
+        layer, prefix = encoder[f"layer_{i}"], f"layer.{i}"
+        for block, name in (("attention", "qkv_proj"), ("attention", "o_proj"), ("g_mlp", "up_gate_proj"), ("g_mlp", "down_proj")):
+            _put_dense(sd, f"{prefix}.{block}.{name}", layer[block][name])
+        _put_ln(sd, f"{prefix}.attn_layernorm", layer["attn_layernorm"])
+        _put_ln(sd, f"{prefix}.g_mlp_layernorm", layer["g_mlp_layernorm"])
+    return sd
+
+
+def transformer_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_transformer_tower``'s inverse (``TransformerTower``; the
+    number of layers is read from the params)."""
+    p = _params(params)
+    sd = _with_prefix("encoder.", _encoder_state_dict(p["encoder"]))
+    _put_dense(sd, "linear1", p["linear1"])
+    return sd
+
+
+def token_attention_pool_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_token_attention_pool``'s inverse (``TokenAttentionPool``)."""
+    return _with_prefix("encoder.", _encoder_state_dict(_params(params)["encoder"]))
+
+
+def classification_head_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_classification_head``'s inverse (``ClassificationHead``)."""
+    return _dense_layers(_params(params), ("linear_1", "linear_2", "linear_3"))
+
+
+def classification_head_cat_embed_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_classification_head_cat_embed``'s inverse."""
+    p = _params(params)
+    sd = _dense_layers(p, ("linear_1", "linear_2", "linear_3"))
+    sd["cat_embed.weight"] = _t(p["cat_embed"]["embedding"])
+    return sd
+
+
+def weighted_sum_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_weighted_sum``'s inverse (``WeightedSumModel``)."""
+    return {"alpha": _t(_params(params)["alpha"])}
+
+
+def reducing_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """``convert_reducing_model``'s inverse (``ReducingModel``)."""
+    return _dense_layers(_params(params), ("linear", "linear2"))
+
+
+def embedding_wrapper_state_dict_from_jax(
+    params: Mapping[str, Any], wrapped: Callable[[Mapping[str, Any]], StateDict]
+) -> StateDict:
+    """``convert_embedding_wrapper``'s inverse; ``wrapped`` converts the inner
+    tower's params."""
+    p = _params(params)
+    sd = _with_prefix("wrapped_model.", wrapped(p["wrapped"]))
+    sd["cat_embed.weight"] = _t(p["cat_embed"]["embedding"])
+    sd["subcat_embed.weight"] = _t(p["subcat_embed"]["embedding"])
+    return sd
+
+
+def resize_wrapper_state_dict_from_jax(
+    params: Mapping[str, Any], wrapped: Callable[[Mapping[str, Any]], StateDict]
+) -> StateDict:
+    """``convert_resize_wrapper``'s inverse; ``wrapped`` converts the inner
+    tower's params."""
+    p = _params(params)
+    sd = _with_prefix("wrapped_model.", wrapped(p["wrapped"]))
+    sd.update(_dense_layers(p, ("bottleneck_in", "bottleneck_out")))
+    return sd
+
+
+STATE_DICT_FROM_JAX = {
+    "final_attention": final_attention_state_dict_from_jax,
+    "transformer": transformer_state_dict_from_jax,
+    "latent": latent_state_dict_from_jax,
+}
+
+
+def tower_state_dict_from_jax(kind: str, params: Mapping[str, Any]) -> StateDict:
+    """The user tower of ``kind``'s flax params -> its port ``state_dict``."""
+    return STATE_DICT_FROM_JAX[kind](params)

@@ -115,6 +115,10 @@ class PreNorm(nn.Module):
 
 
 class LatentAttentionTower(nn.Module):
+    # Each token's state depends on that token alone up to the pool, so the
+    # tower may run over the flat token stream (``models.supports_flat_scoring``).
+    token_local = True
+
     def __init__(
         self,
         dim: int = REDUCED_DIM,
@@ -140,11 +144,16 @@ class LatentAttentionTower(nn.Module):
         )
 
     def forward(
-        self, embeddings: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+        self,
+        embeddings: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """embeddings [B, L, D], attention_mask [B, L] -> pooled [B, D]; with
         ``attention_mask=None`` the per-token states [B, L, D] (the flat path
-        pools them itself)."""
+        pools them itself). ``generator`` is taken for the padded train
+        steps' sake and unused: the tower has no dropout."""
+        del generator
         attn, ff = self.cross_attend_blocks
         h = embeddings
         ctx = _layer_norm(attn.norm_context, self.latents)

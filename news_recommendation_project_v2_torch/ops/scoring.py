@@ -1,6 +1,17 @@
-"""The flat eval: user vectors from the flat history-token stream, cosine
-scores of every candidate slot and, with a ``DeviceMetricsPlan``, the MIND
-metrics, all on one device.
+"""The eval's scoring: user vectors from the histories, then the cosine
+score of every candidate slot, on one device. Two paths compute the user
+vectors.
+
+The bucketed (padded) path serves every tower: each row's history, end
+aligned (its most recent clicks), is padded to the smallest of
+``HISTORY_BUCKETS`` that holds it, and the tower runs over fixed-size
+[batch, bucket] blocks (``_bucket_plan``), so it sees a small fixed set of
+shapes. The user vectors go into a [rows, D] float32 matrix on the device by
+``index_copy_`` on distinct rows, so two runs give the same bits.
+
+The flat path, with ``FlatEvalPlan`` and, with a ``DeviceMetricsPlan``, the
+MIND metrics on the device, serves token-local towers
+(``models.supports_flat_scoring``).
 
 The latent tower is token-local: each history token attends only to the 64
 shared latents, and the LayerNorms, the GEGLU and the residuals are per
@@ -24,15 +35,158 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..config import TowerConfig
-from ..data.grouping import truncate_flat_end_aligned
+from ..config import HISTORY_BUCKETS, TowerConfig
+from ..data.grouping import lengths_to_offsets, truncate_flat_end_aligned
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan, metric_sums
 from ..models.latent_attention import pool_epilogue
 from ..utils.memory import estimate_flat_chunk
 
 DEFAULT_FLAT_CHUNK = 64 * 1024
+COSINE_CHUNK = 1 << 18  # candidate slots a cosine pass gathers at once
 EPS = 1e-8  # cosine norm clamp
+
+
+def _cosine(u: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Row-wise cosine, each norm clamped at ``EPS``
+    (``torch.nn.functional.cosine_similarity``'s semantics)."""
+    nu = torch.linalg.vector_norm(u, dim=-1).clamp_min(EPS)
+    nc = torch.linalg.vector_norm(c, dim=-1).clamp_min(EPS)
+    return (u * c).sum(-1) / (nu * nc)
+
+
+@torch.inference_mode()
+def cosine_scores_chunked(
+    user_vecs: torch.Tensor,
+    news_emb: torch.Tensor,
+    cand_rev: np.ndarray,
+    cand_row: np.ndarray,
+) -> np.ndarray:
+    """[C] float32 cosine scores of ``user_vecs[cand_row]`` against
+    ``news_emb[cand_rev]`` on the user vectors' device, ``COSINE_CHUNK``
+    slots at a time (the gathered [chunk, D] blocks bound the memory),
+    fetched once."""
+    device, chunk = user_vecs.device, COSINE_CHUNK
+    out = torch.empty(len(cand_rev), dtype=torch.float32, device=device)
+    for a in range(0, len(cand_rev), chunk):
+        cr = _upload(np.asarray(cand_rev[a : a + chunk], np.int64), device)
+        cw = _upload(np.asarray(cand_row[a : a + chunk], np.int64), device)
+        out[a : a + chunk] = _cosine(user_vecs[cw], news_emb[cr])
+    return out.cpu().numpy()
+
+
+def _bucket_plan(hist_lens: np.ndarray, buckets: tuple[int, ...], batch_size: int):
+    """The padded path's host plan: per bucket that holds rows,
+    ``(bucket_len, batch, starts, lens, rows)``, the arrays padded to a
+    whole number of batches. ``batch`` is ``batch_size`` rounded down to a
+    multiple of 8 (at least 8). A row keeps its most recent ``bucket_len``
+    clicks (``starts`` end-aligned); pad entries have length 0 and the row
+    ``len(hist_lens)``."""
+    offsets = lengths_to_offsets(hist_lens)
+    bucket_arr = np.asarray(buckets)
+    bucket_ids = np.searchsorted(bucket_arr, np.minimum(hist_lens, bucket_arr[-1]))
+    plan = []
+    for bid in np.unique(bucket_ids):
+        bucket_len = int(bucket_arr[bid])
+        rows = np.flatnonzero(bucket_ids == bid).astype(np.int32)
+        batch = max(8, batch_size // 8 * 8)
+        n_pad = -(-len(rows) // batch) * batch
+        pad = n_pad - len(rows)
+        lens_capped = np.minimum(hist_lens[rows], bucket_len).astype(np.int64)
+        starts = np.pad((offsets[rows + 1] - lens_capped).astype(np.int32), (0, pad))
+        lens = np.pad(lens_capped.astype(np.int32), (0, pad))
+        rows_padded = np.pad(rows, (0, pad), constant_values=len(hist_lens))
+        plan.append((bucket_len, batch, starts, lens, rows_padded))
+    return plan
+
+
+@torch.inference_mode()
+def user_vectors_device(
+    tower,
+    news_emb,
+    hist_rev: np.ndarray,
+    hist_lens: np.ndarray,
+    batch_size: int = 512,
+    buckets: tuple[int, ...] = HISTORY_BUCKETS,
+    device=None,
+) -> torch.Tensor:
+    """[num_rows, D] float32 user vectors on the device, by the bucketed
+    path. ``tower(gathered [B, L, D], mask [B, L])`` returns [B, D] (D the
+    table's width, as ``models.check_tower_input_dim`` requires); it is
+    called on full [batch, bucket] blocks, pad rows included (length 0, all
+    masked), whose outputs are dropped. The flat history indices are
+    uploaded once, and each bucket's starts, lengths and rows once."""
+    device = resolve_device(device)
+    table = torch.as_tensor(news_emb, device=device)
+    num_rows = len(hist_lens)
+    hist = _upload(np.asarray(hist_rev, np.int64), device)
+    limit = max(len(hist_rev) - 1, 0)
+    user = torch.zeros((num_rows, table.shape[-1]), dtype=torch.float32, device=device)
+    for bucket_len, batch, starts, lens, rows in _bucket_plan(hist_lens, buckets, batch_size):
+        pos = torch.arange(bucket_len, device=device)
+        starts_d, lens_d = _upload(starts.astype(np.int64), device), _upload(lens.astype(np.int64), device)
+        real = int((rows < num_rows).sum())  # pad entries sit at the end
+        rows_d = _upload(rows[:real].astype(np.int64), device)
+        for a in range(0, real, batch):
+            s, l = starts_d[a : a + batch], lens_d[a : a + batch]
+            mask = (pos < l[:, None]).to(table.dtype)
+            gathered = table[hist[(s[:, None] + pos).clamp_max(limit)]] * mask[..., None]
+            out = tower(gathered, mask)
+            k = min(batch, real - a)
+            user.index_copy_(0, rows_d[a : a + k], out[:k].float())
+    return user
+
+
+def user_vectors_bucketed(
+    tower,
+    news_emb,
+    hist_rev: np.ndarray,
+    hist_lens: np.ndarray,
+    batch_size: int = 512,
+    buckets: tuple[int, ...] = HISTORY_BUCKETS,
+    device=None,
+) -> np.ndarray:
+    """``user_vectors_device`` fetched to the host, as float32."""
+    return user_vectors_device(tower, news_emb, hist_rev, hist_lens, batch_size, buckets, device).cpu().numpy()
+
+
+def score_all_impressions(
+    tower,
+    news_emb,
+    hist_rev: np.ndarray,
+    hist_lens: np.ndarray,
+    cand_rev: np.ndarray,
+    cand_row: np.ndarray,
+    batch_size: int = 512,
+    buckets: tuple[int, ...] = HISTORY_BUCKETS,
+    flat_tokens: bool = False,
+    flat_max_len: Optional[int] = None,
+    device=None,
+) -> np.ndarray:
+    """The eval's scores: the tower over the histories (read from
+    ``news_emb``), then the cosine of every candidate slot. ``cand_row``
+    indexes the rows of ``hist_lens`` (the caller has kept only the
+    with-history rows' slots).
+
+    The bucketed path by default; ``flat_tokens=True`` takes the flat path
+    (a one-shot ``FlatEvalPlan``; token-local towers only), in the token
+    chunks ``_auto_flat_chunk`` picks, with ``flat_max_len`` capping each row
+    at its most recent clicks, as the largest bucket caps the bucketed path.
+    ``device=None`` means CUDA."""
+    if len(hist_lens) and np.asarray(cand_row).max() >= len(hist_lens):
+        raise ValueError("cand_row indexes rows beyond hist_lens")
+    device = resolve_device(device)
+    news = torch.as_tensor(news_emb, device=device)
+    if flat_tokens:
+        lens = np.asarray(hist_lens)
+        tokens = int((lens if flat_max_len is None else np.minimum(lens, flat_max_len)).sum())
+        plan = FlatEvalPlan(
+            hist_rev, hist_lens, cand_rev, cand_row,
+            chunk_tokens=_auto_flat_chunk(tower.dim, tokens, device), max_len=flat_max_len, device=device,
+        )
+        return plan.score(tower, news)
+    user = user_vectors_device(tower, news, hist_rev, hist_lens, batch_size, buckets, device)
+    return cosine_scores_chunked(user, news, cand_rev, cand_row)
 
 
 def _auto_flat_chunk(out_dim: int, num_tokens: int, device) -> int:
@@ -164,7 +318,7 @@ class FlatEvalPlan:
         cand_rev: np.ndarray,
         cand_row: np.ndarray,
         chunk_tokens: int = DEFAULT_FLAT_CHUNK,
-        cand_chunk: int = 1 << 18,
+        cand_chunk: int = COSINE_CHUNK,
         max_len: Optional[int] = None,
         device=None,
     ):
@@ -182,10 +336,7 @@ class FlatEvalPlan:
         user = self.history.user_vectors(tower, query, normalize)
         scores = torch.empty(self.cand_rev2d.shape, dtype=torch.float32, device=self.device)
         for out, cr, cw in zip(scores, self.cand_rev2d, self.cand_row2d):
-            u, c = user[cw], news[cr]
-            nu = torch.linalg.vector_norm(u, dim=-1).clamp_min(EPS)
-            nc = torch.linalg.vector_norm(c, dim=-1).clamp_min(EPS)
-            out.copy_((u * c).sum(-1) / (nu * nc))
+            out.copy_(_cosine(user[cw], news[cr]))
         return scores.reshape(-1)[: self.num_slots]
 
     @torch.inference_mode()
@@ -222,25 +373,3 @@ class FlatEvalPlan:
         full = metrics_plan.compose(self._scores(tower, news_emb, query_news_emb, normalize), alpha)
         return metrics_plan.finalize(metric_sums(full, metrics_plan.grids).tolist())
 
-
-def score_all_impressions_flat(
-    tower: torch.nn.Module,
-    news_emb,
-    hist_rev: np.ndarray,
-    hist_lens: np.ndarray,
-    cand_rev: np.ndarray,
-    cand_row: np.ndarray,
-    query_news_emb=None,
-    chunk_tokens: int = DEFAULT_FLAT_CHUNK,
-    cand_chunk: int = 1 << 18,
-    max_len: Optional[int] = None,
-    normalize: Optional[bool] = None,
-    device=None,
-) -> np.ndarray:
-    """One-shot flat eval scores; a ``FlatEvalPlan`` kept across calls
-    uploads its grids once."""
-    plan = FlatEvalPlan(
-        hist_rev, hist_lens, cand_rev, cand_row,
-        chunk_tokens=chunk_tokens, cand_chunk=cand_chunk, max_len=max_len, device=device,
-    )
-    return plan.score(tower, news_emb, query_news_emb=query_news_emb, normalize=normalize)

@@ -1,7 +1,14 @@
-"""Training: the flat-token steps of the latent tower, their losses, the
-optimizer, checkpoints and ``TowerTrainer``."""
+"""Training: the flat-token and padded steps, their losses, the optimizer,
+checkpoints and the trainers."""
 
 from .losses import infonce_loss, margin_ranking_loss
-from .trainer import TowerTrainer, make_optimizer
+from .trainer import ClassificationTrainer, JointTowerTrainer, TowerTrainer, make_optimizer
 
-__all__ = ["TowerTrainer", "infonce_loss", "make_optimizer", "margin_ranking_loss"]
+__all__ = [
+    "ClassificationTrainer",
+    "JointTowerTrainer",
+    "TowerTrainer",
+    "infonce_loss",
+    "make_optimizer",
+    "margin_ranking_loss",
+]

@@ -1,28 +1,38 @@
-"""The flat-token train steps of a token-local tower (the latent tower), with
-the margin loss or InfoNCE.
+"""The train steps: the user tower's margin and InfoNCE steps, by the flat
+token stream (token-local towers) or over padded histories (every tower),
+the joint step (the tower with a score blender and/or a dimension reducer),
+and the content scorer's steps.
 
-The tower runs once over the batch's flat history-token stream ([1, T, D];
-the deduped rows' tokens, row-major, padded to a power of two), so no token
-is padded inside a row. User vectors come from a sum of each row's tokens and
-the tower's own pool epilogue; the pair rows gather them and score the
-candidates by cosine. On CUDA the tower's forward runs through both
-hand-written kernels, under their ``torch.autograd.Function``s.
+The flat steps run the tower once over the batch's flat history-token
+stream ([1, T, D]; the deduped rows' tokens, row-major, padded to a power of
+two), so no token is padded inside a row. User vectors come from a sum of
+each row's tokens and the tower's own pool epilogue. A flat batch is the
+tuple ``TowerTrainer._epoch_batches_flat`` yields: ``(tok_idx [T], tok_rows
+[T], lens [U], hist_rev [B], pos_idx [B], neg_idx [B] or [B, K] with -1
+pads, pair_mask [B])``; tokens whose row is ``U`` or more are pad.
+
+The padded steps run the tower over the batch's deduped histories padded to
+one bucket, ``[U, L]`` with their mask, as ``TowerTrainer._epoch_batches``
+builds them: ``(hist_idx [U, L], hist_mask [U, L], hist_rev [B], pos_idx,
+neg_idx, pair_mask)``. Dropout, where the tower has it, draws its masks
+from the generator the trainer passes.
+
+In both, the pair rows gather the user vectors and score the candidates by
+cosine; pair rows with mask 0 are pad. On CUDA the latent tower's forward
+runs through both hand-written kernels, under their
+``torch.autograd.Function``s.
 
 Every sum whose order could change from run to run is taken in a fixed
-order, so two runs from one state give the same bits on the card: the pool
-sums each row's contiguous run of tokens (``torch.segment_reduce``), and the
-pair gather's backward sums each row's pair gradients after a stable sort
-(``gather_rows``), where ``index_add_`` and an indexing backward would add
-with atomics.
-
-A batch is the tuple ``TowerTrainer._epoch_batches_flat`` yields, as tensors
-on the tables' device: ``(tok_idx [T], tok_rows [T], lens [U], hist_rev [B],
-pos_idx [B], neg_idx [B] or [B, K] with -1 pads, pair_mask [B])``. Tokens
-whose row is ``U`` or more are pad and dropped; pair rows with mask 0 are
-pad.
+order, so two runs from one state give the same bits on the card: the flat
+pool sums each row's contiguous run of tokens (``torch.segment_reduce``),
+and the pair gather's backward sums each row's pair gradients after a stable
+sort (``gather_rows``), where ``index_add_`` and an indexing backward would
+add with atomics. The tables take no gradient, so their gathers need none.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -84,22 +94,33 @@ def flat_user_vectors(
     return pool_epilogue(acc, lens, normalize)
 
 
-def flat_margin_loss(tower, news_emb, batch, margin: float) -> torch.Tensor:
-    """The margin-ranking loss of one flat batch (graph kept for backward)."""
-    tok_idx, tok_rows, lens, hist_rev, pos_idx, neg_idx, pair_mask = batch
-    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+def padded_user_vectors(
+    tower: torch.nn.Module,
+    news_emb: torch.Tensor,
+    hist_idx: torch.Tensor,
+    hist_mask: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    reduce: Optional[torch.nn.Module] = None,
+) -> torch.Tensor:
+    """[U, D] user vectors of padded histories: ``news_emb[hist_idx]``
+    (through ``reduce`` where given), masked, through the tower."""
+    gathered = news_emb[hist_idx.long()]
+    if reduce is not None:
+        gathered = reduce(gathered)
+    gathered = gathered * hist_mask[..., None].to(gathered.dtype)
+    return tower(gathered, hist_mask, generator=generator)
+
+
+def _pair_margin_loss(user, news_emb, hist_rev, pos_idx, neg_idx, pair_mask, margin: float) -> torch.Tensor:
     u = gather_rows(user, hist_rev)
     cos_p = safe_cosine(u, news_emb[pos_idx.long()])
     cos_n = safe_cosine(u, news_emb[neg_idx.long()])
     return margin_ranking_loss(cos_p, cos_n, margin, pair_mask)
 
 
-def flat_infonce_loss(tower, news_emb, batch) -> torch.Tensor:
-    """InfoNCE of one flat batch at temperature 1, as the JAX package's
-    flat step takes it: each pair's positive against its K negatives, the
-    ``-1`` pads masked (graph kept for backward)."""
-    tok_idx, tok_rows, lens, hist_rev, pos_idx, neg_idx, pair_mask = batch
-    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+def _pair_infonce_loss(user, news_emb, hist_rev, pos_idx, neg_idx, pair_mask) -> torch.Tensor:
+    """Each pair's positive against its K negatives at temperature 1, the
+    ``-1`` pads masked."""
     u = gather_rows(user, hist_rev)
     pos_scores = safe_cosine(u, news_emb[pos_idx.long()])
     neg_idx = neg_idx.long()
@@ -111,7 +132,77 @@ def flat_infonce_loss(tower, news_emb, batch) -> torch.Tensor:
     return infonce_loss(pos_scores, neg_scores, neg_valid, 1.0, pair_mask)
 
 
-def _step(optimizer, loss: torch.Tensor) -> torch.Tensor:
+def flat_margin_loss(tower, news_emb, batch, margin: float) -> torch.Tensor:
+    """The margin-ranking loss of one flat batch (graph kept for backward)."""
+    tok_idx, tok_rows, lens, *pairs = batch
+    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+    return _pair_margin_loss(user, news_emb, *pairs, margin)
+
+
+def flat_infonce_loss(tower, news_emb, batch) -> torch.Tensor:
+    """InfoNCE of one flat batch at temperature 1, as the JAX package's
+    flat step takes it (graph kept for backward)."""
+    tok_idx, tok_rows, lens, *pairs = batch
+    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+    return _pair_infonce_loss(user, news_emb, *pairs)
+
+
+def padded_margin_loss(tower, news_emb, batch, margin: float, generator=None) -> torch.Tensor:
+    """The margin-ranking loss of one padded batch (graph kept)."""
+    hist_idx, hist_mask, *pairs = batch
+    return _pair_margin_loss(padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator), news_emb, *pairs, margin)
+
+
+def padded_infonce_loss(tower, news_emb, batch, generator=None) -> torch.Tensor:
+    """InfoNCE of one padded batch at temperature 1 (graph kept)."""
+    hist_idx, hist_mask, *pairs = batch
+    return _pair_infonce_loss(padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator), news_emb, *pairs)
+
+
+def joint_margin_loss(
+    tower, news_emb, batch, margin: float, blend=None, reduce=None, generator=None
+) -> torch.Tensor:
+    """The margin loss of the tower trained jointly with ``reduce`` (a
+    projector applied to the history rows and to both candidates before the
+    tower and the cosine) and/or ``blend`` (a ``WeightedSumModel`` blending
+    each cosine with the candidate's content baseline). ``batch`` is a
+    padded batch followed by the baselines of the positives and the
+    negatives [B]."""
+    hist_idx, hist_mask, hist_rev, pos_idx, neg_idx, pair_mask, baseline_pos, baseline_neg = batch
+    user = padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator, reduce)
+    u = gather_rows(user, hist_rev)
+    cand_p, cand_n = news_emb[pos_idx.long()], news_emb[neg_idx.long()]
+    if reduce is not None:
+        cand_p, cand_n = reduce(cand_p), reduce(cand_n)
+    cos_p, cos_n = safe_cosine(u, cand_p), safe_cosine(u, cand_n)
+    if blend is not None:
+        cos_p, cos_n = blend(cos_p, baseline_pos), blend(cos_n, baseline_neg)
+    return margin_ranking_loss(cos_p, cos_n, margin, pair_mask)
+
+
+def classification_margin_loss(head, news_emb, batch, margin: float) -> torch.Tensor:
+    """The content scorer's margin loss: ``batch`` is ``(pos_idx [B],
+    neg_idx [B], pair_mask [B])``, each side scored by the head alone."""
+    pos_idx, neg_idx, pair_mask = batch
+    pos_scores = head(news_emb[pos_idx.long()])[:, 0]
+    neg_scores = head(news_emb[neg_idx.long()])[:, 0]
+    return margin_ranking_loss(pos_scores, neg_scores, margin, pair_mask)
+
+
+def classification_infonce_loss(head, news_emb, batch) -> torch.Tensor:
+    """The content scorer's InfoNCE: the positive's head score against the
+    K negatives' (``neg_idx`` [B, K], -1 pads masked), temperature 1."""
+    pos_idx, neg_idx, pair_mask = batch
+    neg_idx = neg_idx.long()
+    b, k = neg_idx.shape
+    pos_scores = head(news_emb[pos_idx.long()])[:, 0]
+    neg_scores = head(news_emb[neg_idx.clamp_min(0).reshape(-1)])[:, 0].reshape(b, k)
+    return infonce_loss(pos_scores, neg_scores, (neg_idx >= 0).float(), 1.0, pair_mask)
+
+
+def apply_step(optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """Backward of ``loss``, one optimizer step, gradients cleared; returns
+    the loss (a tensor on the device: reading it waits for the card)."""
     loss.backward()
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
@@ -119,12 +210,10 @@ def _step(optimizer, loss: torch.Tensor) -> torch.Tensor:
 
 
 def flat_margin_step(tower, optimizer, news_emb, batch, margin: float) -> torch.Tensor:
-    """One optimizer step on the margin loss of ``batch``; returns the loss
-    (a tensor on the device: reading it waits for the card)."""
-    return _step(optimizer, flat_margin_loss(tower, news_emb, batch, margin))
+    """One optimizer step on the margin loss of a flat ``batch``."""
+    return apply_step(optimizer, flat_margin_loss(tower, news_emb, batch, margin))
 
 
 def flat_infonce_step(tower, optimizer, news_emb, batch) -> torch.Tensor:
-    """One optimizer step on the InfoNCE loss of ``batch``; returns the loss
-    (a tensor on the device: reading it waits for the card)."""
-    return _step(optimizer, flat_infonce_loss(tower, news_emb, batch))
+    """One optimizer step on the InfoNCE loss of a flat ``batch``."""
+    return apply_step(optimizer, flat_infonce_loss(tower, news_emb, batch))

@@ -1,15 +1,17 @@
-"""Training engine for the latent tower: flat-token train steps over
-per-epoch resampled pairs, an epoch eval with the MIND metrics through the
-flat eval, JSONL logs, best-checkpoint tracking, a plateau scheduler, and
-save and restore of the whole training state.
+"""Training engines: ``TowerTrainer`` (a user tower, margin or InfoNCE, by the
+flat-token step or the padded step), ``JointTowerTrainer`` (the tower with a
+score blend and/or a reducer) and ``ClassificationTrainer`` (the content
+scorer); per-epoch resampled pairs, an epoch eval with the MIND metrics,
+JSONL logs, best-checkpoint tracking, a plateau scheduler, and save and
+restore of the whole training state.
 
-The port of the JAX package's ``TowerTrainer`` path with ``flat_train=True``
-and ``flat_eval=True``: the host samples each epoch's pairs
-(``data.sampling``) and builds flat-token batches on a prefetch thread; the
-step (``train.step``) runs the tower per token through both hand-written
-kernels and their ``autograd.Function``s on CUDA; the epoch eval is the
+The port of the JAX package's trainers: the host samples each epoch's pairs
+(``data.sampling``) and builds the batches on a prefetch thread, pinned; the
+steps are ``train.step``'s, and on CUDA the latent tower runs through both
+hand-written kernels and their ``autograd.Function``s. The epoch eval is the
 flat eval (``ops.scoring.FlatEvalPlan``, with ``device_metrics`` its fused
-``metrics`` call, five scalars fetched).
+``metrics`` call, five scalars fetched) or the bucketed
+``score_all_impressions``.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adamw)`` as the JAX
 package builds it (``ClippedAdamW``).
@@ -26,17 +28,26 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ..config import HISTORY_BUCKETS, TrainConfig
+from ..config import HISTORY_BUCKETS, TrainConfig, bucket_for
 from ..data.compiler import CompiledBehaviors
-from ..data.grouping import lengths_to_offsets
+from ..data.grouping import gather_end_aligned, lengths_to_offsets
 from ..data.prefetch import prefetch
 from ..data.sampling import neg_batch_column, sample_epoch_pairs
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan
 from ..eval.ranker import compose_final_scores, history_candidate_slots
-from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions_flat
+from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
-from .step import flat_infonce_step, flat_margin_step
+from .step import (
+    apply_step,
+    classification_infonce_loss,
+    classification_margin_loss,
+    flat_infonce_step,
+    flat_margin_step,
+    joint_margin_loss,
+    padded_infonce_loss,
+    padded_margin_loss,
+)
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -45,7 +56,13 @@ class ClippedAdamW(torch.optim.AdamW):
     exceeds ``max_norm`` (``clip_grad_norm_`` would divide by
     ``norm + 1e-6`` always), then AdamW with decoupled weight decay on every
     parameter, as optax's ``adamw`` has no mask. The scale is chosen on the
-    device: no host sync."""
+    device: no host sync.
+
+    A parameter whose ``.grad`` is ``None`` after the backward (one the loss
+    does not reach, such as an ``as_built`` transformer layer's attention)
+    counts as a zero gradient, as optax gives an inert leaf: its moments
+    decay and its weight decay applies. ``torch.optim.AdamW`` would skip it.
+    """
 
     def __init__(self, params, lr: float, weight_decay: float, max_norm: float):
         super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
@@ -53,7 +70,11 @@ class ClippedAdamW(torch.optim.AdamW):
 
     @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for group in self.param_groups for p in group["params"] if p.grad is not None]
+        params = [p for group in self.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         if grads:
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
@@ -112,12 +133,15 @@ def _fused_eval_metrics(
     news_emb: torch.Tensor,
     max_len: int,
     device: torch.device,
+    baseline: Optional[np.ndarray] = None,
+    alpha: Optional[float] = None,
 ) -> dict[str, float]:
     """Epoch eval through ``FlatEvalPlan.metrics``: the tower, the cosine, the
     score composition and the MIND metrics on one device, five scalars
-    fetched. The plans (index grids, metric grids) are built once per
-    compiled set and cached in ``plan_cache``. Equal to
-    ``score_all_impressions_flat`` + ``compose_final_scores(...).metrics``."""
+    fetched. The plans (index grids, metric grids, the baseline's slots) are
+    built once per compiled set and cached in ``plan_cache``. Equal to
+    ``score_all_impressions(flat_tokens=True)`` +
+    ``compose_final_scores(...).metrics``."""
     plans = plan_cache.get(id(compiled))
     if plans is None:
         slots, cand_rows = history_candidate_slots(compiled)
@@ -131,24 +155,64 @@ def _fused_eval_metrics(
             max_len=max_len,
             device=device,
         )
-        mplan = DeviceMetricsPlan(compiled.imp_lens, compiled.labels_flat, hist_slots=slots, device=device)
+        mplan = DeviceMetricsPlan(
+            compiled.imp_lens,
+            compiled.labels_flat,
+            hist_slots=slots,
+            baseline_slots=None if baseline is None else np.asarray(baseline, np.float32)[compiled.imp_rev],
+            device=device,
+        )
         plans = plan_cache[id(compiled)] = (fplan, mplan)
     fplan, mplan = plans
-    return fplan.metrics(tower, news_emb, mplan)
+    return fplan.metrics(tower, news_emb, mplan, alpha=alpha)
 
 
 class ResumableTrainer:
-    """Save and restore of the whole training state, so a resumed run
-    continues the original one: the tower's parameters, the optimizer's
-    state (moments, step counts, learning rate), the epoch count, the best
-    checkpoint's score, the plateau scheduler, and in a JSON sidecar the
-    epoch history and the numpy bit generator's state (the epoch sampling
-    stream). The tower has no dropout, so no other random stream exists."""
+    """The epoch loop, and save and restore of the whole training state, so a
+    resumed run continues the original one: the parameters of ``model``
+    (the trained modules), the optimizer's state (moments, step counts,
+    learning rate), the epoch count, the best checkpoint's score, the
+    plateau scheduler, the dropout generator's state where the trainer has
+    one, and in a JSON sidecar the epoch history and the numpy bit
+    generator's state (the epoch sampling stream).
+
+    A trainer sets ``model``, ``optimizer``, ``generator`` (or None),
+    ``rng``, ``best``, ``plateau``, ``history``, ``cfg``, ``log_dir`` and
+    ``exp_name``, and defines ``train_one_epoch`` and ``evaluate``;
+    ``LOG_NAME`` names its JSONL logs."""
+
+    LOG_NAME = "final_history"
+
+    def train(self, num_epochs: Optional[int] = None) -> list[dict]:
+        """``num_epochs`` (default ``cfg.num_epochs``) epochs, each followed
+        by the eval; numbering continues after a restore."""
+        num_epochs = num_epochs or self.cfg.num_epochs
+        done = len(self.history)
+        for epoch in range(done + 1, done + num_epochs + 1):
+            loss = self.train_one_epoch()
+            train_scores, val_scores = self.evaluate()
+            self.history.append(
+                {"exp_name": self.exp_name, "epoch": epoch, "loss": loss, "train": train_scores, "val": val_scores}
+            )
+            _log_jsonl(
+                self.log_dir,
+                f"train_{self.LOG_NAME}_score.jsonl",
+                {"exp_name": self.exp_name, "epoch": epoch, "scores": train_scores, "loss": loss},
+            )
+            if val_scores is not None:
+                _log_jsonl(
+                    self.log_dir,
+                    f"eval_{self.LOG_NAME}_score.jsonl",
+                    {"exp_name": self.exp_name, "epoch": epoch, "scores": val_scores},
+                )
+                self.best.update(epoch, val_scores, self.model.state_dict())
+                self.plateau.update(self.optimizer, mean_metric(val_scores))
+        return self.history
 
     def save_training_state(self, path: Path) -> None:
         path = Path(path)
         state = {
-            "params": self.tower.state_dict(),
+            "params": self.model.state_dict(),
             "opt_state": self.optimizer.state_dict(),
             "epochs_done": len(self.history),
             "best_score": float(self.best.best_score),
@@ -156,6 +220,8 @@ class ResumableTrainer:
             "plateau_best": float(self.plateau.best),
             "plateau_stale": self.plateau.stale,
         }
+        if self.generator is not None:
+            state["generator"] = self.generator.get_state()
         save_pytree(path, state)
         # The PCG64 state holds 128-bit integers no tensor carries.
         meta = {"history": self.history, "rng_state": self.rng.bit_generator.state}
@@ -169,12 +235,14 @@ class ResumableTrainer:
         number of epochs done."""
         path = Path(path)
         state = load_pytree(path)
-        self.tower.load_state_dict(state["params"])
+        self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.plateau.lr = float(state["plateau_lr"])
         self.plateau.best = float(state["plateau_best"])
         self.plateau.stale = int(state["plateau_stale"])
         self.best.best_score = float(state["best_score"])
+        if self.generator is not None:
+            self.generator.set_state(state["generator"])
         with open(f"{path}_meta.json") as f:
             meta = json.load(f)
         self.history = list(meta["history"])
@@ -182,19 +250,32 @@ class ResumableTrainer:
         return int(state["epochs_done"])
 
 
+def _pinned(batch: tuple, device: torch.device) -> tuple:
+    """Numpy arrays as CPU tensors, pinned for CUDA so that their copies to
+    the card are asynchronous (no host wait)."""
+    tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+    return tuple(t.pin_memory() for t in tensors) if device.type == "cuda" else tensors
+
+
 class TowerTrainer(ResumableTrainer):
-    """Trains the latent user tower with pairwise margin ranking or InfoNCE
-    over each epoch's sampled impression pairs, by the flat-token step.
+    """Trains a user tower with pairwise margin ranking or InfoNCE over each
+    epoch's sampled impression pairs.
+
+    Two routes, as in the JAX package: ``flat_train`` and ``flat_eval`` run
+    the flat-token step and eval (token-local towers only: the latent tower,
+    ``models.supports_flat_scoring``); with both False the step runs over
+    each batch's deduped histories padded to one bucket, and the eval is the
+    bucketed ``score_all_impressions``, for every tower. ``device_metrics``
+    fuses the eval with the MIND metrics (``flat_eval`` only).
 
     ``compiled_train`` and ``compiled_val`` must be with-history views
     (``CompiledBehaviors.with_history_view``). The tables are numpy arrays or
     tensors, ``[num_news, D]`` float32. ``device=None`` means CUDA
     (``device.resolve_device``): without CUDA it raises, and
     ``device="cpu"`` runs the kernels' plain versions. The history tokens
-    are looked up in the same tables as the candidates.
-
-    Not ported yet: the padded step and eval (``flat_train=False`` or
-    ``flat_eval=False``) and ``mesh=``, which raise ``NotImplementedError``.
+    are looked up in the same tables as the candidates. Dropout, where the
+    tower has it, draws from ``generator``, seeded from ``cfg.seed``.
+    ``mesh=`` (multi-GPU) raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -217,17 +298,20 @@ class TowerTrainer(ResumableTrainer):
     ):
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU training) is not ported yet (ROADMAP.md §1)")
-        if not (flat_train and flat_eval):
-            raise NotImplementedError(
-                "only the flat-token step and eval are ported (flat_train=True, flat_eval=True); "
-                "the padded path waits (ROADMAP.md §1, 'The other towers and the padded path')"
+        if (flat_train or flat_eval) and not getattr(tower, "token_local", False):
+            raise ValueError(
+                f"flat_train and flat_eval need a token-local tower (models.supports_flat_scoring: "
+                f"the latent tower); pass flat_train=False, flat_eval=False for {type(tower).__name__}"
             )
+        if device_metrics and not flat_eval:
+            raise ValueError("device_metrics rides the flat eval (FlatEvalPlan.metrics): it needs flat_eval=True")
         if len(compiled_train.hist_lens) != compiled_train.num_rows:
             raise ValueError("TowerTrainer needs a with-history view (every row must have history)")
         if cfg.loss not in ("margin", "infonce"):
             raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
         self.device = resolve_device(device)
         self.tower = tower.to(self.device)
+        self.model = self._trained_model()
         self.cfg = cfg
         self.ct = compiled_train
         self.cv = compiled_val
@@ -237,13 +321,20 @@ class TowerTrainer(ResumableTrainer):
         self.exp_name = exp_name
         self.buckets = buckets
         self.rng = np.random.default_rng(cfg.seed)
-        self.optimizer = make_optimizer(cfg, self.tower.parameters())
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.best = BestTracker(ckpt_dir, exp_name)
         self.plateau = PlateauScheduler(cfg)
         self.history: list[dict] = []
         self._hist_offsets = lengths_to_offsets(compiled_train.hist_lens)
+        self.flat_train = flat_train
+        self.flat_eval = flat_eval
         self.device_metrics = device_metrics
         self._fused_plans: dict = {}
+
+    def _trained_model(self) -> torch.nn.Module:
+        """The module the optimizer steps and the checkpoint saves: the tower."""
+        return self.tower
 
     def _table(self, emb) -> Optional[torch.Tensor]:
         return None if emb is None else torch.as_tensor(emb, device=self.device)
@@ -252,16 +343,9 @@ class TowerTrainer(ResumableTrainer):
     # Host input pipeline
     # ------------------------------------------------------------------
 
-    def _epoch_batches_flat(self) -> Iterator[tuple]:
-        """One epoch's batches as numpy arrays: each batch's deduped rows'
-        flat token stream (the most recent ``buckets[-1]`` clicks of a row),
-        padded to the next power of two of at least 1,024 tokens, with the
-        pairs padded to ``batch_size``. Equal to the JAX package's, array for
-        array, from the same generator state."""
+    def _epoch_pairs(self) -> tuple[np.ndarray, Optional[np.ndarray]]:
         cfg = self.cfg
-        cap = self.buckets[-1]
-        offsets = self._hist_offsets
-        pairs, negs = sample_epoch_pairs(
+        return sample_epoch_pairs(
             self.rng,
             self.ct.imp_rev,
             self.ct.imp_lens,
@@ -272,7 +356,47 @@ class TowerTrainer(ResumableTrainer):
             max_pos_ratio=cfg.max_pos_ratio,
             batch_size=cfg.batch_size,
         )
-        B = cfg.batch_size
+
+    def _epoch_batches(self) -> Iterator[tuple]:
+        """One epoch's padded batches as numpy arrays: each batch's deduped
+        histories (``np.unique`` of its rows), end-aligned (the most recent
+        clicks) and padded to the bucket of its longest, as a
+        ``[batch_size, L]`` index block and mask (rows past the deduped ones
+        all pad), then the pair columns padded to ``batch_size``. Equal to the
+        JAX package's, array for array, from the same generator state."""
+        pairs, negs = self._epoch_pairs()
+        B = self.cfg.batch_size
+        for start in range(0, pairs.shape[1], B):
+            stop = min(start + B, pairs.shape[1])
+            uniq_rows, rev = np.unique(pairs[-1, start:stop], return_inverse=True)
+            L = bucket_for(int(self.ct.hist_lens[uniq_rows].max()), self.buckets)
+            hist_idx, hist_mask = gather_end_aligned(
+                self.ct.hist_rev,
+                self._hist_offsets[uniq_rows + 1],
+                self.ct.hist_lens[uniq_rows],
+                L,
+                out_rows=B,
+            )
+            pad = B - (stop - start)
+            yield (
+                hist_idx,
+                hist_mask,
+                np.pad(rev.astype(np.int32), (0, pad)),
+                np.pad(pairs[0, start:stop].astype(np.int32), (0, pad)),
+                neg_batch_column(pairs, negs, start, stop, pad),
+                np.pad(np.ones(stop - start, np.float32), (0, pad)),
+            )
+
+    def _epoch_batches_flat(self) -> Iterator[tuple]:
+        """One epoch's batches as numpy arrays: each batch's deduped rows'
+        flat token stream (the most recent ``buckets[-1]`` clicks of a row),
+        padded to the next power of two of at least 1,024 tokens, with the
+        pairs padded to ``batch_size``. Equal to the JAX package's, array for
+        array, from the same generator state."""
+        cap = self.buckets[-1]
+        offsets = self._hist_offsets
+        pairs, negs = self._epoch_pairs()
+        B = self.cfg.batch_size
         for start in range(0, pairs.shape[1], B):
             stop = min(start + B, pairs.shape[1])
             pos = pairs[0, start:stop]
@@ -302,20 +426,22 @@ class TowerTrainer(ResumableTrainer):
                 np.pad(np.ones(stop - start, np.float32), (0, pad)),
             )
 
-    def _host_batches(self) -> Iterator[tuple]:
-        """``_epoch_batches_flat`` as CPU tensors, pinned for CUDA so that
-        their copies to the card are asynchronous (no host wait)."""
-        pin = self.device.type == "cuda"
-        for batch in self._epoch_batches_flat():
-            tensors = tuple(torch.from_numpy(a) for a in batch)
-            yield tuple(t.pin_memory() for t in tensors) if pin else tensors
+    def _host_batches(self) -> Iterator[tuple[float, tuple]]:
+        """``(pair count, batch)`` per step, the batch as pinned CPU tensors
+        (built on the prefetch thread)."""
+        batches = self._epoch_batches_flat() if self.flat_train else self._epoch_batches()
+        for batch in batches:
+            yield float(batch[-1].sum()), _pinned(batch, self.device)
 
     def _train_step(self, batch) -> torch.Tensor:
-        cfg = self.cfg
-        args = (self.tower, self.optimizer, self.news_emb_train, batch)
+        cfg, tower, news = self.cfg, self.tower, self.news_emb_train
+        if self.flat_train:
+            if cfg.loss == "infonce":
+                return flat_infonce_step(tower, self.optimizer, news, batch)
+            return flat_margin_step(tower, self.optimizer, news, batch, cfg.margin)
         if cfg.loss == "infonce":
-            return flat_infonce_step(*args)
-        return flat_margin_step(*args, cfg.margin)
+            return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, self.generator))
+        return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, self.generator))
 
     def train_one_epoch(self) -> float:
         """One epoch of steps; returns the pair-weighted mean loss. The loss
@@ -323,12 +449,12 @@ class TowerTrainer(ResumableTrainer):
         card) and every step's loss is recorded."""
         sync = max(1, self.cfg.loss_sync_every)
         losses, counts = [], []
-        for batch in prefetch(self._host_batches()):
+        for count, batch in prefetch(self._host_batches()):
             loss = self._train_step(tuple(t.to(self.device, non_blocking=True) for t in batch))
             losses.append(loss)
             if len(losses) % sync == 0:
                 losses[-1] = float(losses[-1])
-            counts.append(float(batch[-1].sum()))
+            counts.append(count)
         losses = [float(x) for x in losses]
         return float(np.dot(losses, counts) / np.sum(counts))
 
@@ -336,54 +462,222 @@ class TowerTrainer(ResumableTrainer):
     # Evaluation
     # ------------------------------------------------------------------
 
-    def _eval_split(self, compiled: CompiledBehaviors, news_emb) -> dict[str, float]:
+    def _eval_split(
+        self,
+        compiled: CompiledBehaviors,
+        news_emb: torch.Tensor,
+        baseline: Optional[np.ndarray] = None,
+        alpha: Optional[float] = None,
+    ) -> dict[str, float]:
+        """One split's metrics: the tower's cosine scores on the history
+        slots, composed with ``baseline`` (per unique news) and ``alpha`` as
+        ``eval.ranker.compose_final_scores`` does."""
         max_len = self.buckets[-1]  # the train step's cap, so both see the same histories
         if self.device_metrics:
             return _fused_eval_metrics(
-                self._fused_plans, self.tower, compiled, news_emb, max_len, self.device
+                self._fused_plans, self.tower, compiled, news_emb, max_len, self.device, baseline, alpha
             )
         slots, cand_rows = history_candidate_slots(compiled)
-        tokens = int(np.minimum(compiled.hist_lens, max_len).sum())
-        scores = score_all_impressions_flat(
+        scores = score_all_impressions(
             self.tower,
             news_emb,
             compiled.hist_rev,
             compiled.hist_lens,
             compiled.imp_rev[slots],
             cand_rows,
-            chunk_tokens=_auto_flat_chunk(self.tower.dim, tokens, self.device),
-            max_len=max_len,
+            batch_size=self.cfg.batch_size,
+            buckets=self.buckets,
+            flat_tokens=self.flat_eval,
+            flat_max_len=max_len,
             device=self.device,
         )
-        return compose_final_scores(compiled, history_scores=scores).metrics
+        return compose_final_scores(compiled, history_scores=scores, baseline_scores=baseline, alpha=alpha).metrics
 
     def evaluate(self) -> tuple[dict, Optional[dict]]:
         train_scores = self._eval_split(self.ct, self.news_emb_train)
         val_scores = self._eval_split(self.cv, self.news_emb_val) if self.cv is not None else None
         return train_scores, val_scores
 
-    def train(self, num_epochs: Optional[int] = None) -> list[dict]:
-        """``num_epochs`` (default ``cfg.num_epochs``) epochs, each followed
-        by the eval; numbering continues after a restore."""
-        num_epochs = num_epochs or self.cfg.num_epochs
-        done = len(self.history)
-        for epoch in range(done + 1, done + num_epochs + 1):
-            loss = self.train_one_epoch()
-            train_scores, val_scores = self.evaluate()
-            self.history.append(
-                {"exp_name": self.exp_name, "epoch": epoch, "loss": loss, "train": train_scores, "val": val_scores}
+
+class JointTowerTrainer(TowerTrainer):
+    """Trains the tower jointly with a ``WeightedSumModel`` blend (each
+    cosine blended with the candidate's content baseline, e.g.
+    ``ClassificationTrainer.baseline_scores``) and/or a ``ReducingModel``
+    projector, under one ``ClippedAdamW`` over all of them: margin loss only,
+    the padded step.
+
+    With a reducer, both tables are reduced at eval, the history table and
+    the candidate table, as in training. With a blend, the history slots
+    score ``sigmoid(alpha) * cos + (1 - sigmoid(alpha)) * baseline`` (through
+    ``compose_final_scores``, or ``DeviceMetricsPlan`` with the flat eval of
+    the latent tower). ``baseline_train`` and ``baseline_val`` are per unique
+    news of their split; the blend needs ``baseline_train``. ``model`` is a
+    ``ModuleDict`` of ``tower``, ``blend`` and ``reduce``.
+    """
+
+    def __init__(
+        self,
+        tower: torch.nn.Module,
+        compiled_train: CompiledBehaviors,
+        news_emb_train,
+        blend: Optional[torch.nn.Module] = None,
+        reduce: Optional[torch.nn.Module] = None,
+        baseline_train: Optional[np.ndarray] = None,
+        baseline_val: Optional[np.ndarray] = None,
+        **kwargs,
+    ):
+        cfg = kwargs.get("cfg", TrainConfig())
+        if cfg.loss != "margin":
+            raise ValueError("JointTowerTrainer trains the margin loss only; use TowerTrainer for InfoNCE")
+        if kwargs.setdefault("flat_train", False):
+            raise ValueError("JointTowerTrainer runs the padded joint step; flat_train applies to TowerTrainer")
+        if blend is not None and baseline_train is None:
+            raise ValueError("a blend needs baseline_train")
+        self.blend, self.reduce = blend, reduce
+        self.baseline_train = baseline_train
+        self.baseline_val = baseline_val
+        super().__init__(tower, compiled_train, news_emb_train, **kwargs)
+
+    def _trained_model(self) -> torch.nn.Module:
+        parts = {"tower": self.tower}
+        if self.blend is not None:
+            parts["blend"] = self.blend
+        if self.reduce is not None:
+            parts["reduce"] = self.reduce
+        return torch.nn.ModuleDict(parts).to(self.device)
+
+    def _host_batches(self) -> Iterator[tuple[float, tuple]]:
+        """The padded batches with the baselines of each pair's positive and
+        negative appended (zeros without a baseline)."""
+        baseline = self.baseline_train
+        if baseline is None:
+            baseline = np.zeros(self.ct.num_news, np.float32)
+        for batch in self._epoch_batches():
+            pos, neg = batch[3], batch[4]
+            extras = (baseline[pos].astype(np.float32), baseline[neg].astype(np.float32))
+            yield float(batch[-1].sum()), _pinned(batch + extras, self.device)
+
+    def _train_step(self, batch) -> torch.Tensor:
+        loss = joint_margin_loss(
+            self.tower, self.news_emb_train, batch, self.cfg.margin, self.blend, self.reduce, self.generator
+        )
+        return apply_step(self.optimizer, loss)
+
+    def _alpha(self) -> Optional[float]:
+        return None if self.blend is None else float(torch.sigmoid(self.blend.alpha.detach()))
+
+    @torch.no_grad()
+    def _reduced(self, table: torch.Tensor) -> torch.Tensor:
+        return table if self.reduce is None else self.reduce(table)
+
+    def evaluate(self) -> tuple[dict, Optional[dict]]:
+        alpha = self._alpha()
+        train_scores = self._eval_split(self.ct, self._reduced(self.news_emb_train), self.baseline_train, alpha)
+        val_scores = (
+            self._eval_split(self.cv, self._reduced(self.news_emb_val), self.baseline_val, alpha)
+            if self.cv is not None
+            else None
+        )
+        return train_scores, val_scores
+
+
+class ClassificationTrainer(ResumableTrainer):
+    """Trains the content-only scorer (``ClassificationHead``) on sampled
+    positive and negative candidates, margin loss or InfoNCE, each epoch's
+    pairs in a full permutation. Its eval ranks every candidate by the head's
+    score alone; ``baseline_scores`` gives those scores per unique news, the
+    baseline ``JointTowerTrainer``'s blend takes. ``device=None`` means
+    CUDA; ``mesh=`` raises ``NotImplementedError``."""
+
+    LOG_NAME = "classification"
+
+    def __init__(
+        self,
+        head: torch.nn.Module,
+        compiled_train: CompiledBehaviors,
+        news_emb_train,
+        compiled_val: Optional[CompiledBehaviors] = None,
+        news_emb_val=None,
+        cfg: TrainConfig = TrainConfig(),
+        log_dir: Optional[Path] = None,
+        ckpt_dir: Optional[Path] = None,
+        exp_name: str = "",
+        mesh=None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("mesh= (multi-GPU training) is not ported yet (ROADMAP.md §1)")
+        if cfg.loss not in ("margin", "infonce"):
+            raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
+        self.device = resolve_device(device)
+        self.head = self.model = head.to(self.device)
+        self.cfg = cfg
+        self.ct = compiled_train
+        self.cv = compiled_val
+        self.news_emb_train = torch.as_tensor(news_emb_train, device=self.device)
+        self.news_emb_val = None if news_emb_val is None else torch.as_tensor(news_emb_val, device=self.device)
+        self.log_dir = log_dir
+        self.exp_name = exp_name
+        self.rng = np.random.default_rng(cfg.seed)
+        self.generator = None  # the head has no dropout
+        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        self.best = BestTracker(ckpt_dir, exp_name)
+        self.plateau = PlateauScheduler(cfg)
+        self.history: list[dict] = []
+
+    def _host_batches(self) -> Iterator[tuple[float, tuple]]:
+        """``(pair count, (pos, neg, pair_mask))`` per step, padded to
+        ``batch_size``, as pinned CPU tensors."""
+        cfg = self.cfg
+        pairs, negs = sample_epoch_pairs(
+            self.rng,
+            self.ct.imp_rev,
+            self.ct.imp_lens,
+            self.ct.labels_flat,
+            loss=cfg.loss,
+            num_neg_per_pos=cfg.num_neg_per_pos,
+            batch_size=None,
+        )
+        B = cfg.batch_size
+        for start in range(0, pairs.shape[1], B):
+            stop = min(start + B, pairs.shape[1])
+            pad = B - (stop - start)
+            batch = (
+                np.pad(pairs[0, start:stop].astype(np.int32), (0, pad)),
+                neg_batch_column(pairs, negs, start, stop, pad),
+                np.pad(np.ones(stop - start, np.float32), (0, pad)),
             )
-            _log_jsonl(
-                self.log_dir,
-                "train_final_history_score.jsonl",
-                {"exp_name": self.exp_name, "epoch": epoch, "scores": train_scores, "loss": loss},
-            )
-            if val_scores is not None:
-                _log_jsonl(
-                    self.log_dir,
-                    "eval_final_history_score.jsonl",
-                    {"exp_name": self.exp_name, "epoch": epoch, "scores": val_scores},
-                )
-                self.best.update(epoch, val_scores, self.tower.state_dict())
-                self.plateau.update(self.optimizer, mean_metric(val_scores))
-        return self.history
+            yield float(stop - start), _pinned(batch, self.device)
+
+    def train_one_epoch(self) -> float:
+        """One epoch; returns the pair-weighted mean loss (fetched every
+        ``loss_sync_every`` steps, every step's loss recorded)."""
+        sync = max(1, self.cfg.loss_sync_every)
+        losses, counts = [], []
+        for count, batch in prefetch(self._host_batches()):
+            batch = tuple(t.to(self.device, non_blocking=True) for t in batch)
+            if self.cfg.loss == "infonce":
+                loss = classification_infonce_loss(self.head, self.news_emb_train, batch)
+            else:
+                loss = classification_margin_loss(self.head, self.news_emb_train, batch, self.cfg.margin)
+            losses.append(apply_step(self.optimizer, loss))
+            if len(losses) % sync == 0:
+                losses[-1] = float(losses[-1])
+            counts.append(count)
+        losses = [float(x) for x in losses]
+        return float(np.dot(losses, counts) / np.sum(counts))
+
+    @torch.inference_mode()
+    def baseline_scores(self, news_emb) -> np.ndarray:
+        """The head's score of every row of ``news_emb`` (per unique news),
+        float32 on the host."""
+        return self.head(torch.as_tensor(news_emb, device=self.device))[:, 0].float().cpu().numpy()
+
+    def _eval_split(self, compiled: CompiledBehaviors, news_emb) -> dict[str, float]:
+        preds = self.baseline_scores(news_emb)[: compiled.num_news]
+        return compose_final_scores(compiled, baseline_scores=preds).metrics
+
+    def evaluate(self) -> tuple[dict, Optional[dict]]:
+        train_scores = self._eval_split(self.ct, self.news_emb_train)
+        val_scores = self._eval_split(self.cv, self.news_emb_val) if self.cv is not None else None
+        return train_scores, val_scores

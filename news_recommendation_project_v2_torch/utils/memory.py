@@ -15,6 +15,10 @@ DEFAULT_BUDGET_BYTES = 16 * 1024**3
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 
+# A train step holds the forward's activations for the backward and the
+# gradients: about 3x the forward's envelope, as in the JAX package.
+TRAIN_MULTIPLIER = 3
+
 
 def _budget(
     hbm_budget_bytes: Optional[int], fraction: float, device: Optional[torch.device]
@@ -27,11 +31,68 @@ def _budget(
     return int(hbm_budget_bytes * fraction)
 
 
+def _floor_multiple(x: int, m: int) -> int:
+    return max(m, (x // m) * m)
+
+
 def _floor_pow2(x: int, lo: int = 1024) -> int:
     p = lo
     while p * 2 <= x:
         p *= 2
     return p
+
+
+def tower_activation_bytes(config: TowerConfig, batch: int, length: int) -> int:
+    """Activation envelope of one padded tower forward over [batch, length]
+    histories, at ``compute_dtype``'s element size. Per history token: the
+    widest intermediate (the latent tower's GEGLU input 8·D or its q and
+    kv blocks; ``final_attention``'s two hidden-wide blocks; the
+    transformer's gated MLP 2·3,072 plus its packed QKV) and four D-wide
+    rows; plus the attention probabilities (the latent tower's per-token
+    heads x latents, the transformer's 8 heads x L x L). The JAX package's
+    model, whose element size is 4 bytes whatever the compute type."""
+    b = _DTYPE_BYTES.get(config.compute_dtype, 4)
+    d = config.reduced_dim
+    tokens = batch * length
+    if config.kind == "latent":
+        inner = config.num_heads * config.latent_dim_head
+        widest = max(8 * d, 2 * inner)
+        probs = batch * config.num_heads * length * config.num_latents
+    elif config.kind == "final_attention":
+        widest = 2 * config.hidden_dim
+        probs = 0
+    else:  # transformer
+        widest = 2 * 3072 + 3 * d
+        probs = batch * 8 * length * length
+    return (tokens * (widest + 4 * d) + probs) * b
+
+
+def estimate_tower_batch(
+    config: TowerConfig,
+    length: int,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """The largest multiple-of-8 batch of ``length``-token histories whose
+    padded forward (``tower_activation_bytes``) fits in ``fraction`` of the
+    device's memory (16 GiB on the CPU): the padded eval's batch."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    return _floor_multiple(budget // max(tower_activation_bytes(config, 1, length), 1), 8)
+
+
+def estimate_tower_train_batch(
+    config: TowerConfig,
+    length: int,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """The padded train step's batch: the forward's envelope times
+    ``TRAIN_MULTIPLIER`` (the saved activations and the gradients)."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    per_row = tower_activation_bytes(config, 1, length) * TRAIN_MULTIPLIER
+    return _floor_multiple(budget // max(per_row, 1), 8)
 
 
 def flat_token_bytes(config: TowerConfig) -> int:

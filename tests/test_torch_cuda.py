@@ -22,6 +22,8 @@ from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
     random_latent_params,
+    random_tower_params,
+    tower_state_dict_from_jax,
 )
 from news_recommendation_project_v2_torch.ops.geglu import _forward as geglu_forward
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
@@ -36,13 +38,16 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
+from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan, score_all_impressions
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
 from news_recommendation_project_v2_torch.train.step import (
+    apply_step,
     flat_infonce_loss,
     flat_infonce_step,
     flat_margin_loss,
     flat_margin_step,
+    padded_infonce_loss,
+    padded_margin_loss,
 )
 from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer
 
@@ -524,3 +529,122 @@ def test_tower_on_cuda_matches_cpu(cuda, cfg):
             ]
             torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=0, atol=1e-4)
     assert (latent_attention.launches, geglu.launches) == (before[0] + 2, before[1] + 2)
+
+
+# -- the padded path -------------------------------------------------------------
+
+PADDED = {
+    "latent": SMALL_TOWER,
+    "final_attention": TowerConfig(kind="final_attention", reduced_dim=64, hidden_dim=128),
+    "transformer": TowerConfig(kind="transformer", reduced_dim=64, num_layers=2),
+}
+
+
+def _padded_tower(kind, device, cfg=None):
+    cfg = cfg or PADDED[kind]
+    tower = build_tower(cfg)
+    tower.load_state_dict(tower_state_dict_from_jax(cfg.kind, random_tower_params(np.random.default_rng(3), cfg)))
+    return tower.to(device)
+
+
+def _padded_batch(rng, b=48, u=30, l=64, k=5, news=300):
+    """A padded batch as TowerTrainer._epoch_batches builds one: u deduped
+    histories end-aligned into [b, l] (rows past u all pad), pad pairs, -1
+    negatives."""
+    lens = rng.integers(1, l + 1, u)
+    mask = np.zeros((b, l), np.float32)
+    mask[:u] = np.arange(l)[None] < lens[:, None]
+    idx = (rng.integers(0, news, (b, l)) * mask).astype(np.int32)
+    neg = rng.integers(0, news, (b, k)).astype(np.int32)
+    neg[rng.random((b, k)) < 0.2] = -1
+    real = b - 8
+    return (
+        idx, mask, np.pad(rng.integers(0, u, real), (0, 8)).astype(np.int32),
+        np.pad(rng.integers(0, news, real), (0, 8)).astype(np.int32), neg,
+        np.pad(np.ones(real, np.float32), (0, 8)),
+    )
+
+
+@pytest.mark.parametrize("cfg", [SMALL_TOWER, TowerConfig()], ids=["small", "full_width"])
+def test_latent_padded_forward_and_step_match_cpu(cuda, cfg):
+    """The latent tower at a padded, folded [B, 8, L, dh] shape (all-pad
+    rows included) through both kernels, against the plain versions on the
+    CPU: the pooled output within 1e-4 and, under autograd, the padded
+    margin loss within 1e-5 and every gradient within a norm-relative 1e-4.
+    Each kernel launches once per forward."""
+    rng = np.random.default_rng(4)
+    sd = latent_state_dict_from_jax(random_latent_params(rng, cfg))
+    batch = _padded_batch(rng, b=24, u=16, l=64, news=300)
+    batch = batch[:4] + (batch[4][:, 0].clip(0),) + batch[5:]
+    emb = (rng.standard_normal((300, cfg.reduced_dim)) * 0.5).astype(np.float32)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        tower = _flat_tower(cfg, sd, dev)
+        table = torch.from_numpy(emb).to(dev)
+        tb = tuple(torch.from_numpy(a).to(dev) for a in batch)
+        before = latent_attention.launches, geglu.launches
+        with torch.no_grad():
+            pooled = tower(table[tb[0].long()] * tb[1][..., None], tb[1])
+        loss = padded_margin_loss(tower, table, tb, 2.0)
+        loss.backward()
+        if key == "card":
+            assert (latent_attention.launches, geglu.launches) == (before[0] + 2, before[1] + 2)
+        out[key] = pooled.cpu(), loss.item(), {n: p.grad.cpu() for n, p in tower.named_parameters()}
+    assert torch.isfinite(out["card"][0]).all()
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=0, atol=1e-4)
+    assert abs(out["card"][1] - out["cpu"][1]) <= 1e-5
+    for name, g in out["cpu"][2].items():
+        assert _norm_rel(out["card"][2][name], g) <= 1e-4, name
+
+
+@pytest.mark.parametrize("kind", ["final_attention", "transformer"])
+def test_padded_towers_keep_all_pad_rows_finite_on_cuda(cuda, kind):
+    """A fully padded row stays finite on the card (the transformer's
+    additive float32 mask gives a uniform softmax), and the towers match the
+    CPU within 1e-4 at full width."""
+    cfg = TowerConfig(kind=kind)
+    rng = np.random.default_rng(5)
+    emb = rng.standard_normal((4, 37, 1024)).astype(np.float32)
+    mask = np.ones((4, 37), np.float32)
+    mask[1, 10:] = 0.0
+    mask[2] = 0.0
+    emb *= mask[..., None]
+    outs = []
+    for dev in ("cpu", cuda):
+        with torch.no_grad():
+            outs.append(_padded_tower(kind, dev, cfg)(torch.from_numpy(emb).to(dev), torch.from_numpy(mask).to(dev)).cpu())
+    assert torch.isfinite(outs[1]).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", list(PADDED))
+def test_padded_eval_on_cuda_matches_cpu(cuda, kind):
+    """``score_all_impressions(flat_tokens=False)`` on the card against the
+    CPU, small buckets so that every bucket and the cap are met."""
+    w = _flat_world(SMALL_TOWER)
+    scores = [
+        score_all_impressions(_padded_tower(kind, dev), w["emb"], *w["hist"], batch_size=16, buckets=(16, 64, 128), device=dev)
+        for dev in ("cpu", cuda)
+    ]
+    np.testing.assert_allclose(scores[1], scores[0], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["latent", "transformer"])
+def test_padded_train_steps_are_deterministic_on_cuda(cuda, kind):
+    """Five padded steps, margin and InfoNCE in turn, dropout on (rate 0.1,
+    masks from one seeded CUDA generator), twice from one state: the same
+    parameter bits."""
+    rng = np.random.default_rng(6)
+    nce = tuple(torch.from_numpy(a).to(cuda) for a in _padded_batch(rng))
+    margin = nce[:4] + (nce[4][:, 0].clamp_min(0),) + nce[5:]
+    emb = torch.randn(300, 64, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    finals = []
+    for _ in range(2):
+        tower = _padded_tower(kind, cuda)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        opt = make_optimizer(TrainConfig(learning_rate=1e-3), tower.parameters())
+        for i in range(5):
+            loss = padded_infonce_loss(tower, emb, nce, gen) if i % 2 else padded_margin_loss(tower, emb, margin, 2.0, gen)
+            apply_step(opt, loss)
+        finals.append([p.detach().clone() for p in tower.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*finals))

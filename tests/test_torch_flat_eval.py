@@ -140,8 +140,9 @@ def test_user_vectors_flat_matches_jax(world, max_len):
 def test_score_all_impressions_flat_is_the_plan(world):
     w = world
     args = (w["hist_rev"], w["hist_lens"], w["cand_rev"], w["cand_row"])
-    got = scoring.score_all_impressions_flat(w["tower"], w["emb"], *args, device="cpu", **CHUNKS)
-    plan = scoring.FlatEvalPlan(*args, device="cpu", **CHUNKS)
+    got = scoring.score_all_impressions(w["tower"], w["emb"], *args, flat_tokens=True, device="cpu")
+    chunk = scoring._auto_flat_chunk(w["tower"].dim, int(w["hist_lens"].sum()), torch.device("cpu"))
+    plan = scoring.FlatEvalPlan(*args, chunk_tokens=chunk, device="cpu")
     np.testing.assert_array_equal(got, plan.score(w["tower"], w["emb"]))
 
 

@@ -226,3 +226,35 @@ def test_build_ranker_checks_its_inputs(tmp_path, artifacts):
     wide = TowerConfig(kind="latent", reduced_dim=2 * D)
     with pytest.raises(ValueError, match="reduced_dim"):
         port_cli.build_ranker(artifacts / "emb", "dev", artifacts / "tower.pt", wide, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["final_attention", "transformer"])
+def test_cli_main_serves_other_towers(world, artifacts, monkeypatch, capsys, kind):
+    """``nrtorch-serve --tower final_attention|transformer --stdio`` over a
+    ``torch.save``d state_dict of that tower: every response within 1e-5 of
+    the JAX package's Ranker on the same weights, in the same order."""
+    from news_recommendation_project_v2_torch.models.convert import random_tower_params, tower_state_dict_from_jax
+
+    cfg = TowerConfig(kind=kind, **tower_kwargs_for_dim(D))
+    params = random_tower_params(np.random.default_rng(9), cfg)
+    torch.save(tower_state_dict_from_jax(kind, params), artifacts / f"{kind}.pt")
+    lines = [r for r in JSONL if isinstance(r, dict) and r["op"] != "bogus"]
+    monkeypatch.setattr("sys.stdin", io.StringIO("".join(json.dumps(r) + "\n" for r in lines)))
+    port_cli.main([str(artifacts / "emb"), "dev", "--ckpt", str(artifacts / f"{kind}.pt"), "--tower", kind,
+                   "--dim", str(D), "--device", "cpu", "--stdio"])
+    got = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    jt = jax_build_tower(JaxTowerConfig(kind=kind, **tower_kwargs_for_dim(D)))
+    ref = JaxRanker(lambda p, e, m: jt.apply(p, e, m), params, world["emb"], IDS)
+    out = io.StringIO()
+    jax_cli.serve_stdio(ref, stdin=io.StringIO("".join(json.dumps(r) + "\n" for r in lines)), stdout=out)
+    want = [json.loads(line) for line in out.getvalue().splitlines()]
+    assert len(got) == len(want) == len(lines)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        if "ranked" in g:
+            _same_pairs(g["ranked"], w["ranked"])
+        elif "results" in g:
+            for a, b in zip(g["results"], w["results"], strict=True):
+                _same_pairs(a, b)
+        else:
+            assert set(g) == {"error"}

@@ -166,5 +166,6 @@ def test_epoch_batches_flat_match_jax(behaviors, loss, batch_size):
             _equal(g, w)
     assert max(int(b[2].max()) for b in got) == 16
     assert {b[0].shape[0] for b in got} >= {1024}
-    pinned = next(trainer._host_batches())
+    count, pinned = next(trainer._host_batches())
+    assert count == batch_size  # the pairs of a full batch: the ragged block comes last
     assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu" for t in pinned)

@@ -164,10 +164,15 @@ def test_run_config1_returns_the_metrics(fixture):
 
 
 def test_trainer_refuses_what_is_not_ported(fixture):
+    """``mesh=`` is not ported; the flat step and eval refuse a tower that
+    is not token-local, and the fused metrics need the flat eval."""
     f = fixture
     tower = build_tower(TowerConfig(**TOWER))
-    for kwargs in (dict(flat_train=False, flat_eval=True), dict(flat_train=True, flat_eval=False)):
-        with pytest.raises(NotImplementedError, match="flat"):
-            TowerTrainer(tower, f["ct"], f["emb_t"], device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="mesh"):
         TowerTrainer(tower, f["ct"], f["emb_t"], mesh=object(), device="cpu")
+    transformer = build_tower(TowerConfig(kind="transformer", reduced_dim=D))
+    for kwargs in (dict(flat_train=False, flat_eval=True), dict(flat_train=True, flat_eval=False)):
+        with pytest.raises(ValueError, match="supports_flat_scoring"):
+            TowerTrainer(transformer, f["ct"], f["emb_t"], device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="flat_eval"):
+        TowerTrainer(tower, f["ct"], f["emb_t"], flat_eval=False, device_metrics=True, device="cpu")
