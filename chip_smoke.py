@@ -104,11 +104,37 @@ Phases, one line or a few each, exit code non-zero on any failure:
               requests/s, the CPU ranker's order and scores within 1e-5.
               Then each kernel against its plain version at every shape the
               padded eval and the timed padded steps launched it at.
+  9. e2e:     the end-to-end token-level path (config[2]) at full width in
+              float32, TF32 off: a one-layer TokenAttentionPool (8 heads, MLP
+              3,072) and run_config2's latent tower (16 latents, 8 heads x
+              256, GEGLU 4,096), one JSON line a part. 9a: a token store of
+              65,238 news (e2e_bench.py's rule: lengths geometric with mean
+              24 clipped to 2-64, states N(0, 0.3^2)), its size, the memory
+              model's verdict and its upload. 9b: one batch at M=256, T=64,
+              B=64, L=64, dropout off: margin and InfoNCE's loss and every
+              gradient of both modules on the card against the CPU (1e-5,
+              norm-relative 1e-4), both kernels launched; with dropout on, 5
+              steps on the resident store and on the streamed block give the
+              same bits, and so do two resident runs. 9c: e2e_bench.py's
+              batch (M=2048, T=64, B=1024, L=64), margin and InfoNCE (K=5),
+              each on the resident store and streamed: 3 warm-up and 20 timed
+              steps, the loss fetched every step; ms/step, pairs/s, bytes to
+              the card a step, peak memory, the device time by part, host
+              syncs a step. 9d: materialize_from_token_store over the whole
+              store on both routes: news/s, the batch the memory model picks,
+              the routes within 1e-6. 9e: configs.run_config2 at dim=1024 with
+              its published defaults (batch 32, one epoch) on 256 of
+              build_workload's rows over the store's news: pairs/s, the steps
+              by M, T and L, the materialize time, the fused eval's
+              impressions/s and metrics (finite, in [0, 1]). Then each kernel
+              against its plain version at every shape the timed steps, 9e's
+              epoch and 9e's eval launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
-"train" from phase 7, "padded_eval" and "padded_train" from phase 8); phase
-1's line holds the card's name and power limit as nvidia-smi gives them; the
-last line is {"ok": true, "device": {...}}.
+"train" from phase 7, "padded_eval" and "padded_train" from phase 8,
+"e2e_train" and "e2e_eval" from phase 9); phase 1's line holds the card's
+name and power limit as nvidia-smi gives them; the last line is
+{"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
 exits 1.
 """
@@ -132,6 +158,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from news_recommendation_project_v2_torch import configs as configs_module  # noqa: E402
 from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
 from news_recommendation_project_v2_torch.config import (  # noqa: E402
     HISTORY_BUCKETS,
@@ -146,12 +173,15 @@ from news_recommendation_project_v2_torch.data.synthetic import (  # noqa: E402
     synthetic_learnable_behaviors,
 )
 from news_recommendation_project_v2_torch.data.grouping import gather_end_aligned, lengths_to_offsets  # noqa: E402
+from news_recommendation_project_v2_torch.device import resolve_device  # noqa: E402
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan  # noqa: E402
-from news_recommendation_project_v2_torch.models import build_tower  # noqa: E402
+from news_recommendation_project_v2_torch.models import TokenAttentionPool, build_tower  # noqa: E402
 from news_recommendation_project_v2_torch.models.convert import (  # noqa: E402
     classification_head_state_dict_from_jax,
+    e2e_state_dict_from_jax,
     latent_state_dict_from_jax,
     random_classification_head_params,
+    random_e2e_params,
     random_latent_params,
     random_reducing_params,
     random_tower_params,
@@ -167,7 +197,12 @@ from news_recommendation_project_v2_torch.models.towers import (  # noqa: E402
     WeightedSumModel,
 )
 from news_recommendation_project_v2_torch.ops import _build  # noqa: E402
-from news_recommendation_project_v2_torch.ops.encode import save_embeddings  # noqa: E402
+from news_recommendation_project_v2_torch.ops.encode import (  # noqa: E402
+    TokenStore,
+    gathered_token_states,
+    materialize_from_token_store,
+    save_embeddings,
+)
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu  # noqa: E402
 from news_recommendation_project_v2_torch.ops.latent_attention import (  # noqa: E402
     latent_attention,
@@ -181,6 +216,10 @@ from news_recommendation_project_v2_torch.ops.scoring import (  # noqa: E402
 from news_recommendation_project_v2_torch.ops.timing import count_syncs, cuda_ms, graph_ms  # noqa: E402
 from news_recommendation_project_v2_torch.train.step import (  # noqa: E402
     apply_step,
+    e2e_infonce_loss,
+    e2e_infonce_loss_gathered,
+    e2e_margin_loss,
+    e2e_margin_loss_gathered,
     flat_infonce_loss,
     flat_infonce_step,
     flat_margin_loss,
@@ -190,13 +229,17 @@ from news_recommendation_project_v2_torch.train.step import (  # noqa: E402
 )
 from news_recommendation_project_v2_torch.train.trainer import (  # noqa: E402
     ClassificationTrainer,
+    EndToEndTrainer,
     JointTowerTrainer,
     TowerTrainer,
+    _upload_states,
     make_optimizer,
 )
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
     estimate_flat_chunk,
+    estimate_token_attention_batch,
     estimate_tower_batch,
+    fits_device_token_store,
     flat_token_bytes,
     tower_activation_bytes,
 )
@@ -930,6 +973,22 @@ def train_check_phase(state: dict, emb: torch.Tensor) -> None:
 CUBLAS_NAMES = ("gemm", "gemv", "xmma", "cutlass")
 
 
+def part(times: dict, test) -> float:
+    """The device time (ms) of the kernels whose names pass ``test``."""
+    return sum(ms for key, ms in times.items() if test(key))
+
+
+def ours(key: str) -> bool:
+    """A kernel of ours (csrc/)."""
+    return any(k in key for k in ("geglu_gate_kernel", "geglu_out_kernel", "geglu_reduce_kernel",
+                                  "latent_attention_kernel"))
+
+
+def cublas(key: str) -> bool:
+    """A cuBLAS (or CUTLASS) GEMM."""
+    return any(k in key.lower() for k in CUBLAS_NAMES) and not ours(key)
+
+
 def device_ms_by_kernel(fn) -> tuple[object, dict]:
     """``fn()``'s result and its device time by kernel name (ms), under the
     profiler, synchronized at the end."""
@@ -955,16 +1014,6 @@ def step_split(opt, loss_call, label: str) -> dict:
     loss, fwd = device_ms_by_kernel(loss_call)
     _, bwd = device_ms_by_kernel(loss.backward)
     _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
-
-    def part(times, test):
-        return sum(ms for key, ms in times.items() if test(key))
-
-    def ours(key):
-        return any(k in key for k in ("geglu_gate_kernel", "geglu_out_kernel", "geglu_reduce_kernel",
-                                      "latent_attention_kernel"))
-
-    def cublas(key):
-        return any(k in key.lower() for k in CUBLAS_NAMES) and not ours(key)
 
     split = {
         "forward kernels": part(fwd, ours),
@@ -1704,6 +1753,410 @@ def padded_phase(gen, work_dir: Path, requests: list) -> dict:
     return dict(eval=evals, train=steps)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the end-to-end token-level path (config[2]) on the card
+# ---------------------------------------------------------------------------
+
+# e2e_bench.py's store rule (token lengths geometric with mean 24, clipped
+# to 2-64; states N(0, 0.3^2)) at MIND-small's news count, and its fixed
+# batch: M distinct news of T tokens, B pairs over histories of L.
+E2E_T = 64
+E2E_M, E2E_B, E2E_L = 2048, 1024, 64
+E2E_CHECK_M, E2E_CHECK_B = 256, 64
+# run_config2's tower at dim=1024: 16 latents, 8 heads x 256, GEGLU 4,096.
+E2E_TOWER = TowerConfig(kind="latent", reduced_dim=DIM, num_latents=min(16, DIM), latent_dim_head=max(8, DIM // 4))
+E2E_STEPS = 5
+# 9e's rows: build_workload's draws over the store's news (about 35 margin
+# pairs a row, so about one row a step of 32 pairs).
+E2E_ROWS = 256
+E2E_MODULES = ("token_encoder", "tower")
+
+
+def e2e_store(gen) -> TokenStore:
+    """9a: the token lengths from a numpy seed, the states drawn on the card
+    and copied to the host."""
+    rng = np.random.default_rng(SEED + 9)
+    lens = np.clip(rng.geometric(1 / 24.0, size=NUM_NEWS), 2, E2E_T).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    states = (torch.randn((int(offsets[-1]), DIM), device="cuda", generator=gen) * 0.3).cpu().numpy()
+    return TokenStore(states=states, offsets=offsets)
+
+
+def e2e_state() -> dict:
+    """Full-width end-to-end weights (a TokenAttentionPool of one layer and
+    run_config2's tower) from a numpy seed, as a state_dict."""
+    return e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(SEED + 9), DIM, 1, E2E_TOWER))
+
+
+def e2e_model(state: dict, device, dropout: bool = True) -> torch.nn.ModuleDict:
+    model = torch.nn.ModuleDict({"token_encoder": TokenAttentionPool(DIM, 1), "tower": build_tower(E2E_TOWER)})
+    model.load_state_dict(state)
+    if not dropout:
+        for layer in model["token_encoder"].encoder.layer:
+            layer.dropout_rate = layer.g_mlp.dropout_rate = 0.0
+    return model.to(device)
+
+
+def e2e_batch(store: TokenStore, rng: np.random.Generator, m: int, b: int, k: int = 0) -> dict:
+    """e2e_bench.py's batch content: m distinct news (sorted), histories of
+    E2E_L indices into them at half density (slot 0 always live), one pair
+    per history, a positive and a negative (k > 0: k negatives) each. The
+    streamed form holds the [m, T, D] block, the gathered one the [m, T]
+    index grid into the flat states."""
+    uniq = np.sort(rng.choice(store.num_items, size=m, replace=False))
+    hist_idx = rng.integers(0, m, (b, E2E_L)).astype(np.int32)
+    hist_mask = (rng.random((b, E2E_L)) < 0.5).astype(np.float32)
+    hist_mask[:, 0] = 1.0
+    neg = rng.integers(0, m, (b, k) if k else b).astype(np.int32)
+    tail = (hist_idx, hist_mask, np.arange(b, dtype=np.int32), rng.integers(0, m, b).astype(np.int32), neg,
+            np.ones(b, np.float32))
+    states, mask = store.gather_padded(uniq, max_len=E2E_T)
+    states = np.pad(states, ((0, 0), (0, E2E_T - states.shape[1]), (0, 0)))
+    mask = np.pad(mask, ((0, 0), (0, E2E_T - mask.shape[1])))
+    return dict(streamed=(states, mask) + tail, gathered=store.padded_index_batch(uniq, E2E_T, max_len=E2E_T) + tail)
+
+
+def e2e_loss(model, batch, loss: str, flat_states=None, generator=None):
+    enc, tower = model["token_encoder"], model["tower"]
+    margin = TrainConfig().margin
+    if flat_states is not None:
+        if loss == "infonce":
+            return e2e_infonce_loss_gathered(enc, tower, flat_states, batch, generator)
+        return e2e_margin_loss_gathered(enc, tower, flat_states, batch, margin, generator)
+    if loss == "infonce":
+        return e2e_infonce_loss(enc, tower, batch, generator)
+    return e2e_margin_loss(enc, tower, batch, margin, generator)
+
+
+def e2e_store_phase(gen) -> tuple[TokenStore, torch.Tensor]:
+    """9a: the store, its size, the memory model's verdict and its upload
+    (EndToEndTrainer's, in pieces) to the card."""
+    t0 = time.perf_counter()
+    store = e2e_store(gen)
+    made = time.perf_counter() - t0
+    tokens = int(store.offsets[-1])
+    fits = fits_device_token_store(tokens, DIM, 4, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dev = _upload_states(store.states, torch.device("cuda"))
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t1
+    part_line(
+        "9a", news=store.num_items, tokens=tokens, tokens_per_news=tokens / store.num_items, dim=DIM,
+        store_gb=store.states.nbytes / 1e9, fits_device_token_store=fits, made_seconds=made,
+        upload_seconds=upload, upload_gb_per_s=store.states.nbytes / upload / 1e9,
+        resident_gb=dev.numel() * dev.element_size() / 1e9,
+    )
+    if not fits or dev.shape != store.states.shape:
+        raise AssertionError(f"9a: the store ({tokens} tokens) does not fit the card's share: {fits}")
+    return store, dev
+
+
+def e2e_check_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> None:
+    """9b: full width, one small batch (M=256, T=64, B=64, L=64), dropout
+    off: margin and InfoNCE's loss and every gradient of both modules on the
+    card against the CPU (1e-5, norm-relative 1e-4), both kernels launched;
+    then dropout on, 5 margin steps from one state on the resident store and
+    on the streamed block give the same bits, and a second resident run
+    repeats them."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 91)
+    batches = {
+        "margin": e2e_batch(store, rng, E2E_CHECK_M, E2E_CHECK_B),
+        "infonce": e2e_batch(store, rng, E2E_CHECK_M, E2E_CHECK_B, TRAIN_K),
+    }
+    for loss, b in batches.items():
+        losses, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = e2e_model(state, dev, dropout=False)
+            zero_launches()
+            value = e2e_loss(model, on(b["streamed"], dev), loss)
+            value.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = kernel_launches()
+            losses[dev] = value.item()
+            grads[dev] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            del model, value
+        worst = {m: max((norm_rel(grads["cuda"][n], g), n) for n, g in grads["cpu"].items() if n.startswith(m))
+                 for m in E2E_MODULES}
+        gap = abs(losses["cuda"] - losses["cpu"])
+        part_line(
+            "9b", loss=loss, M=E2E_CHECK_M, T=E2E_T, B=E2E_CHECK_B, L=E2E_L, loss_card=losses["cuda"],
+            loss_cpu=losses["cpu"], loss_diff=gap, loss_tol=LOSS_TOL,
+            worst_grad_norm_rel={m: w[0] for m, w in worst.items()},
+            worst_leaf={m: w[1] for m, w in worst.items()}, grad_tol=GRAD_TOL, launches=launched,
+        )
+        if not (gap <= LOSS_TOL and max(w[0] for w in worst.values()) <= GRAD_TOL and min(launched.values()) >= 1):
+            raise AssertionError(f"9b {loss}: card and CPU differ (loss {gap}, gradients {worst}) or {launched}")
+    b = batches["margin"]
+    runs = {}
+    for name, resident in (("streamed", False), ("resident", True), ("resident again", True)):
+        model = e2e_model(state, "cuda")
+        opt = make_optimizer(TrainConfig(), model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        args = on(b["gathered" if resident else "streamed"], "cuda")
+        flat = dev_states if resident else None
+        losses = [float(apply_step(opt, e2e_loss(model, args, "margin", flat, gen))) for _ in range(E2E_STEPS)]
+        runs[name] = (losses, [p.detach().clone() for p in model.parameters()])
+        del model, opt
+    same_routes = runs["streamed"][0] == runs["resident"][0] and all(
+        torch.equal(a, c) for a, c in zip(runs["streamed"][1], runs["resident"][1]))
+    same_runs = runs["resident"][0] == runs["resident again"][0] and all(
+        torch.equal(a, c) for a, c in zip(runs["resident"][1], runs["resident again"][1]))
+    part_line(
+        "9b", steps=E2E_STEPS, dropout=0.1, losses=runs["resident"][0],
+        resident_and_streamed_bit_identical=same_routes, two_runs_bit_identical=same_runs,
+        seconds=time.perf_counter() - t0,
+    )
+    if not (same_routes and same_runs):
+        raise AssertionError(f"9b: resident vs streamed {same_routes}, run vs run {same_runs}")
+
+
+def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
+    """One e2e step's device time by part, each under the profiler with a
+    synchronize after it: the token encoder's forward (with the gather from
+    the resident store); the rest of the forward (the tower: our kernels,
+    cuBLAS, the rest); the whole backward (GEMMs, the rest); the optimizer."""
+    def encode():
+        states = args[0] if flat is None else gathered_token_states(flat, args[0], args[1])
+        return model["token_encoder"](states, args[1], generator=gen)
+
+    news, enc = device_ms_by_kernel(encode)
+    encoded = torch.nn.ModuleDict({"token_encoder": _Fixed(news), "tower": model["tower"]})
+    value, fwd = device_ms_by_kernel(lambda: e2e_loss(encoded, args, loss, None, gen))
+    _, bwd = device_ms_by_kernel(value.backward)
+    _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+
+    split = {
+        "token encoder forward": sum(enc.values()),
+        "tower forward kernels": part(fwd, ours),
+        "tower forward cuBLAS": part(fwd, cublas),
+        "tower forward rest": part(fwd, lambda k: not ours(k) and not cublas(k)),
+        "backward GEMMs": part(bwd, cublas),
+        "backward rest": part(bwd, lambda k: not cublas(k)),
+        "optimizer": sum(optim.values()),
+    }
+    split["total"] = sum(split.values())
+    log(
+        f"  {label}: one step's device time by part (ms): "
+        + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
+        + f"; total {split['total']:.2f}"
+    )
+    for name, times in (("encoder forward", enc), ("tower forward", fwd)):
+        for key, ms in sorted(times.items(), key=lambda kv: -kv[1])[:4]:
+            log(f"    {name} {ms:9.3f} ms  {key[:100]}")
+    return split
+
+
+class _Fixed(torch.nn.Module):
+    """Stands in for the token encoder with vectors already computed, so a
+    profile can time the rest of the step alone."""
+
+    def __init__(self, out: torch.Tensor):
+        super().__init__()
+        self.out = out
+
+    def forward(self, states, mask, generator=None):
+        return self.out
+
+
+def e2e_steps_phase(store: TokenStore, dev_states: torch.Tensor, state: dict, card: str) -> dict:
+    """9c: e2e_bench.py's batch (M=2048, T=64, B=1024, L=64) at full width,
+    float32, dropout on, margin and InfoNCE (K=5), each on the resident
+    store and on the streamed block: 3 warm-up and 20 timed steps with the
+    batch copied to the card from pinned memory without blocking and the
+    loss fetched every step; ms/step, pairs/s, bytes to the card a step, the
+    peak memory, the device time by part, host syncs a step, and the host's
+    time to build the streamed block (gather_padded, then pinning). Launch
+    counts are set to 0 just before each run's timed steps and read just
+    after; their sum and the shapes are returned."""
+    rng = np.random.default_rng(SEED + 92)
+    batches = {"margin": e2e_batch(store, rng, E2E_M, E2E_B), "infonce": e2e_batch(store, rng, E2E_M, E2E_B, TRAIN_K)}
+    uniq = np.sort(rng.choice(store.num_items, size=E2E_M, replace=False))
+    t0 = time.perf_counter()
+    block, _ = store.gather_padded(uniq, max_len=E2E_T)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    torch.from_numpy(block).pin_memory()
+    pin_ms = (time.perf_counter() - t0) * 1e3
+    del block
+    launches = collections.Counter()
+    shapes = {k: collections.Counter() for k in KERNELS}
+    for loss, b in batches.items():
+        for route in ("resident", "streamed"):
+            host = tuple(torch.from_numpy(a).pin_memory() for a in b["gathered" if route == "resident" else "streamed"])
+            h2d = sum(t.numel() * t.element_size() for t in host)
+            flat = dev_states if route == "resident" else None
+            model = e2e_model(state, "cuda")
+            opt = make_optimizer(TrainConfig(), model.parameters())
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+            def step():
+                args = tuple(t.to("cuda", non_blocking=True) for t in host)
+                return float(apply_step(opt, e2e_loss(model, args, loss, flat, gen)))
+
+            warm = [step() for _ in range(3)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            zero_launches()
+            t0 = time.perf_counter()
+            losses = [step() for _ in range(TRAIN_STEPS)]
+            dt = (time.perf_counter() - t0) / TRAIN_STEPS
+            launches.update(kernel_launches())
+            for k, v in KERNELS.items():
+                shapes[k].update({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+            peak = torch.cuda.max_memory_allocated() - base
+            args = tuple(t.to("cuda", non_blocking=True) for t in host)
+            split = e2e_step_split(model, opt, args, loss, flat, gen, f"9c {loss} {route}")
+            syncs = count_syncs(step)
+            part_line(
+                "9c", loss=loss, route=route, M=E2E_M, T=E2E_T, B=E2E_B, L=E2E_L, ms_per_step=dt * 1e3,
+                pairs_per_s=E2E_B / dt, h2d_bytes_per_step=h2d, peak_gb_above_store_and_weights=peak / 1e9,
+                device_ms_by_part=split, host_syncs_per_step=syncs, loss_first=warm[0], loss_last=losses[-1],
+                streamed_block_host_ms={"gather_padded": gather_ms, "pin_memory": pin_ms}, card=card,
+            )
+            if not np.isfinite(warm + losses).all():
+                raise AssertionError(f"9c {loss} {route}: losses {warm + losses}")
+            del model, opt, args, host
+            torch.cuda.empty_cache()
+    if min(launches.values()) < 4 * TRAIN_STEPS:
+        raise AssertionError(f"9c: the timed steps launched {dict(launches)}")
+    return dict(launches=dict(launches), shapes=shapes)
+
+
+def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> None:
+    """9d: materialize_from_token_store over the whole store at full width,
+    on the resident route and the streamed one, the batch from the memory
+    model (batch_size=None) and max_token_len 64 (run_config2's): news/s, the
+    batch picked; the two routes within 1e-6 of each other, all finite."""
+    enc = e2e_model(state, "cuda")["token_encoder"]
+    batch = min(1024, estimate_token_attention_batch(DIM, E2E_T, device="cuda"))
+    out = {}
+    for route, flat in (("resident", dev_states), ("streamed", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[route] = materialize_from_token_store(enc, store, batch_size=None, max_token_len=E2E_T, dev_states=flat)
+        seconds = time.perf_counter() - t0
+        part_line("9d", route=route, news=store.num_items, batch=batch, seconds=seconds,
+                  news_per_s=store.num_items / seconds)
+    diff = float(np.abs(out["resident"] - out["streamed"]).max())
+    finite = bool(np.isfinite(out["resident"]).all())
+    part_line("9d", shape=list(out["resident"].shape), routes_max_diff=diff, tol=1e-6, finite=finite)
+    if not (out["resident"].shape == (store.num_items, DIM) and diff <= 1e-6 and finite):
+        raise AssertionError(f"9d: routes differ by {diff}, finite {finite}")
+
+
+def e2e_config2_phase(store: TokenStore) -> dict:
+    """9e: configs.run_config2 at dim=1024 with its published defaults
+    (batch 32, one epoch, max_token_len 64, TrainConfig's lr), device=None,
+    over E2E_ROWS of build_workload's rows drawn over the store's news. The
+    entry point runs as a user calls it; a subclass of EndToEndTrainer and a
+    wrapper of the fused eval stand in for the module's names to read the
+    times, the batches' M, T and L, and the launch counts (set to 0 just
+    before training and before the eval, read just after each)."""
+    seen = dict(shapes=[], pairs=0.0)
+    counts = {}
+
+    class Timed(EndToEndTrainer):
+        def _epoch_batches(self):
+            for b in super()._epoch_batches():
+                seen["shapes"].append((b[0].shape[0], b[0].shape[1], b[2].shape[1]))
+                seen["pairs"] += float(b[-1].sum())
+                yield b
+
+        def train(self, num_epochs=None):
+            seen["device_store"] = self.device_store
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            zero_launches()
+            t0 = time.perf_counter()
+            out = super().train(num_epochs)
+            torch.cuda.synchronize()
+            seen["train_seconds"] = time.perf_counter() - t0
+            seen["train_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            counts["train"] = _snapshot()
+            return out
+
+        def materialize_news_embeddings(self, batch_size=None, store=None):
+            t0 = time.perf_counter()
+            out = super().materialize_news_embeddings(batch_size, store)
+            seen["materialize_seconds"] = time.perf_counter() - t0
+            return out
+
+    def fused(*args):
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fused_eval(*args)
+        seen["eval_seconds"] = time.perf_counter() - t0
+        counts["eval"] = _snapshot()
+        return out
+
+    compiled = mind_behaviors(np.random.default_rng(SEED + 93), E2E_ROWS)
+    fused_eval = configs_module._fused_eval_metrics
+    configs_module.EndToEndTrainer, configs_module._fused_eval_metrics = Timed, fused
+    try:
+        t0 = time.perf_counter()
+        metrics = configs_module.run_config2(compiled, store, DIM)
+        seconds = time.perf_counter() - t0
+    finally:
+        configs_module.EndToEndTrainer, configs_module._fused_eval_metrics = EndToEndTrainer, fused_eval
+    m, t, l = (np.array([s[i] for s in seen["shapes"]]) for i in range(3))
+    dist = {name: dict(sorted(collections.Counter(a.tolist()).items())) for name, a in (("M", m), ("T", t), ("L", l))}
+    part_line(
+        "9e", rows=E2E_ROWS, dim=DIM, batch=32, steps=len(seen["shapes"]), pairs=seen["pairs"],
+        device_store=seen["device_store"], train_seconds=seen["train_seconds"],
+        pairs_per_s=seen["pairs"] / seen["train_seconds"], steps_by=dist, train_peak_gb=seen["train_peak_gb"],
+        materialize_seconds=seen["materialize_seconds"], news_per_s=store.num_items / seen["materialize_seconds"],
+        eval_seconds=seen["eval_seconds"], impressions_per_s=E2E_ROWS / seen["eval_seconds"],
+        metrics=metrics, seconds=seconds, launches={k: v["launches"] for k, v in counts.items()},
+    )
+    values = [metrics[k] for k in METRIC_KEYS]
+    if not (all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values)
+            and min(counts["train"]["launches"].values()) >= 1 and min(counts["eval"]["launches"].values()) >= 1):
+        raise AssertionError(f"9e: metrics {metrics}, launches {counts}")
+    return counts
+
+
+def _snapshot() -> dict:
+    return dict(
+        launches=kernel_launches(),
+        shapes={k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+                for k, v in KERNELS.items()},
+    )
+
+
+def e2e_phase(gen, card: str) -> dict:
+    """Phase 9 (9a-9e), float32, TF32 off, each part's wall time printed;
+    returns the kernels' launches and shapes on the e2e train steps (9c's
+    timed steps and 9e's epoch) and on 9e's eval."""
+    seconds = {}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return out
+
+    resolve_device("cuda")  # TF32 off, as every entry point sets it
+    state = e2e_state()
+    store, dev_states = timed("9a", e2e_store_phase, gen)
+    timed("9b", e2e_check_phase, store, dev_states, state)
+    steps = timed("9c", e2e_steps_phase, store, dev_states, state, card)
+    timed("9d", e2e_materialize_phase, store, dev_states, state)
+    del dev_states
+    torch.cuda.empty_cache()
+    counts = timed("9e", e2e_config2_phase, store)
+    log(json.dumps({"part": "9 wall seconds", **seconds}))
+    train = dict(
+        launches=dict(collections.Counter(steps["launches"]) + collections.Counter(counts["train"]["launches"])),
+        shapes={k: steps["shapes"][k] + counts["train"]["shapes"][k] for k in KERNELS},
+    )
+    return dict(train=train, eval=counts["eval"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1778,6 +2231,15 @@ def main() -> int:
     records["padded_train"] = (
         main_path_phase(padded["train"]["shapes"], gen, path="padded train"), padded["train"]["launches"]
     )
+
+    log(
+        "phase 9 the end-to-end token-level path (config[2]) at full width, float32 (TF32 off) " + since(t_start)
+    )
+    e2e = e2e_phase(gen, card)
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape the e2e steps and run_config2's eval launched them at:")
+    records["e2e_train"] = (main_path_phase(e2e["train"]["shapes"], gen, path="e2e train"), e2e["train"]["launches"])
+    records["e2e_eval"] = (main_path_phase(e2e["eval"]["shapes"], gen, path="e2e eval"), e2e["eval"]["launches"])
 
     kernels = [
         {

@@ -28,6 +28,17 @@ def bucket_for(length: int, buckets: tuple[int, ...]) -> int:
     return buckets[-1]
 
 
+def bucket_for_open(length: int, buckets: tuple[int, ...]) -> int:
+    """Like ``bucket_for``, but lengths past the last bucket round up to the
+    next multiple of it: for axes that must never be truncated, such as an
+    end-to-end batch's union of news."""
+    for b in buckets:
+        if length <= b:
+            return b
+    step = buckets[-1]
+    return -(-length // step) * step
+
+
 @dataclasses.dataclass(frozen=True)
 class TowerConfig:
     """User-tower architecture. The latent tower's cross-attention always runs

@@ -1,8 +1,9 @@
 """Preset experiment configurations. This port has config[0], the frozen
-mean-pool scorer (no training, the bucketed eval), and config[1]: a user
-tower trained on frozen news embeddings, with epoch evals and the MIND
-metrics. The other presets (end-to-end encoder training, the multi-GPU
-configurations) wait for their modules (ROADMAP.md §1)."""
+mean-pool scorer (no training, the bucketed eval); config[1], a user tower
+trained on frozen news embeddings, with epoch evals and the MIND metrics;
+and config[2], a learned token encoder and the latent tower trained end to
+end from frozen per-token states. The multi-GPU presets (config[3..4]) wait
+for their modules (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
@@ -10,13 +11,17 @@ from typing import Optional
 
 import numpy as np
 
-from .config import TowerConfig, TrainConfig
+import torch
+
+from .config import HISTORY_BUCKETS, TowerConfig, TrainConfig
 from .data.compiler import CompiledBehaviors
 from .eval.ranker import compose_final_scores, history_candidate_slots
-from .models import average_pool, build_tower, supports_flat_scoring
-from .models.convert import random_tower_params, tower_state_dict_from_jax
+from .device import resolve_device
+from .models import TokenAttentionPool, average_pool, build_tower, supports_flat_scoring
+from .models.convert import e2e_state_dict_from_jax, random_e2e_params, random_tower_params, tower_state_dict_from_jax
+from .ops.encode import TokenStore
 from .ops.scoring import score_all_impressions
-from .train.trainer import TowerTrainer
+from .train.trainer import EndToEndTrainer, TowerTrainer, _fused_eval_metrics
 
 
 def run_config0(compiled: CompiledBehaviors, news_embeddings: np.ndarray, device=None) -> dict:
@@ -84,3 +89,32 @@ def _sized_tower(dim: int) -> TowerConfig:
         num_latents=min(64, dim),
         latent_dim_head=max(8, dim // 2),
     )
+
+
+def run_config2(
+    compiled: CompiledBehaviors,
+    token_store: TokenStore,
+    dim: int,
+    train_cfg: Optional[TrainConfig] = None,
+    max_token_len: int = 64,
+    device=None,
+) -> dict:
+    """Config[2]: a ``TokenAttentionPool`` (one layer at ``dim``) and the
+    latent tower (16 latents or ``dim``, heads of ``max(8, dim // 4)``)
+    trained end to end from ``token_store``'s frozen per-token states
+    (``EndToEndTrainer``, default one epoch at batch 32), the news
+    embeddings materialized, then the fused flat eval's MIND metrics over
+    ``compiled``. Weights are drawn from ``train_cfg.seed`` with numpy
+    (``random_e2e_params``). ``device=None`` means CUDA."""
+    device = resolve_device(device)
+    train_cfg = train_cfg or TrainConfig(num_epochs=1, batch_size=32)
+    tower_cfg = TowerConfig(kind="latent", reduced_dim=dim, num_latents=min(16, dim), latent_dim_head=max(8, dim // 4))
+    model = torch.nn.ModuleDict({"token_encoder": TokenAttentionPool(hidden_size=dim, num_layers=1), "tower": build_tower(tower_cfg)})
+    model.load_state_dict(e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(train_cfg.seed), dim, 1, tower_cfg)))
+    trainer = EndToEndTrainer(
+        model["token_encoder"], model["tower"], compiled.with_history_view(), token_store,
+        cfg=train_cfg, max_token_len=max_token_len, device=device,
+    )
+    trainer.train()
+    news_emb = torch.from_numpy(trainer.materialize_news_embeddings(batch_size=32)).to(device)
+    return _fused_eval_metrics({}, trainer.tower, compiled, news_emb, HISTORY_BUCKETS[-1], device)

@@ -14,6 +14,14 @@ The ``random_*_params`` generators draw every weight from one numpy
 generator, so one seed gives both packages the same weights: flax kernels
 [in, out] at LeCun-normal scale, LayerNorm scales and all biases perturbed so
 that they matter.
+
+The end-to-end model (config[2]) is a ``ModuleDict`` of ``token_encoder``
+(a ``TokenAttentionPool``) and ``tower`` (the latent tower), the JAX
+package's ``{"token_encoder": ..., "tower": ...}`` params:
+``e2e_state_dict_from_jax`` maps those to its ``state_dict`` and
+``e2e_params_from_state_dict`` maps a ``state_dict`` back (the port's copy of
+the JAX package's ``convert_token_attention_pool`` and
+``convert_latent_attention``).
 """
 
 from __future__ import annotations
@@ -283,3 +291,68 @@ STATE_DICT_FROM_JAX = {
 def tower_state_dict_from_jax(kind: str, params: Mapping[str, Any]) -> StateDict:
     """The user tower of ``kind``'s flax params -> its port ``state_dict``."""
     return STATE_DICT_FROM_JAX[kind](params)
+
+
+# -- the end-to-end model (config[2]) ------------------------------------------
+
+
+def random_e2e_params(rng: np.random.Generator, dim: int, num_layers: int, tower_cfg: TowerConfig) -> dict:
+    """``{"token_encoder": ..., "tower": ...}``: a ``TokenAttentionPool`` of
+    ``num_layers`` at ``dim``, then a latent tower of ``tower_cfg``."""
+    return {
+        "token_encoder": random_token_attention_pool_params(rng, dim, num_layers),
+        "tower": random_latent_params(rng, tower_cfg),
+    }
+
+
+def e2e_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """The JAX package's end-to-end params -> the ``state_dict`` of
+    ``ModuleDict(token_encoder=TokenAttentionPool, tower=LatentAttentionTower)``."""
+    return {
+        **_with_prefix("token_encoder.", token_attention_pool_state_dict_from_jax(params["token_encoder"])),
+        **_with_prefix("tower.", latent_state_dict_from_jax(params["tower"])),
+    }
+
+
+def _np(sd: Mapping[str, Any], key: str) -> np.ndarray:
+    v = sd[key]
+    return v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+
+
+def _get_dense(sd, prefix: str, bias: bool = True) -> dict:
+    out = {"kernel": _np(sd, f"{prefix}.weight").T}
+    if bias:
+        out["bias"] = _np(sd, f"{prefix}.bias")
+    return out
+
+
+def _get_ln(sd, prefix: str) -> dict:
+    return {"scale": _np(sd, f"{prefix}.weight"), "bias": _np(sd, f"{prefix}.bias")}
+
+
+def e2e_params_from_state_dict(sd: Mapping[str, Any]) -> dict:
+    """``e2e_state_dict_from_jax``'s inverse: the end-to-end ``state_dict``
+    -> ``{"token_encoder": {"params": ...}, "tower": {"params": ...}}`` as
+    numpy arrays in the flax layout."""
+    encoder, layers = {}, sorted({int(k.split(".")[3]) for k in sd if k.startswith("token_encoder.encoder.layer.")})
+    for i in layers:
+        p = f"token_encoder.encoder.layer.{i}"
+        encoder[f"layer_{i}"] = {
+            "attention": {"qkv_proj": _get_dense(sd, f"{p}.attention.qkv_proj"), "o_proj": _get_dense(sd, f"{p}.attention.o_proj")},
+            "g_mlp": {
+                "up_gate_proj": _get_dense(sd, f"{p}.g_mlp.up_gate_proj", bias=False),
+                "down_proj": _get_dense(sd, f"{p}.g_mlp.down_proj"),
+            },
+            "attn_layernorm": _get_ln(sd, f"{p}.attn_layernorm"),
+            "g_mlp_layernorm": _get_ln(sd, f"{p}.g_mlp_layernorm"),
+        }
+    attn, ff = "tower.cross_attend_blocks.0", "tower.cross_attend_blocks.1"
+    tower = {
+        "latents": _np(sd, "tower.latents"),
+        "cross_prenorm": _get_ln(sd, f"{attn}.norm"),
+        "cross_prenorm_context": _get_ln(sd, f"{attn}.norm_context"),
+        "cross_attn": {name: _get_dense(sd, f"{attn}.fn.{name}", bias=False) for name in ("to_q", "to_kv", "to_out")},
+        "ff_prenorm": _get_ln(sd, f"{ff}.norm"),
+        "cross_ff": {"proj_in": _get_dense(sd, f"{ff}.fn.net.0"), "proj_out": _get_dense(sd, f"{ff}.fn.net.2")},
+    }
+    return {"token_encoder": {"params": {"encoder": encoder}}, "tower": {"params": tower}}

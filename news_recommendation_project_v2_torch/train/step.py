@@ -17,17 +17,28 @@ builds them: ``(hist_idx [U, L], hist_mask [U, L], hist_rev [B], pos_idx,
 neg_idx, pair_mask)``. Dropout, where the tower has it, draws its masks
 from the generator the trainer passes.
 
-In both, the pair rows gather the user vectors and score the candidates by
-cosine; pair rows with mask 0 are pad. On CUDA the latent tower's forward
-runs through both hand-written kernels, under their
+The end-to-end steps (config[2]) learn the news vectors too: a token
+encoder (``models.TokenAttentionPool``) turns the frozen per-token states of
+a batch's M distinct news into ``news_vecs`` [M, D], and the histories, the
+positives and the negatives all index those rows. A streamed batch is
+``(token_states [M, T, D], token_mask [M, T], hist_idx [U, L], hist_mask,
+hist_rev [B], pos_idx [B], neg_idx, pair_mask)``, as
+``EndToEndTrainer._epoch_batches`` builds it; the ``_gathered`` forms take
+``(tok_idx [M, T], tok_mask, ...)`` and gather the block from the store
+resident on the card.
+
+In all of them, the pair rows gather the user vectors and score the
+candidates by cosine; pair rows with mask 0 are pad. On CUDA the latent
+tower's forward runs through both hand-written kernels, under their
 ``torch.autograd.Function``s.
 
 Every sum whose order could change from run to run is taken in a fixed
 order, so two runs from one state give the same bits on the card: the flat
 pool sums each row's contiguous run of tokens (``torch.segment_reduce``),
-and the pair gather's backward sums each row's pair gradients after a stable
-sort (``gather_rows``), where ``index_add_`` and an indexing backward would
-add with atomics. The tables take no gradient, so their gathers need none.
+and every row gather's backward (the pair rows' user vectors, the
+end-to-end steps' histories and candidates) sums each row's gradients after
+a stable sort (``gather_rows``), where ``index_add_`` and an indexing
+backward would add with atomics.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Optional
 import torch
 
 from ..models.latent_attention import pool_epilogue
+from ..ops.encode import gathered_token_states
 from .losses import infonce_loss, margin_ranking_loss
 
 
@@ -68,9 +80,10 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``src[index]`` for ``index`` in [0, len(src)), with a deterministic
-    backward."""
-    return _GatherRows.apply(src, index.long())
+    """``src[index]`` for ``index`` (any shape) in [0, len(src)), with a
+    deterministic backward."""
+    flat = _GatherRows.apply(src, index.reshape(-1).long())
+    return flat.reshape(*index.shape, *src.shape[1:])
 
 
 def flat_user_vectors(
@@ -113,19 +126,19 @@ def padded_user_vectors(
 
 def _pair_margin_loss(user, news_emb, hist_rev, pos_idx, neg_idx, pair_mask, margin: float) -> torch.Tensor:
     u = gather_rows(user, hist_rev)
-    cos_p = safe_cosine(u, news_emb[pos_idx.long()])
-    cos_n = safe_cosine(u, news_emb[neg_idx.long()])
+    cos_p = safe_cosine(u, gather_rows(news_emb, pos_idx))
+    cos_n = safe_cosine(u, gather_rows(news_emb, neg_idx))
     return margin_ranking_loss(cos_p, cos_n, margin, pair_mask)
 
 
 def _pair_infonce_loss(user, news_emb, hist_rev, pos_idx, neg_idx, pair_mask) -> torch.Tensor:
     """Each pair's positive against its K negatives at temperature 1, the
-    ``-1`` pads masked."""
+    ``-1`` pads masked (the JAX package's ``_infonce_from_vecs``)."""
     u = gather_rows(user, hist_rev)
-    pos_scores = safe_cosine(u, news_emb[pos_idx.long()])
+    pos_scores = safe_cosine(u, gather_rows(news_emb, pos_idx))
     neg_idx = neg_idx.long()
     neg_valid = (neg_idx >= 0).float()
-    neg_e = news_emb[neg_idx.clamp_min(0)]  # [B, K, D]
+    neg_e = gather_rows(news_emb, neg_idx.clamp_min(0))  # [B, K, D]
     un = torch.sqrt((u * u).sum(-1, keepdim=True) + 1e-16)
     nn_ = torch.sqrt((neg_e * neg_e).sum(-1) + 1e-16)
     neg_scores = (u[:, None, :] * neg_e).sum(-1) / (un * nn_)
@@ -198,6 +211,53 @@ def classification_infonce_loss(head, news_emb, batch) -> torch.Tensor:
     pos_scores = head(news_emb[pos_idx.long()])[:, 0]
     neg_scores = head(news_emb[neg_idx.clamp_min(0).reshape(-1)])[:, 0].reshape(b, k)
     return infonce_loss(pos_scores, neg_scores, (neg_idx >= 0).float(), 1.0, pair_mask)
+
+
+def e2e_news_and_user(
+    token_encoder, tower, token_states, token_mask, hist_idx, hist_mask, generator=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The end-to-end forward: the token encoder over the batch's M distinct
+    news ([M, T, D] states, [M, T] mask) -> ``news_vecs`` [M, D]; the tower
+    over the histories gathered from them ([U, L] indices into M, masked);
+    returns ``news_vecs`` and the user vectors [U, D]. Dropout, where the
+    modules have it, draws from ``generator`` (the encoder's masks first,
+    then the tower's)."""
+    news_vecs = token_encoder(token_states, token_mask, generator=generator)
+    gathered = gather_rows(news_vecs, hist_idx) * hist_mask[..., None].to(news_vecs.dtype)
+    user = tower(gathered, hist_mask, generator=generator)
+    return news_vecs, user
+
+
+def e2e_margin_loss(token_encoder, tower, batch, margin: float, generator=None) -> torch.Tensor:
+    """The margin loss of one streamed end-to-end batch ``(token_states,
+    token_mask, hist_idx, hist_mask, hist_rev, pos_idx, neg_idx, pair_mask)``,
+    every index addressing the batch's M news (graph kept for backward)."""
+    news_vecs, user = e2e_news_and_user(token_encoder, tower, *batch[:4], generator)
+    return _pair_margin_loss(user, news_vecs, *batch[4:], margin)
+
+
+def e2e_infonce_loss(token_encoder, tower, batch, generator=None) -> torch.Tensor:
+    """InfoNCE of one streamed end-to-end batch (``neg_idx`` [B, K], -1 pads)
+    at temperature 1 (graph kept for backward)."""
+    news_vecs, user = e2e_news_and_user(token_encoder, tower, *batch[:4], generator)
+    return _pair_infonce_loss(user, news_vecs, *batch[4:])
+
+
+def _gathered(flat_states, batch) -> tuple:
+    return (gathered_token_states(flat_states, batch[0], batch[1]), *batch[1:])
+
+
+def e2e_margin_loss_gathered(token_encoder, tower, flat_states, batch, margin: float, generator=None) -> torch.Tensor:
+    """``e2e_margin_loss`` with the store resident on the card: ``batch``
+    starts with the [M, T] indices into ``flat_states``'s rows and their
+    mask (``TokenStore.padded_index_batch``), and the [M, T, D] block is
+    gathered there; no gradient reaches the states."""
+    return e2e_margin_loss(token_encoder, tower, _gathered(flat_states, batch), margin, generator)
+
+
+def e2e_infonce_loss_gathered(token_encoder, tower, flat_states, batch, generator=None) -> torch.Tensor:
+    """``e2e_infonce_loss`` with the store resident on the card."""
+    return e2e_infonce_loss(token_encoder, tower, _gathered(flat_states, batch), generator)
 
 
 def apply_step(optimizer, loss: torch.Tensor) -> torch.Tensor:

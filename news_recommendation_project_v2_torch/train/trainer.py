@@ -1,9 +1,10 @@
 """Training engines: ``TowerTrainer`` (a user tower, margin or InfoNCE, by the
 flat-token step or the padded step), ``JointTowerTrainer`` (the tower with a
-score blend and/or a reducer) and ``ClassificationTrainer`` (the content
-scorer); per-epoch resampled pairs, an epoch eval with the MIND metrics,
-JSONL logs, best-checkpoint tracking, a plateau scheduler, and save and
-restore of the whole training state.
+score blend and/or a reducer), ``ClassificationTrainer`` (the content
+scorer) and ``EndToEndTrainer`` (a learned token encoder and the tower,
+from a store of frozen token states); per-epoch resampled pairs, an epoch
+eval with the MIND metrics, JSONL logs, best-checkpoint tracking, a plateau
+scheduler, and save and restore of the whole training state.
 
 The port of the JAX package's trainers: the host samples each epoch's pairs
 (``data.sampling``) and builds the batches on a prefetch thread, pinned; the
@@ -23,12 +24,12 @@ import json
 import os
 from datetime import datetime
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
-from ..config import HISTORY_BUCKETS, TrainConfig, bucket_for
+from ..config import HISTORY_BUCKETS, TrainConfig, bucket_for, bucket_for_open
 from ..data.compiler import CompiledBehaviors
 from ..data.grouping import gather_end_aligned, lengths_to_offsets
 from ..data.prefetch import prefetch
@@ -36,12 +37,18 @@ from ..data.sampling import neg_batch_column, sample_epoch_pairs
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan
 from ..eval.ranker import compose_final_scores, history_candidate_slots
+from ..ops.encode import TokenStore, materialize_from_token_store
 from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions
+from ..utils.memory import fits_device_token_store
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
 from .step import (
     apply_step,
     classification_infonce_loss,
     classification_margin_loss,
+    e2e_infonce_loss,
+    e2e_infonce_loss_gathered,
+    e2e_margin_loss,
+    e2e_margin_loss_gathered,
     flat_infonce_step,
     flat_margin_step,
     joint_margin_loss,
@@ -681,3 +688,283 @@ class ClassificationTrainer(ResumableTrainer):
         train_scores = self._eval_split(self.ct, self.news_emb_train)
         val_scores = self._eval_split(self.cv, self.news_emb_val) if self.cv is not None else None
         return train_scores, val_scores
+
+
+class EndToEndTrainer(ResumableTrainer):
+    """Trains a learned token encoder (``models.TokenAttentionPool``) and the
+    user tower together from a ``TokenStore`` of frozen per-token states
+    (config[2]): each batch's distinct news go through the encoder, their
+    vectors feed the histories and the candidates, and the gradient reaches
+    both modules. Margin or InfoNCE (``cfg.loss``).
+
+    ``device_store`` (``None``: ``utils.memory.fits_device_token_store`` on
+    the device's memory) keeps the store's flat states on the card, in their
+    own type (a float16 store stays float16), and a step uploads index grids
+    and gathers its [M, T, D] block there; otherwise each step's block is
+    gathered on the host, pinned on the prefetch thread and copied without
+    blocking. Both routes give the same steps.
+
+    Epochs: a non-finite loss raises ``FloatingPointError``; with
+    ``eval_each_epoch`` the learned news embeddings are materialized
+    (``materialize_news_embeddings``; ``val_token_store`` streams through
+    the host route) and the MIND metrics computed (``flat_eval`` /
+    ``device_metrics`` as in ``TowerTrainer``); with ``ckpt_dir`` every epoch
+    writes ``Epoch_N`` (and, with a val split, the best by its metrics), and
+    ``remote_sync(path)`` is called with each. ``model`` is the ``ModuleDict``
+    of ``token_encoder`` and ``tower``; ``device=None`` means CUDA."""
+
+    TOKEN_BUCKETS = (64, 128, 256, 512)
+    UNIQUE_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
+
+    def __init__(
+        self,
+        token_encoder: torch.nn.Module,
+        tower: torch.nn.Module,
+        compiled_train: CompiledBehaviors,
+        token_store: TokenStore,
+        cfg: TrainConfig = TrainConfig(),
+        log_dir: Optional[Path] = None,
+        ckpt_dir: Optional[Path] = None,
+        exp_name: str = "",
+        buckets: tuple[int, ...] = HISTORY_BUCKETS,
+        max_token_len: int = 512,
+        remote_sync: Optional[Callable[[Path], None]] = None,
+        compiled_val: Optional[CompiledBehaviors] = None,
+        val_token_store: Optional[TokenStore] = None,
+        eval_each_epoch: bool = False,
+        flat_eval: bool = False,
+        device_metrics: bool = False,
+        device_store: Optional[bool] = None,
+        device=None,
+    ):
+        if len(compiled_train.hist_lens) != compiled_train.num_rows:
+            raise ValueError("EndToEndTrainer needs a with-history view (every row must have history)")
+        if (compiled_val is None) != (val_token_store is None):
+            raise ValueError("compiled_val and val_token_store come together (val scores use the val corpus)")
+        if device_metrics and not flat_eval:
+            raise ValueError("device_metrics rides the flat eval (FlatEvalPlan.metrics): it needs flat_eval=True")
+        if flat_eval and not getattr(tower, "token_local", False):
+            raise ValueError(f"flat_eval needs a token-local tower (models.supports_flat_scoring), not {type(tower).__name__}")
+        if cfg.loss not in ("margin", "infonce"):
+            raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
+        self.device = resolve_device(device)
+        self.model = torch.nn.ModuleDict({"token_encoder": token_encoder, "tower": tower}).to(self.device)
+        self.token_encoder, self.tower = self.model["token_encoder"], self.model["tower"]
+        self.ct, self.store = compiled_train, token_store
+        self.cv, self.store_val = compiled_val, val_token_store
+        self.cfg = cfg
+        self.log_dir = log_dir
+        self.exp_name = exp_name
+        self.buckets = buckets
+        self.max_token_len = max_token_len
+        self.remote_sync = remote_sync
+        self.eval_each_epoch = eval_each_epoch
+        self.flat_eval = flat_eval
+        self.device_metrics = device_metrics
+        self._fused_plans: dict = {}
+        self.rng = np.random.default_rng(cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        self.best = BestTracker(ckpt_dir, exp_name)
+        self.plateau = PlateauScheduler(cfg)  # saved with the state; the e2e epochs take no plateau step
+        self.history: list[dict] = []
+        self._hist_offsets = lengths_to_offsets(compiled_train.hist_lens)
+        states = token_store.states
+        if device_store is None:
+            device_store = fits_device_token_store(
+                int(token_store.offsets[-1]), int(states.shape[1]), states.dtype.itemsize, device=self.device
+            )
+        self.device_store = bool(device_store)
+        self._dev_states = _upload_states(states, self.device) if self.device_store else None
+
+    # ------------------------------------------------------------------
+    # Host input pipeline
+    # ------------------------------------------------------------------
+
+    def _epoch_batches(self) -> Iterator[tuple]:
+        """One epoch's batches as numpy arrays, equal to the JAX package's
+        array for array from the same generator state: the union of the
+        batch's histories and candidates (``np.unique``) padded to an
+        ``UNIQUE_BUCKETS`` size M that never truncates (``bucket_for_open``);
+        its token states (the first ``max_token_len`` of each news, padded to
+        a ``TOKEN_BUCKETS`` width T) as a float32 [M, T, D] block, or with
+        ``device_store`` as [M, T] int32 indices into the flat states; the
+        [M, T] mask; the deduped histories end-aligned into [batch_size, L]
+        indices into M; then the pair columns, indices into M too, padded
+        to ``batch_size``."""
+        cfg = self.cfg
+        pairs, negs = sample_epoch_pairs(
+            self.rng, self.ct.imp_rev, self.ct.imp_lens, self.ct.labels_flat,
+            loss=cfg.loss, num_neg_per_pos=cfg.num_neg_per_pos,
+            max_neg_ratio=cfg.max_neg_ratio, max_pos_ratio=cfg.max_pos_ratio,
+            batch_size=cfg.batch_size,
+        )
+        B = cfg.batch_size
+        offsets = self._hist_offsets
+        for start in range(0, pairs.shape[1], B):
+            stop = min(start + B, pairs.shape[1])
+            pos = pairs[0, start:stop]
+            rows = pairs[-1, start:stop]
+            if negs is None:
+                neg = pairs[1, start:stop]
+                neg_union = neg
+            else:
+                neg = negs[:, start:stop].T  # [b, K], -1 pads
+                neg_union = neg[neg >= 0]
+            uniq_rows, rev = np.unique(rows, return_inverse=True)
+            hist_slices = [self.ct.hist_rev[offsets[r] : offsets[r + 1]] for r in uniq_rows]
+            uniq_news, inv = np.unique(np.concatenate(hist_slices + [pos, neg_union]), return_inverse=True)
+            M = bucket_for_open(len(uniq_news), self.UNIQUE_BUCKETS)
+            if self.device_store:
+                lens = np.minimum(self.store.offsets[uniq_news + 1] - self.store.offsets[uniq_news], self.max_token_len)
+                T = bucket_for(int(lens.max()), self.TOKEN_BUCKETS)
+                tok_states, tok_mask = self.store.padded_index_batch(uniq_news, T, out_rows=M, max_len=self.max_token_len)
+            else:
+                tok_states, tok_mask = self.store.gather_padded(uniq_news, max_len=self.max_token_len)
+                T = bucket_for(tok_states.shape[1], self.TOKEN_BUCKETS)
+                grow = ((0, M - len(uniq_news)), (0, max(0, T - tok_states.shape[1])))
+                tok_states = np.pad(tok_states[:, :T], (*grow, (0, 0))).astype(np.float32)
+                tok_mask = np.pad(tok_mask[:, :T], grow)
+                tok_mask[len(uniq_news) :, 0] = 1.0  # keep pad rows non-degenerate
+            hist_lens_b = np.array([len(h) for h in hist_slices], dtype=np.int64)
+            cuts = np.cumsum(hist_lens_b)
+            total_hist = int(cuts[-1]) if len(cuts) else 0
+            pos_rel = inv[total_hist : total_hist + len(pos)]
+            if negs is None:
+                neg_rel = inv[total_hist + len(pos) :]
+            else:
+                # Every real negative is in uniq_news, so a sorted search
+                # finds its row; the -1 pads stay.
+                neg_rel = np.where(neg >= 0, np.searchsorted(uniq_news, np.maximum(neg, 0)), -1)
+            L = bucket_for(int(hist_lens_b.max()) if len(hist_lens_b) else 1, self.buckets)
+            hist_idx, hist_mask = gather_end_aligned(inv[:total_hist], cuts, hist_lens_b, L, out_rows=B)
+            pad = B - (stop - start)
+            yield (
+                tok_states,
+                tok_mask.astype(np.float32),
+                hist_idx,
+                hist_mask,
+                np.pad(rev.astype(np.int32), (0, pad)),
+                np.pad(pos_rel.astype(np.int32), (0, pad)),
+                (
+                    np.pad(neg_rel.astype(np.int32), ((0, pad), (0, 0)), constant_values=-1)
+                    if negs is not None
+                    else np.pad(neg_rel.astype(np.int32), (0, pad))
+                ),
+                np.pad(np.ones(stop - start, np.float32), (0, pad)),
+            )
+
+    def _host_batches(self) -> Iterator[tuple[float, tuple]]:
+        """``(pair count, batch)`` per step, the batch as pinned CPU tensors
+        (built on the prefetch thread)."""
+        for batch in self._epoch_batches():
+            yield float(batch[-1].sum()), _pinned(batch, self.device)
+
+    def _loss(self, batch) -> torch.Tensor:
+        enc, tower, gen = self.token_encoder, self.tower, self.generator
+        infonce = self.cfg.loss == "infonce"
+        if self.device_store:
+            if infonce:
+                return e2e_infonce_loss_gathered(enc, tower, self._dev_states, batch, gen)
+            return e2e_margin_loss_gathered(enc, tower, self._dev_states, batch, self.cfg.margin, gen)
+        if infonce:
+            return e2e_infonce_loss(enc, tower, batch, gen)
+        return e2e_margin_loss(enc, tower, batch, self.cfg.margin, gen)
+
+    def train_one_epoch(self) -> float:
+        """One epoch of steps; returns the pair-weighted mean loss. The loss
+        is fetched every ``loss_sync_every`` steps, and a non-finite one
+        raises ``FloatingPointError`` (at most ``loss_sync_every - 1`` steps
+        late; every loss is checked at the epoch's end)."""
+        sync = max(1, self.cfg.loss_sync_every)
+        losses, counts = [], []
+        for count, batch in prefetch(self._host_batches()):
+            batch = tuple(t.to(self.device, non_blocking=True) for t in batch)
+            losses.append(apply_step(self.optimizer, self._loss(batch)))
+            if len(losses) % sync == 0:
+                losses[-1] = float(losses[-1])
+                if not np.isfinite(losses[-1]):
+                    raise FloatingPointError("NaN/Inf loss in end-to-end training")
+            counts.append(count)
+        losses = [float(x) for x in losses]
+        if losses and not np.isfinite(losses).all():
+            raise FloatingPointError("NaN/Inf loss in end-to-end training")
+        return float(np.dot(losses, counts) / np.sum(counts))
+
+    # ------------------------------------------------------------------
+    # Evaluation, epochs, materialization
+    # ------------------------------------------------------------------
+
+    def _eval_split(self, compiled: CompiledBehaviors, store: TokenStore) -> dict[str, float]:
+        """The split's learned news embeddings materialized from ``store``,
+        then the tower's scores and the MIND metrics."""
+        emb = torch.from_numpy(self.materialize_news_embeddings(store=store)).to(self.device)
+        max_len = self.buckets[-1]
+        if self.device_metrics:
+            return _fused_eval_metrics(self._fused_plans, self.tower, compiled, emb, max_len, self.device)
+        slots, cand_rows = history_candidate_slots(compiled)
+        scores = score_all_impressions(
+            self.tower, emb, compiled.hist_rev, compiled.hist_lens, compiled.imp_rev[slots], cand_rows,
+            batch_size=self.cfg.batch_size, buckets=self.buckets, flat_tokens=self.flat_eval,
+            flat_max_len=max_len, device=self.device,
+        )
+        return compose_final_scores(compiled, history_scores=scores).metrics
+
+    def evaluate(self) -> tuple[dict, Optional[dict]]:
+        train_scores = self._eval_split(self.ct, self.store)
+        val_scores = self._eval_split(self.cv, self.store_val) if self.cv is not None else None
+        return train_scores, val_scores
+
+    def train(self, num_epochs: Optional[int] = None) -> list[dict]:
+        """``num_epochs`` (default ``cfg.num_epochs``) epochs; numbering
+        continues after a restore. Each epoch's record (loss, and with
+        ``eval_each_epoch`` both splits' metrics) goes to the history and to
+        ``train_final_history_score.jsonl``."""
+        num_epochs = num_epochs or self.cfg.num_epochs
+        done = len(self.history)
+        for epoch in range(done + 1, done + num_epochs + 1):
+            record: dict = {"exp_name": self.exp_name, "epoch": epoch, "loss": self.train_one_epoch()}
+            val_scores = None
+            if self.eval_each_epoch:
+                record["train"], val_scores = self.evaluate()
+                record["val"] = val_scores
+            self.history.append(record)
+            _log_jsonl(self.log_dir, f"train_{self.LOG_NAME}_score.jsonl", record)
+            if self.best.ckpt_dir is None:
+                continue
+            path = self.best.ckpt_dir / f"Epoch_{epoch}"
+            if val_scores is not None:
+                self.best.update(epoch, val_scores, self.model.state_dict())  # writes Epoch_N too
+            else:
+                self.best.ckpt_dir.mkdir(parents=True, exist_ok=True)
+                save_pytree(path, self.model.state_dict())
+            if self.remote_sync is not None:
+                self.remote_sync(path)
+        return self.history
+
+    def materialize_news_embeddings(self, batch_size: Optional[int] = None, store: Optional[TokenStore] = None) -> np.ndarray:
+        """The learned token encoder over every item of ``store`` (default:
+        the train store) -> [N, D] float32 news embeddings
+        (``ops.encode.materialize_from_token_store``); the train store reads
+        its states on the card when they live there, any other streams from
+        the host."""
+        target = self.store if store is None else store
+        return materialize_from_token_store(
+            self.token_encoder, target, batch_size=batch_size, max_token_len=self.max_token_len,
+            token_buckets=self.TOKEN_BUCKETS, dev_states=self._dev_states if target is self.store else None,
+            device=self.device,
+        )
+
+
+# Rows of the flat states copied to the device at a time: bounds the host
+# memory an upload holds beside the store (a memmap reads only these).
+_UPLOAD_ROWS = 1 << 16
+
+
+def _upload_states(states: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The store's flat states as one tensor on ``device``, in their own
+    type, copied in pieces of ``_UPLOAD_ROWS`` rows."""
+    out = torch.empty(tuple(states.shape), dtype=torch.from_numpy(np.zeros(0, states.dtype)).dtype, device=device)
+    for a in range(0, states.shape[0], _UPLOAD_ROWS):
+        out[a : a + _UPLOAD_ROWS] = torch.from_numpy(np.array(states[a : a + _UPLOAD_ROWS]))
+    return out

@@ -166,3 +166,79 @@ def estimate_serve_batch_cap(
     budget = _budget(hbm_budget_bytes, fraction, device)
     per_row = (history_len * dim * tower_multiplier + num_candidates * dim) * 4
     return _floor_pow2(max(budget // max(per_row, 1), 8), lo=8)
+
+
+def transformer_activation_bytes(
+    hidden_dim: int,
+    num_heads: int,
+    intermediate_dim: int,
+    batch: int,
+    length: int,
+    bytes_per_el: int = 4,
+) -> int:
+    """Activation envelope of one encoder block over [batch, length] tokens:
+    per token the packed QKV (3·H), the MLP's input and output (2·I) and the
+    residual stream in and out (3·H), plus the attention probabilities
+    (heads x L x L per row). One layer's worth: the layers run one after
+    another."""
+    tokens = batch * length
+    per_token = 3 * hidden_dim + 2 * intermediate_dim + 3 * hidden_dim
+    probs = batch * num_heads * length * length
+    return (tokens * per_token + probs) * bytes_per_el
+
+
+def estimate_token_attention_batch(
+    dim: int,
+    token_len: int,
+    num_heads: int = 8,
+    intermediate_dim: int = 3072,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """The learned token encoder's inference batch over stored token states
+    (``ops.encode.materialize_from_token_store``): one float32 encoder block
+    per news plus its gathered [token_len, dim] float32 input, in
+    ``fraction`` of the device's memory, a multiple of 8."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    per_row = transformer_activation_bytes(dim, num_heads, intermediate_dim, 1, token_len) + token_len * dim * 4
+    return _floor_multiple(budget // max(per_row, 1), 8)
+
+
+def estimate_e2e_unique_news(
+    dim: int,
+    token_len: int,
+    num_heads: int = 8,
+    intermediate_dim: int = 3072,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """End-to-end training capacity as the number M of distinct news a batch
+    may hold (the axis that sets an ``EndToEndTrainer`` step's memory): per
+    news the token encoder's forward and backward (``TRAIN_MULTIPLIER`` times
+    its forward) and its [token_len, dim] float32 states."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    per_news = (
+        transformer_activation_bytes(dim, num_heads, intermediate_dim, 1, token_len) * TRAIN_MULTIPLIER
+        + token_len * dim * 4
+    )
+    return _floor_multiple(budget // max(per_news, 1), 8)
+
+
+def fits_device_token_store(
+    total_tokens: int,
+    dim: int,
+    bytes_per_el: int = 4,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.35,
+    device: Optional[torch.device] = None,
+) -> bool:
+    """True when the whole flat token store [total_tokens, dim] fits in
+    ``fraction`` of the device's memory beside the weights, the optimizer's
+    state and a step's activations: ``EndToEndTrainer`` then keeps it on the
+    card and gathers each batch's [M, T, D] block there, so a step uploads
+    index grids instead of the block. A MIND-small title store (about 1.5 M
+    tokens x 1024 float32, 6 GB) fits an 80 GB card; a 512-token full-text
+    store (about 137 GB) streams from the host."""
+    return total_tokens * dim * bytes_per_el <= _budget(hbm_budget_bytes, fraction, device)

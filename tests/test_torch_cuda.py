@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same inputs, forward and, under autograd, backward; the tower,
-the flat eval and the train step on the card against the same on the CPU;
-determinism and host syncs. Every test here skips without CUDA.
+the flat eval, the train steps and the end-to-end step on the card against
+the same on the CPU; determinism and host syncs. Every test here skips
+without CUDA.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports JAX, so there run
@@ -18,9 +19,11 @@ from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
-from news_recommendation_project_v2_torch.models import build_tower
+from news_recommendation_project_v2_torch.models import TokenAttentionPool, build_tower
 from news_recommendation_project_v2_torch.models.convert import (
+    e2e_state_dict_from_jax,
     latent_state_dict_from_jax,
+    random_e2e_params,
     random_latent_params,
     random_tower_params,
     tower_state_dict_from_jax,
@@ -38,6 +41,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
+from news_recommendation_project_v2_torch.ops.encode import TokenStore
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan, score_all_impressions
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
 from news_recommendation_project_v2_torch.train.step import (
@@ -49,7 +53,7 @@ from news_recommendation_project_v2_torch.train.step import (
     padded_infonce_loss,
     padded_margin_loss,
 )
-from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer
+from news_recommendation_project_v2_torch.train.trainer import EndToEndTrainer, TowerTrainer, make_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -648,3 +652,94 @@ def test_padded_train_steps_are_deterministic_on_cuda(cuda, kind):
             apply_step(opt, loss)
         finals.append([p.detach().clone() for p in tower.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*finals))
+
+
+# -- the end-to-end path (config[2]) ------------------------------------------
+
+E2E_SHAPE = (64, 8, 64, 16, 256)  # run_config2's tower at full width: 16 latents, 8 heads x 256
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_at_the_e2e_width(cuda, dtype):
+    """N=16 latents, dh=256, the shape the end-to-end tower launches: the
+    planner's shared memory for it equals the CUDA source's layout; the
+    kernel against its plain version forward, and under the Function's
+    backward against autograd through the plain version (float32)."""
+    b, h, l, n, dh = E2E_SHAPE
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = plan_attention(b, h, l, n, dh, dtype, sms)
+    assert p.smem_bytes == attention_smem(p.rows, n, dtype) == kernel_smem(p.rows, n, dtype)
+    q, k, v = _attention_args(E2E_SHAPE, dtype, cuda)
+    want = reference_attention(q, k, v)
+    torch.testing.assert_close(latent_attention(q, k, v).float(), want.float(), rtol=0, atol=_attention_tol(want, dtype))
+    if dtype == torch.float32:
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        grad = torch.randn(q.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+        got = torch.autograd.grad(latent_attention(q, k, v), (q, k, v), grad)
+        plain = torch.autograd.grad(reference_attention(q, k, v), (q, k, v), grad)
+        for g, w in zip(got, plain):
+            assert _norm_rel(g, w) <= 1e-5
+
+
+E2E_TOWER = TowerConfig(reduced_dim=64, num_latents=16, num_heads=8, latent_dim_head=16)
+
+
+def _e2e_model(device, seed=0, dropout=True):
+    model = torch.nn.ModuleDict({"token_encoder": TokenAttentionPool(64, 1), "tower": build_tower(E2E_TOWER)})
+    model.load_state_dict(e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(seed), 64, 1, E2E_TOWER)))
+    if not dropout:
+        for layer in model["token_encoder"].encoder.layer:
+            layer.dropout_rate = layer.g_mlp.dropout_rate = 0.0
+    return model.to(device)
+
+
+def _e2e_fixture(num_rows=120):
+    imps, hist, emb = synthetic_learnable_behaviors(num_news=80, num_rows=num_rows, dim=64, noise=0.05, seed=3)
+    c = compile_behaviors(imps, hist).with_history_view()
+    rng = np.random.default_rng(4)
+    emb = align_embeddings(c.news_ids, emb)
+    arrays = [emb[i][None] + rng.standard_normal((int(rng.integers(2, 12)), 64)).astype(np.float32) * 0.05 for i in range(len(emb))]
+    return c, TokenStore.from_ragged(arrays)
+
+
+@pytest.mark.parametrize("loss", ["margin", "infonce"])
+def test_e2e_step_on_cuda_matches_cpu(cuda, loss):
+    """One end-to-end batch (the trainer's first, from the resident store)
+    on the card against the CPU from the same weights, dropout off: the
+    loss within 1e-5, every gradient of both modules within a norm-relative
+    1e-4; both kernels launched."""
+    c, store = _e2e_fixture()
+    cfg = TrainConfig(batch_size=32, loss=loss, num_neg_per_pos=3, seed=0)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        model = _e2e_model(dev, dropout=False)
+        trainer = EndToEndTrainer(model["token_encoder"], model["tower"], c, store, cfg=cfg, max_token_len=16, device=dev)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in next(trainer._epoch_batches()))
+        before = latent_attention.launches, geglu.launches
+        value = trainer._loss(batch)
+        value.backward()
+        if key == "card":
+            assert latent_attention.launches > before[0] and geglu.launches > before[1]
+        out[key] = value.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5
+    for name, g in out["cpu"][1].items():
+        assert _norm_rel(out["card"][1][name], g) <= 1e-4, name
+
+
+def test_e2e_device_store_and_streamed_are_identical_on_cuda(cuda):
+    """One epoch with dropout on: the resident store and the streamed one
+    give the same losses and parameter bits on the card, and a second run
+    of the resident route repeats them."""
+    c, store = _e2e_fixture()
+    cfg = TrainConfig(batch_size=32, learning_rate=1e-3, seed=0)
+    runs = []
+    for device_store in (False, True, True):
+        model = _e2e_model(cuda)
+        trainer = EndToEndTrainer(
+            model["token_encoder"], model["tower"], c, store, cfg=cfg, max_token_len=16, device_store=device_store, device=cuda
+        )
+        loss = trainer.train_one_epoch()
+        runs.append((loss, [p.detach().clone() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][1], other[1]))
