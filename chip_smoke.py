@@ -129,10 +129,33 @@ Phases, one line or a few each, exit code non-zero on any failure:
               impressions/s and metrics (finite, in [0, 1]). Then each kernel
               against its plain version at every shape the timed steps, 9e's
               epoch and 9e's eval launched it at.
+ 10. encoder: the news encoder from cli.common.build_encoder (seeded
+              weights drawn on the card, HashTokenizer), one JSON line a
+              part. 10a: e5-large at full width and depth (24 layers,
+              D=1,024, 16 heads, FFN 4,096, vocab 250,002) on 16 news of
+              mixed lengths, the card against the CPU (float32 norm-relative
+              1e-4; the card in bfloat16 within 3e-2; unit norms), and the
+              bucketed encode against the fixed-width one on the card. 10b:
+              encode_query_and_passage over 65,238 MIND-like title news
+              (15-35 tokens) at max_length 128, buckets and the memory
+              model's batch, bfloat16: the host's tokenisation apart, the
+              passage and query encodes timed apart (news/s, real tokens/s),
+              padded tokens a real one, one profiled bucket's busy share, the
+              peak memory against encoder_activation_bytes. 10c:
+              build_token_store of the passages in float16 into a directory
+              (news/s, GB written), 32 rows about the bucket edge against
+              hidden_states, then run_config2 for one epoch on that store,
+              as 9e; the directory is deleted. 10d: NV-Embed's published
+              widths (Mistral-7B backbone cut to 2 of 32 layers, printed as
+              reduced; the head of 512 latents and 8 heads x 4,096 whole):
+              8 news card against CPU as 10a, then 4,096 news through
+              encode_corpus_bucketed at batch 128 (news/s) with both
+              kernels' launches counted. Then each kernel against its plain
+              version at every shape the head launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
-"e2e_train" and "e2e_eval" from phase 9); phase 1's line holds the card's
+"e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10); phase 1's line holds the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
@@ -144,6 +167,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -160,8 +184,11 @@ sys.path.insert(0, str(ROOT))
 
 from news_recommendation_project_v2_torch import configs as configs_module  # noqa: E402
 from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server  # noqa: E402
+from news_recommendation_project_v2_torch.cli.common import build_encoder  # noqa: E402
 from news_recommendation_project_v2_torch.config import (  # noqa: E402
     HISTORY_BUCKETS,
+    QUERY_INSTRUCTION,
+    EncoderConfig,
     TowerConfig,
     TrainConfig,
     bucket_for,
@@ -191,6 +218,7 @@ from news_recommendation_project_v2_torch.models.convert import (  # noqa: E402
     weighted_sum_state_dict_from_jax,
 )
 from news_recommendation_project_v2_torch.models.layers import dense  # noqa: E402
+from news_recommendation_project_v2_torch.models.news_encoder import NewsEncoder, encoder_config_from_hf  # noqa: E402
 from news_recommendation_project_v2_torch.models.towers import (  # noqa: E402
     ClassificationHead,
     ReducingModel,
@@ -198,7 +226,12 @@ from news_recommendation_project_v2_torch.models.towers import (  # noqa: E402
 )
 from news_recommendation_project_v2_torch.ops import _build  # noqa: E402
 from news_recommendation_project_v2_torch.ops.encode import (  # noqa: E402
+    TOKEN_BUCKETS,
     TokenStore,
+    build_token_store,
+    encode_corpus,
+    encode_corpus_bucketed,
+    encode_query_and_passage,
     gathered_token_states,
     materialize_from_token_store,
     save_embeddings,
@@ -236,6 +269,8 @@ from news_recommendation_project_v2_torch.train.trainer import (  # noqa: E402
     make_optimizer,
 )
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
+    encoder_activation_bytes,
+    estimate_encoder_batch,
     estimate_flat_chunk,
     estimate_token_attention_batch,
     estimate_tower_batch,
@@ -2048,8 +2083,9 @@ def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: di
         raise AssertionError(f"9d: routes differ by {diff}, finite {finite}")
 
 
-def e2e_config2_phase(store: TokenStore) -> dict:
-    """9e: configs.run_config2 at dim=1024 with its published defaults
+def e2e_config2_phase(store: TokenStore, part: str = "9e") -> dict:
+    """9e (and 10c, on the store built from text): configs.run_config2 at
+    dim=1024 with its published defaults
     (batch 32, one epoch, max_token_len 64, TrainConfig's lr), device=None,
     over E2E_ROWS of build_workload's rows drawn over the store's news. The
     entry point runs as a user calls it; a subclass of EndToEndTrainer and a
@@ -2106,7 +2142,7 @@ def e2e_config2_phase(store: TokenStore) -> dict:
     m, t, l = (np.array([s[i] for s in seen["shapes"]]) for i in range(3))
     dist = {name: dict(sorted(collections.Counter(a.tolist()).items())) for name, a in (("M", m), ("T", t), ("L", l))}
     part_line(
-        "9e", rows=E2E_ROWS, dim=DIM, batch=32, steps=len(seen["shapes"]), pairs=seen["pairs"],
+        part, rows=E2E_ROWS, dim=DIM, batch=32, steps=len(seen["shapes"]), pairs=seen["pairs"],
         device_store=seen["device_store"], train_seconds=seen["train_seconds"],
         pairs_per_s=seen["pairs"] / seen["train_seconds"], steps_by=dist, train_peak_gb=seen["train_peak_gb"],
         materialize_seconds=seen["materialize_seconds"], news_per_s=store.num_items / seen["materialize_seconds"],
@@ -2116,7 +2152,7 @@ def e2e_config2_phase(store: TokenStore) -> dict:
     values = [metrics[k] for k in METRIC_KEYS]
     if not (all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values)
             and min(counts["train"]["launches"].values()) >= 1 and min(counts["eval"]["launches"].values()) >= 1):
-        raise AssertionError(f"9e: metrics {metrics}, launches {counts}")
+        raise AssertionError(f"{part}: metrics {metrics}, launches {counts}")
     return counts
 
 
@@ -2155,6 +2191,334 @@ def e2e_phase(gen, card: str) -> dict:
         shapes={k: steps["shapes"][k] + counts["train"]["shapes"][k] for k in KERNELS},
     )
     return dict(train=train, eval=counts["eval"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the news encoder and corpus encoding on the card
+# ---------------------------------------------------------------------------
+
+# Card against CPU (10a, 10d): float32 on both within a norm-relative 1e-4
+# (float32 sums in other orders over 24 layers); the card in bfloat16, the
+# encoder's default compute type, within 3e-2 of the CPU's float32.
+ENC_F32_TOL, ENC_BF16_TOL = 1e-4, 3e-2
+ENC_MAX_LENGTH = 128  # save_emb's default
+# NV-Embed's published config.json (NV-Embed-v2: a Mistral-7B backbone, the
+# latent-attention head of 512 latents and 8 heads x 4,096), the backbone cut
+# to NV_LAYERS of its 32 layers: the head, which runs the kernels, is whole.
+NV_EMBED_HF = {
+    "architectures": ["NVEmbedModel"],
+    "text_config": {
+        "architectures": ["MistralModel"], "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+        "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8, "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0, "sliding_window": 4096, "max_position_embeddings": 32768,
+    },
+    "latent_attention_config": {"num_latents_value": 512, "num_cross_heads": 8, "cross_dim_head": 4096, "latent_dim": 4096},
+}
+NV_LAYERS, NV_NEWS, NV_BATCH = 2, 4096, 128
+STORE_SUBSET = 8_192  # 10c's news built in RAM and to disk, to split a build's time
+
+
+class TimedTokenizer:
+    """A tokenizer that keeps the host seconds and the arrays of each call."""
+
+    def __init__(self, tok):
+        self.tok, self.seconds, self.outputs = tok, [], []
+
+    def __call__(self, texts, max_length=None):
+        t0 = time.perf_counter()
+        out = self.tok(texts, max_length)
+        self.seconds.append(time.perf_counter() - t0)
+        self.outputs.append(out)
+        return out
+
+
+def news_texts(n: int, seed: int) -> list[str]:
+    """MIND-like title-only news: "Title: " and 12-32 words drawn from a
+    20,000-word vocabulary, 15-35 tokens with BOS and EOS."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(12, 33, size=n)
+    words = rng.integers(0, 20_000, size=int(counts.sum()))
+    ends = np.cumsum(counts)
+    return ["Title: " + " ".join(f"w{w}" for w in words[e - c : e]) for c, e in zip(counts, ends)]
+
+
+def mixed_texts(n: int, seed: int) -> list[str]:
+    """n news of mixed lengths, 1 to about 120 words."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{w}" for w in rng.integers(0, 20_000, size=int(c))) for c in np.linspace(1, 120, n)]
+
+
+def cpu_copy(enc: NewsEncoder) -> NewsEncoder:
+    """The encoder's float32 twin on the CPU (no init of its own: built on
+    the meta device, the card's tensors assigned)."""
+    with torch.device("meta"):
+        cpu = NewsEncoder(enc.config)
+    cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()}, assign=True)
+    return cpu.eval()
+
+
+def retyped(enc: NewsEncoder, compute_dtype: str) -> NewsEncoder:
+    """The same weights (shared, not copied) computing in ``compute_dtype``."""
+    with torch.device("meta"):
+        other = NewsEncoder(dataclasses.replace(enc.config, compute_dtype=compute_dtype))
+    other.load_state_dict(enc.state_dict(), assign=True)
+    return other.eval()
+
+
+def card_vs_cpu(part: str, enc32: NewsEncoder, texts: list[str], tok) -> None:
+    """The float32 encoder on the card and on the CPU, and in bfloat16 on the
+    card, over ``texts`` (trimmed to their longest): pooled vectors and
+    hidden states norm-relative to the CPU's float32, the pooled vectors'
+    norms."""
+    ids, mask = tok(texts)
+    w = int(mask.sum(1).max())
+    ids, mask = torch.from_numpy(ids[:, :w]), torch.from_numpy(mask[:, :w])
+    t0 = time.perf_counter()
+    cpu = cpu_copy(enc32)
+    with torch.no_grad():
+        want = cpu(ids, mask), cpu.hidden_states(ids, mask)
+    cpu_seconds = time.perf_counter() - t0
+    del cpu
+    errs = {}
+    for name, enc in (("float32", enc32), ("bfloat16", retyped(enc32, "bfloat16"))):
+        with torch.no_grad():
+            got = enc(ids.cuda(), mask.cuda()).cpu(), enc.hidden_states(ids.cuda(), mask.cuda()).cpu()
+        live = mask.bool()
+        errs[name] = dict(pooled=norm_rel(got[0], want[0]), hidden=norm_rel(got[1][live], want[1][live]),
+                          norm_gap=(got[0].norm(dim=-1) - 1).abs().max().item(),
+                          finite=bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()))
+    part_line(part, check="card vs CPU", news=len(texts), tokens=int(mask.sum()), width=w, cpu_seconds=cpu_seconds,
+              errors=errs, tol={"float32": ENC_F32_TOL, "bfloat16": ENC_BF16_TOL})
+    ok = all(e["finite"] and e["norm_gap"] <= 1e-5 for e in errs.values())
+    ok &= max(errs["float32"]["pooled"], errs["float32"]["hidden"]) <= ENC_F32_TOL
+    ok &= max(errs["bfloat16"]["pooled"], errs["bfloat16"]["hidden"]) <= ENC_BF16_TOL
+    if not ok:
+        raise AssertionError(f"{part}: the card and the CPU disagree: {errs}")
+
+
+def encoder_e5_phase() -> tuple[NewsEncoder, object]:
+    """10a: e5-large at full width and depth (24 layers, D=1,024, 16 heads,
+    FFN 4,096, vocab 250,002) from build_encoder with seeded weights and a
+    HashTokenizer: 16 news of mixed lengths on the card against the CPU
+    (float32, and the card in bfloat16), then the bucketed encode against
+    the fixed-width one on the card in float32. Returns the bfloat16
+    encoder (EncoderConfig's default) and the tokenizer."""
+    t0 = time.perf_counter()
+    enc32, tok = build_encoder(encoder_config=EncoderConfig(), max_length=ENC_MAX_LENGTH,
+                               compute_dtype="float32", seed=SEED, device="cuda")
+    built = time.perf_counter() - t0
+    params = sum(p.numel() for p in enc32.parameters())
+    part_line("10a", config=dataclasses.asdict(enc32.config), params=params, build_seconds=built)
+    texts = mixed_texts(16, SEED + 10)
+    card_vs_cpu("10a", enc32, texts, tok)
+    ids, mask = tok(texts)
+    fixed = encode_corpus(enc32, ids, mask, batch_size=16, device="cuda")
+    bucketed = encode_corpus_bucketed(enc32, ids, mask, batch_size=None, device="cuda")
+    gap = norm_rel(bucketed, fixed)
+    part_line("10a", check="bucketed vs fixed width", lengths=sorted({int(x) for x in mask.sum(1)}), norm_rel=gap,
+              tol=ENC_F32_TOL)
+    if not gap <= ENC_F32_TOL:
+        raise AssertionError(f"10a: the bucketed encode differs from the fixed-width one by {gap}")
+    return retyped(enc32, "bfloat16"), tok
+
+
+def bucket_batches(enc: NewsEncoder, mask: np.ndarray) -> list[tuple[int, int, int]]:
+    """(width, rows, batch) of each length bucket encode_corpus_bucketed
+    runs with batch_size=None, as it picks them."""
+    lens = mask.sum(1)
+    widths = tuple(b for b in TOKEN_BUCKETS if b < mask.shape[1]) + (mask.shape[1],)
+    assignment = np.searchsorted(np.asarray(widths), lens, side="left")
+    out = []
+    for bi, w in enumerate(widths):
+        rows = int((assignment == bi).sum())
+        if rows:
+            bs = min(max(1024, 131072 // w), estimate_encoder_batch(enc.config, length=w, device="cuda"))
+            out.append((w, rows, max(8, min(bs, 1 << (rows - 1).bit_length()))))
+    return out
+
+
+def corpus_phase(enc: NewsEncoder, tok, texts: list[str]) -> tuple:
+    """10b: encode_query_and_passage over the corpus at max_length 128 with
+    the buckets and the memory model's batch, bfloat16, as save_emb runs it:
+    the host's tokenisation apart, padded tokens a real one, the peak memory
+    against the memory model; then the passage and the query encodes timed
+    apart (news/s, real tokens/s; the same vectors to the bit), and one
+    profiled bucket. Returns the passage tokens."""
+    timed_tok = TimedTokenizer(tok)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    query, passage = encode_query_and_passage(enc, timed_tok, texts, QUERY_INSTRUCTION, batch_size=None,
+                                              buckets=TOKEN_BUCKETS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    tokens = dict(zip(("passage", "query"), timed_tok.outputs))
+    plans = {name: bucket_batches(enc, m) for name, (_, m) in tokens.items()}
+    real = {name: int(m.sum()) for name, (_, m) in tokens.items()}
+    padded = {name: sum(-(-r // b) * b * w for w, r, b in plan) for name, plan in plans.items()}
+    model = max(encoder_activation_bytes(enc.config, b, w) for plan in plans.values() for w, _, b in plan)
+    rates = {}
+    for name, (ids, mask), again in (("passage", tokens["passage"], passage), ("query", tokens["query"], query)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode_corpus_bucketed(enc, ids, mask, batch_size=None, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rates[name] = dict(seconds=seconds, news_per_s=len(texts) / seconds, real_tokens_per_s=real[name] / seconds,
+                           same_bits=bool(torch.equal(out, again)))
+        del out
+    w, rows, bs = plans["passage"][0]
+    ids, mask = tokens["passage"]
+    first = np.nonzero(mask.sum(1) <= w)[0]
+    prof = profile_call(f"passage bucket of width {w} ({rows} news, batch {bs})", lambda: encode_corpus(
+        enc, ids[first, :w], mask[first, :w], batch_size=bs, device="cuda"))
+    norms = passage.norm(dim=-1)
+    part_line(
+        "10b", news=len(texts), max_length=ENC_MAX_LENGTH, wall_seconds=wall,
+        tokenize_seconds={"passage": timed_tok.seconds[0], "query": timed_tok.seconds[1]},
+        encode_seconds=wall - sum(timed_tok.seconds), buckets=plans, real_tokens=real,
+        padded_tokens_per_real={k: padded[k] / real[k] for k in real}, apart=rates,
+        busy_share_of_one_bucket=prof["busy_ms"] / prof["wall_ms"], peak_gb=peak / 1e9,
+        model_gb_at_largest_batch=model / 1e9,
+    )
+    ok = query.shape == passage.shape == (len(texts), DIM) and bool(torch.isfinite(query).all())
+    ok &= (norms - 1).abs().max().item() <= 1e-3 and all(r["same_bits"] for r in rates.values())
+    if not ok:
+        raise AssertionError(f"10b: tables {tuple(query.shape)} {tuple(passage.shape)}, norms, or {rates}")
+    return tokens["passage"]
+
+
+def token_store_phase(enc: NewsEncoder, ids: np.ndarray, mask: np.ndarray, work_dir: Path) -> None:
+    """10c: build_token_store over the corpus's passages, float16, streamed
+    into a directory (news/s, GB written; the first STORE_SUBSET news also
+    in RAM and to disk apart, news/s each); 32 stored rows about the bucket
+    boundary held against NewsEncoder.hidden_states trimmed: recomputed in
+    the batch the store ran them in (float16 rounding apart) and alone at
+    their own bucket width (the bfloat16 tolerance); then run_config2 for one
+    epoch on the store, as 9e. The directory is deleted at the end."""
+    out_dir = work_dir / "text_token_store"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    batch = 64
+    # Where a build's time goes: the first STORE_SUBSET news in RAM and to disk.
+    subset = {}
+    for route, target in (("ram", None), ("disk", work_dir / "text_token_store_subset")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_token_store(enc, ids[:STORE_SUBSET], mask[:STORE_SUBSET], batch_size=batch, out_dir=target,
+                          store_dtype=np.float16, device="cuda")
+        subset[route] = STORE_SUBSET / (time.perf_counter() - t0)
+        if target is not None:
+            shutil.rmtree(target)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = build_token_store(enc, ids, mask, batch_size=batch, out_dir=out_dir, store_dtype=np.float16,
+                              device="cuda")
+    seconds = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in out_dir.iterdir())
+    lens = mask.sum(1)
+    widths = tuple(b for b in TOKEN_BUCKETS if b < mask.shape[1]) + (mask.shape[1],)
+    assignment = np.searchsorted(np.asarray(widths), lens, side="left")
+    order = np.argsort(assignment, kind="stable")  # the store's row order
+    edge = int((assignment == 0).sum())  # where the first bucket ends in it
+    positions = range(edge - 16, edge + 16)
+    same = {}  # the store's batches about the edge, recomputed as it ran them
+    for bi in sorted({q // batch for q in positions}):
+        rows = order[bi * batch : (bi + 1) * batch]
+        w = int(widths[assignment[rows].max()])
+        block = [np.pad(a[rows, :w], ((0, batch - len(rows)), (0, 0))) for a in (ids, mask)]
+        with torch.no_grad():
+            same[bi] = enc.hidden_states(*(torch.from_numpy(b).cuda() for b in block)).cpu()
+    batch_err, alone_err = 0.0, 0.0
+    for q in positions:
+        r = order[q]
+        stored = torch.from_numpy(np.asarray(store.states[store.offsets[r] : store.offsets[r + 1]], np.float32))
+        want = same[q // batch][q % batch, : lens[r]]
+        batch_err = max(batch_err, ((stored - want).abs() - 2.0**-11 * want.abs()).max().item())
+        wr = int(widths[assignment[r]])
+        with torch.no_grad():
+            alone = enc.hidden_states(*(torch.from_numpy(a[r : r + 1, :wr]).cuda() for a in (ids, mask)))
+        alone_err = max(alone_err, norm_rel(stored, alone[0, : lens[r]].cpu()))
+    part_line(
+        "10c", news=store.num_items, tokens=int(store.offsets[-1]), batch=batch, seconds=seconds,
+        news_per_s=store.num_items / seconds, gb_written=written / 1e9, store_dtype="float16",
+        subset_news_per_s={"news": STORE_SUBSET, **subset},
+        checked_rows=len(positions), bucket_edge=edge,
+        widths_checked=sorted({int(widths[assignment[order[q]]]) for q in positions}),
+        batch_excess_over_float16_rounding=batch_err, alone_norm_rel=alone_err, alone_tol=ENC_BF16_TOL,
+    )
+    if not (batch_err <= 1e-6 and alone_err <= ENC_BF16_TOL
+            and np.array_equal(store.offsets, np.concatenate([[0], np.cumsum(lens)]))):
+        raise AssertionError(f"10c: stored rows differ: batch {batch_err}, alone {alone_err}")
+    del same
+    e2e_config2_phase(store, part="10c")
+    del store
+    shutil.rmtree(out_dir)
+
+
+def nv_embed_phase(texts: list[str]) -> dict:
+    """10d: NV-Embed's layout at its published widths (a Mistral-7B backbone
+    cut to NV_LAYERS layers, printed as reduced; the head of 512 latents and
+    8 heads x 4,096 whole): 8 news on the card against the CPU, then
+    encode_corpus_bucketed over NV_NEWS news at batch NV_BATCH in bfloat16
+    (the head in float32) with the launch counts set to 0 just before and
+    read just after: news/s, both kernels launched."""
+    cfg = encoder_config_from_hf(NV_EMBED_HF, num_layers=NV_LAYERS)
+    t0 = time.perf_counter()
+    enc32, tok = build_encoder(encoder_config=cfg, max_length=ENC_MAX_LENGTH, compute_dtype="float32",
+                               seed=SEED + 11, device="cuda")
+    built = time.perf_counter() - t0
+    part_line("10d", config=dataclasses.asdict(cfg), params=sum(p.numel() for p in enc32.parameters()),
+              build_seconds=built, reduced={"num_layers": [NV_LAYERS, NV_EMBED_HF["text_config"]["num_hidden_layers"]]})
+    card_vs_cpu("10d", enc32, texts[:8], tok)
+    enc = retyped(enc32, cfg.compute_dtype)
+    ids, mask = tok(texts[:NV_NEWS])
+    encode_corpus_bucketed(enc, ids[:NV_BATCH], mask[:NV_BATCH], batch_size=NV_BATCH, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = encode_corpus_bucketed(enc, ids, mask, batch_size=NV_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    shapes = {k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+              for k, v in KERNELS.items()}
+    gap = (out.norm(dim=-1) - 1).abs().max().item()
+    part_line("10d", news=NV_NEWS, batch=NV_BATCH, seconds=seconds, news_per_s=NV_NEWS / seconds,
+              real_tokens=int(mask.sum()), peak_gb_with_weights=torch.cuda.max_memory_allocated() / 1e9,
+              launches=launches,
+              shapes={k: {str(s[0]): n for s, n in c.items()} for k, c in shapes.items()}, norm_gap=gap)
+    heads = {(b, 8, l, 512, 4096) for (b, h, l, n, dh), _ in shapes["latent_attention"]}
+    if not (min(launches.values()) >= 1 and torch.isfinite(out).all() and gap <= 1e-3
+            and {s[0] for s in shapes["latent_attention"]} <= heads
+            and all(s[0][1:] == (4096, 16384) for s in shapes["geglu"])):
+        raise AssertionError(f"10d: launches {launches}, shapes {shapes}, norms {gap}")
+    return dict(launches=launches, shapes=shapes)
+
+
+def encoder_phase(work_dir: Path) -> dict:
+    """Phase 10 (10a-10d), each part's wall time printed; returns the
+    kernels' launches and shapes on 10d's encode."""
+    seconds = {}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    resolve_device("cuda")
+    enc, tok = timed("10a", encoder_e5_phase)
+    texts = news_texts(NUM_NEWS, SEED + 12)
+    ids, mask = timed("10b", corpus_phase, enc, tok, texts)
+    timed("10c", token_store_phase, enc, ids, mask, work_dir)
+    del enc
+    counts = timed("10d", nv_embed_phase, texts)
+    log(json.dumps({"part": "10 wall seconds", **seconds}))
+    return counts
 
 
 def main() -> int:
@@ -2240,6 +2604,12 @@ def main() -> int:
     log("  the kernels vs their plain versions at every shape the e2e steps and run_config2's eval launched them at:")
     records["e2e_train"] = (main_path_phase(e2e["train"]["shapes"], gen, path="e2e train"), e2e["train"]["launches"])
     records["e2e_eval"] = (main_path_phase(e2e["eval"]["shapes"], gen, path="e2e eval"), e2e["eval"]["launches"])
+
+    log("phase 10 the news encoder (e5-large, NV-Embed) and corpus encoding at full width " + since(t_start))
+    encoded = encoder_phase(work_dir)
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape NV-Embed's head launched them at:")
+    records["encoder"] = (main_path_phase(encoded["shapes"], gen, path="encoder"), encoded["launches"])
 
     kernels = [
         {

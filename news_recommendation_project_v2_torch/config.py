@@ -1,10 +1,23 @@
-"""Constants, the user-tower configuration and the training settings (the
-port's own copy)."""
+"""Constants, the news-encoder and user-tower configurations and the training
+settings (the port's own copy)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+# The news encoder: intfloat/multilingual-e5-large-instruct, its token cap,
+# and the e5 instruction prompts (query side; the classification prompt).
+MODEL_PATH = "intfloat/multilingual-e5-large-instruct"
+NEWS_TEXT_MAXLEN = 512
+NEWS_CLASSIFICATION_PROMPT = (
+    "Please analyze the following news article to inform if the user would read "
+    "the following news article.\nThe news article is: "
+)
+QUERY_INSTRUCTION = (
+    "Instruct: Given a news article that the user has read, retrieve news articles "
+    "that the user would also read \nQuery: "
+)
 
 EMBEDDING_DIM = 1024
 REDUCED_DIM = EMBEDDING_DIM
@@ -97,3 +110,41 @@ def tower_kwargs_for_dim(dim: Optional[int]) -> dict:
         num_latents=min(64, dim),
         latent_dim_head=max(8, dim // 2),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """The news text encoder. Defaults: e5-large (a 24-layer XLM-R-large),
+    mean pooling, L2-normalised, float32 parameters computing in bfloat16.
+
+    ``arch="bert"`` is the post-norm BERT/XLM-R layout; ``arch="qwen2"`` the
+    decoder layout of Qwen2, Mistral and Llama (rotary positions, RMSNorm,
+    grouped-query attention, SiLU-gated MLP, a causal mask), q/k/v biased by
+    ``qkv_bias``. NV-Embed's wrapper is two switches over that layout:
+    ``bidirectional`` drops the causal half of the mask, and ``latent_pool``
+    pools with the latent-attention tower (``latent_pool_num_latents``
+    latents, ``latent_pool_heads`` heads of ``latent_pool_dim_head``) instead
+    of ``pooling``."""
+
+    vocab_size: int = 250002
+    hidden_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_dim: int = 4096
+    max_position: int = 514
+    layer_norm_eps: float = 1e-5
+    pooling: str = "mean"  # mean | first | last
+    normalize: bool = True
+    max_length: int = NEWS_TEXT_MAXLEN
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    arch: str = "bert"  # bert | qwen2
+    num_kv_heads: Optional[int] = None  # None: num_heads
+    head_dim: Optional[int] = None  # None: hidden_dim // num_heads
+    rope_theta: float = 10000.0
+    qkv_bias: bool = True
+    bidirectional: bool = False
+    latent_pool: bool = False
+    latent_pool_num_latents: int = 512
+    latent_pool_heads: int = 8
+    latent_pool_dim_head: int = 4096

@@ -22,6 +22,11 @@ package's ``{"token_encoder": ..., "tower": ...}`` params:
 ``e2e_params_from_state_dict`` maps a ``state_dict`` back (the port's copy of
 the JAX package's ``convert_token_attention_pool`` and
 ``convert_latent_attention``).
+
+The news encoder's ``state_dict`` uses HF's names: ``encoder_state_dict_from_jax``
+is the inverse of the JAX package's ``convert_hf_state_dict``, and
+``encoder_state_dict_from_hf`` readies an HF checkpoint for
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from ..config import TowerConfig
+from ..config import EncoderConfig, TowerConfig
 from .attention import INTERMEDIATE_SIZE
 
 StateDict = dict[str, torch.Tensor]
@@ -356,3 +361,149 @@ def e2e_params_from_state_dict(sd: Mapping[str, Any]) -> dict:
         "cross_ff": {"proj_in": _get_dense(sd, f"{ff}.fn.net.0"), "proj_out": _get_dense(sd, f"{ff}.fn.net.2")},
     }
     return {"token_encoder": {"params": {"encoder": encoder}}, "tower": {"params": tower}}
+
+
+# -- the news encoder ------------------------------------------------------------
+
+
+def random_encoder_params(cfg: EncoderConfig, seed: int) -> dict:
+    """A ``NewsEncoder`` of ``cfg``'s layout and widths in the JAX package's
+    layout, from ``np.random.default_rng(seed)``: embeddings N(0, 1), the
+    ``latent_pool`` head (if any) as ``random_latent_params`` draws it."""
+    w = _Draw(np.random.default_rng(seed))
+    d, f = cfg.hidden_dim, cfg.intermediate_dim
+    p: dict[str, Any] = {"word_embeddings": {"embedding": w.normal(cfg.vocab_size, d)}}
+    if cfg.arch == "qwen2":
+        hd = cfg.head_dim or d // cfg.num_heads
+        h, kv = cfg.num_heads, cfg.num_kv_heads or cfg.num_heads
+
+        def rms():
+            return {"scale": 1.0 + w.normal(d, scale=0.1)}
+
+        for i in range(cfg.num_layers):
+            p[f"layer_{i}"] = {
+                "input_norm": rms(),
+                "q_proj": w.dense(d, h * hd, bias=cfg.qkv_bias),
+                "k_proj": w.dense(d, kv * hd, bias=cfg.qkv_bias),
+                "v_proj": w.dense(d, kv * hd, bias=cfg.qkv_bias),
+                "o_proj": w.dense(h * hd, d, bias=False),
+                "post_attn_norm": rms(),
+                "gate_proj": w.dense(d, f, bias=False),
+                "up_proj": w.dense(d, f, bias=False),
+                "down_proj": w.dense(f, d, bias=False),
+            }
+        p["final_norm"] = rms()
+    else:
+        p["position_embeddings"] = {"embedding": w.normal(cfg.max_position, d)}
+        p["token_type_embeddings"] = {"embedding": w.normal(1, d)}
+        p["embeddings_norm"] = w.ln(d)
+        for i in range(cfg.num_layers):
+            p[f"layer_{i}"] = {
+                "q": w.dense(d, d), "k": w.dense(d, d), "v": w.dense(d, d),
+                "attn_out": w.dense(d, d), "attn_norm": w.ln(d),
+                "ffn_in": w.dense(d, f), "ffn_out": w.dense(f, d), "ffn_norm": w.ln(d),
+            }
+    if cfg.latent_pool:
+        head = TowerConfig(
+            reduced_dim=d, num_heads=cfg.latent_pool_heads, num_latents=cfg.latent_pool_num_latents,
+            latent_dim_head=cfg.latent_pool_dim_head,
+        )
+        p["latent_pool"] = random_latent_params(w.rng, head)["params"]
+    return {"params": p}
+
+
+def encoder_state_dict_from_jax(params: Mapping[str, Any], cfg: EncoderConfig) -> StateDict:
+    """The JAX package's ``NewsEncoder`` params -> the port's ``state_dict``
+    (HF names; the head under ``latent_pool.``): the inverse of the JAX
+    package's ``convert_hf_state_dict``."""
+    p = _params(params)
+    sd: StateDict = {}
+    if cfg.arch == "qwen2":
+        sd["embed_tokens.weight"] = _t(p["word_embeddings"]["embedding"])
+        sd["norm.weight"] = _t(p["final_norm"]["scale"])
+        names = {
+            "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+            "o_proj": "self_attn.o_proj", "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+            "down_proj": "mlp.down_proj",
+        }
+        for i in range(cfg.num_layers):
+            layer, prefix = p[f"layer_{i}"], f"layers.{i}"
+            sd[f"{prefix}.input_layernorm.weight"] = _t(layer["input_norm"]["scale"])
+            sd[f"{prefix}.post_attention_layernorm.weight"] = _t(layer["post_attn_norm"]["scale"])
+            for ours, theirs in names.items():
+                _put_dense(sd, f"{prefix}.{theirs}", layer[ours])
+    else:
+        for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+            sd[f"embeddings.{name}.weight"] = _t(p[name]["embedding"])
+        _put_ln(sd, "embeddings.LayerNorm", p["embeddings_norm"])
+        names = {
+            "q": "attention.self.query", "k": "attention.self.key", "v": "attention.self.value",
+            "attn_out": "attention.output.dense", "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
+        }
+        for i in range(cfg.num_layers):
+            layer, prefix = p[f"layer_{i}"], f"encoder.layer.{i}"
+            for ours, theirs in names.items():
+                _put_dense(sd, f"{prefix}.{theirs}", layer[ours])
+            _put_ln(sd, f"{prefix}.attention.output.LayerNorm", layer["attn_norm"])
+            _put_ln(sd, f"{prefix}.output.LayerNorm", layer["ffn_norm"])
+    if cfg.latent_pool:
+        sd.update(_with_prefix("latent_pool.", latent_state_dict_from_jax(p["latent_pool"])))
+    return sd
+
+
+def _strip(state: Mapping[str, Any], prefix: str) -> dict:
+    return {k[len(prefix) :]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def encoder_state_dict_from_hf(state: Mapping[str, Any], cfg: EncoderConfig) -> StateDict:
+    """An HF checkpoint's state dict (``load_hf_weights``) -> the keys of
+    ``NewsEncoder(cfg)``, for ``load_state_dict``: a task prefix stripped
+    (``roberta.``, ``bert.`` or ``model.``); an NV-Embed checkpoint split
+    into its backbone (``embedding_model.``) and its head
+    (``latent_attention_model.`` -> ``latent_pool.``); keys the encoder has
+    no use for (a pooler, an ``lm_head``, position-id buffers) dropped.
+    Raises, as the JAX package's converter does, when the checkpoint's
+    NV-Embed head or its q/k/v biases disagree with ``cfg``; a missing
+    tensor raises in ``load_state_dict``."""
+    from .news_encoder import NewsEncoder
+
+    state = dict(state)
+    head = None
+    if cfg.arch == "qwen2":
+        if any(k.startswith("embedding_model.") for k in state):
+            head = _strip(state, "latent_attention_model.")
+            state = _strip(state, "embedding_model.")
+        if head is not None or cfg.latent_pool:
+            if not head:
+                raise ValueError(
+                    "EncoderConfig.latent_pool is set but the checkpoint has no "
+                    "latent_attention_model.* tensors — is this really an "
+                    "NV-Embed-layout checkpoint?"
+                )
+            if not cfg.latent_pool:
+                raise ValueError(
+                    "checkpoint carries an NV-Embed latent_attention_model head "
+                    "but EncoderConfig.latent_pool is False; derive the config "
+                    "with encoder_config_from_hf on the checkpoint's config.json "
+                    "(architectures=['NVEmbedModel'] sets latent_pool and "
+                    "bidirectional)"
+                )
+        if any(k.startswith("model.") for k in state):
+            state = _strip(state, "model.")
+        has_bias = "layers.0.self_attn.q_proj.bias" in state
+        if has_bias != cfg.qkv_bias:
+            raise ValueError(
+                f"checkpoint qkv bias presence ({has_bias}) does not match "
+                f"EncoderConfig.qkv_bias ({cfg.qkv_bias}); set "
+                "EncoderConfig(qkv_bias=...) to match the checkpoint (HF config "
+                "field: attention_bias)"
+            )
+        state.update(_with_prefix("latent_pool.", head or {}))
+    else:
+        for prefix in ("roberta.", "bert.", "model."):
+            if any(k.startswith(prefix + "embeddings.") for k in state):
+                state = _strip(state, prefix)
+                break
+    with torch.device("meta"):
+        wanted = NewsEncoder(cfg).state_dict().keys()
+    return {k: torch.as_tensor(state[k]) for k in wanted if k in state}

@@ -1,0 +1,507 @@
+"""The news-text encoder: text token ids -> pooled, L2-normalised news
+vectors, or per-token hidden states for the token store.
+
+Two layouts, chosen by ``EncoderConfig.arch``:
+
+- ``"bert"``: the post-norm BERT/XLM-R encoder of the e5 family (learned
+  RoBERTa positions, one token-type row, exact GELU);
+- ``"qwen2"``: the decoder layout that Qwen2, Mistral and Llama share
+  (rotate-half rotary positions, RMSNorm, grouped-query attention, a
+  SiLU-gated MLP, a causal mask); q/k/v carry biases by ``qkv_bias``.
+  NV-Embed is this layout with ``bidirectional`` (a padding-only mask) and
+  ``latent_pool`` (the latent-attention tower as the pooling head, whose
+  cross-attention and GEGLU run through the port's two CUDA kernels).
+
+Parameter names are HuggingFace's (``XLMRobertaModel``/``BertModel``,
+``Qwen2Model``/``MistralModel``/``LlamaModel``; the head under
+``latent_pool.``), so a checkpoint's state dict loads through
+``load_state_dict`` once ``models.convert.encoder_state_dict_from_hf`` has
+stripped its task prefixes. Matmuls run in ``compute_dtype``; LayerNorm,
+RMSNorm and the softmaxes compute in float32; hidden states leave in
+float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import struct
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import EncoderConfig
+from . import DTYPES
+from .latent_attention import LatentAttentionTower
+from .pooling import POOLING
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on x in x's type (the compute type)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps)
+    return y.to(dtype)
+
+
+def _attention(q, k, v, bias: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + bias) v over [B, H, T, hd] blocks; the
+    logits in the compute type, the softmax in float32."""
+    logits = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    probs = torch.softmax((logits + bias.to(logits.dtype)).float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+class EncoderLayer(nn.Module):
+    """A post-norm BERT/XLM-R block: self-attention, residual, LayerNorm; an
+    exact-GELU MLP, residual, LayerNorm."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, intermediate_dim: int, eps: float):
+        super().__init__()
+        self.num_heads = num_heads
+        d = hidden_dim
+        self.attention = nn.ModuleDict(
+            {
+                "self": nn.ModuleDict({"query": nn.Linear(d, d), "key": nn.Linear(d, d), "value": nn.Linear(d, d)}),
+                "output": nn.ModuleDict({"dense": nn.Linear(d, d), "LayerNorm": nn.LayerNorm(d, eps=eps)}),
+            }
+        )
+        self.intermediate = nn.ModuleDict({"dense": nn.Linear(d, intermediate_dim)})
+        self.output = nn.ModuleDict({"dense": nn.Linear(intermediate_dim, d), "LayerNorm": nn.LayerNorm(d, eps=eps)})
+
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """hidden [B, T, D] in the compute type; bias [B, 1, 1, T] additive."""
+        b, t, d = hidden.shape
+        sa, out = self.attention["self"], self.attention["output"]
+
+        def split(x):
+            return x.view(b, t, self.num_heads, -1).transpose(1, 2)
+
+        q, k, v = (split(_linear(sa[n], hidden)) for n in ("query", "key", "value"))
+        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, d)
+        hidden = _layer_norm(out["LayerNorm"], hidden + _linear(out["dense"], ctx), hidden.dtype)
+        inter = F.gelu(_linear(self.intermediate["dense"], hidden))
+        ffn = _linear(self.output["dense"], inter)
+        return _layer_norm(self.output["LayerNorm"], hidden + ffn, hidden.dtype)
+
+
+class RMSNorm(nn.Module):
+    """``x / sqrt(mean(x^2) + eps) * weight`` in float32, returned in x's type."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps) * self.weight.float()
+        return y.to(x.dtype)
+
+
+def rope_cos_sin(t: int, head_dim: int, theta: float, dtype: torch.dtype, device) -> tuple:
+    """Rotate-half rotary tables [T, head_dim] for positions 0..T-1: the
+    frequency vector repeated twice (HF's convention, not interleaved),
+    computed in float32 and cast to ``dtype``."""
+    inv_freq = 1.0 / theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    freqs = torch.arange(t, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+class DecoderLayer(nn.Module):
+    """A pre-norm Qwen2/Mistral/Llama block: RMSNorm, grouped-query attention
+    with rotary positions (q/k/v biased by ``qkv_bias``, o without),
+    residual; RMSNorm, ``down(silu(gate(x)) * up(x))`` without biases,
+    residual."""
+
+    def __init__(
+        self, hidden_dim: int, num_heads: int, num_kv_heads: int, head_dim: int, intermediate_dim: int,
+        eps: float, qkv_bias: bool,
+    ):
+        super().__init__()
+        self.num_heads, self.num_kv_heads, self.head_dim = num_heads, num_kv_heads, head_dim
+        d, h, kv, hd = hidden_dim, num_heads, num_kv_heads, head_dim
+        self.input_layernorm = RMSNorm(d, eps)
+        self.self_attn = nn.ModuleDict(
+            {
+                "q_proj": nn.Linear(d, h * hd, bias=qkv_bias),
+                "k_proj": nn.Linear(d, kv * hd, bias=qkv_bias),
+                "v_proj": nn.Linear(d, kv * hd, bias=qkv_bias),
+                "o_proj": nn.Linear(h * hd, d, bias=False),
+            }
+        )
+        self.post_attention_layernorm = RMSNorm(d, eps)
+        self.mlp = nn.ModuleDict(
+            {
+                "gate_proj": nn.Linear(d, intermediate_dim, bias=False),
+                "up_proj": nn.Linear(d, intermediate_dim, bias=False),
+                "down_proj": nn.Linear(intermediate_dim, d, bias=False),
+            }
+        )
+
+    def forward(self, hidden, cos, sin, bias) -> torch.Tensor:
+        """hidden [B, T, D] in the compute type; cos, sin [T, head_dim];
+        bias [B, 1, T, T] additive."""
+        b, t, _ = hidden.shape
+        h, kv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        attn, mlp = self.self_attn, self.mlp
+        x = self.input_layernorm(hidden)
+        q = _linear(attn["q_proj"], x).view(b, t, h, hd).transpose(1, 2)
+        k = _linear(attn["k_proj"], x).view(b, t, kv, hd).transpose(1, 2)
+        v = _linear(attn["v_proj"], x).view(b, t, kv, hd).transpose(1, 2)
+        q = q * cos + rotate_half(q) * sin
+        k = k * cos + rotate_half(k) * sin
+        if kv != h:  # each kv head serves h // kv query heads in a row
+            k = k.repeat_interleave(h // kv, dim=1)
+            v = v.repeat_interleave(h // kv, dim=1)
+        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, h * hd)
+        hidden = hidden + _linear(attn["o_proj"], ctx)
+        x = self.post_attention_layernorm(hidden)
+        return hidden + _linear(mlp["down_proj"], F.silu(_linear(mlp["gate_proj"], x)) * _linear(mlp["up_proj"], x))
+
+
+class NewsEncoder(nn.Module):
+    """Token ids [B, T] and mask [B, T] -> pooled news vectors [B, D]
+    (``forward``) or per-token states [B, T, D] (``hidden_states``), both
+    float32. Padded positions (mask 0) never change a real token's state; a
+    fully padded row stays finite."""
+
+    def __init__(self, config: EncoderConfig = EncoderConfig()):
+        super().__init__()
+        self.config = cfg = config
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
+        d = cfg.hidden_dim
+        if cfg.arch == "qwen2":
+            self.head_dim = cfg.head_dim or d // cfg.num_heads
+            kv = cfg.num_kv_heads or cfg.num_heads
+            self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
+            self.layers = nn.ModuleList(
+                DecoderLayer(d, cfg.num_heads, kv, self.head_dim, cfg.intermediate_dim, cfg.layer_norm_eps, cfg.qkv_bias)
+                for _ in range(cfg.num_layers)
+            )
+            self.norm = RMSNorm(d, cfg.layer_norm_eps)
+        elif cfg.arch == "bert":
+            self.embeddings = nn.ModuleDict(
+                {
+                    "word_embeddings": nn.Embedding(cfg.vocab_size, d),
+                    "position_embeddings": nn.Embedding(cfg.max_position, d),
+                    "token_type_embeddings": nn.Embedding(1, d),
+                    "LayerNorm": nn.LayerNorm(d, eps=cfg.layer_norm_eps),
+                }
+            )
+            self.encoder = nn.ModuleDict(
+                {
+                    "layer": nn.ModuleList(
+                        EncoderLayer(d, cfg.num_heads, cfg.intermediate_dim, cfg.layer_norm_eps)
+                        for _ in range(cfg.num_layers)
+                    )
+                }
+            )
+        else:
+            raise ValueError(f"unknown encoder arch {cfg.arch!r}")
+        if cfg.latent_pool:
+            # NV-Embed's pooling head: the user tower's module, float32, no
+            # normalisation of its own (the encoder's epilogue normalises).
+            self.latent_pool = LatentAttentionTower(
+                dim=d,
+                num_latents=cfg.latent_pool_num_latents,
+                heads=cfg.latent_pool_heads,
+                dim_head=cfg.latent_pool_dim_head,
+                output_normalize=False,
+            )
+        self.to(DTYPES[cfg.param_dtype])
+
+    def hidden_states(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The last layer's per-token states [B, T, D], float32 (the token
+        store's content)."""
+        if self.config.arch == "qwen2":
+            return self._decoder_hidden_states(token_ids, mask)
+        cdt, emb = self.compute_dtype, self.embeddings
+        m = mask.long()
+        positions = torch.cumsum(m, dim=1) * m + 1  # RoBERTa: pads skipped, reals from 2
+        x = (
+            emb["word_embeddings"](token_ids).to(cdt)
+            + emb["position_embeddings"](positions).to(cdt)
+            + emb["token_type_embeddings"].weight[0].to(cdt)
+        )
+        hidden = _layer_norm(emb["LayerNorm"], x, cdt)
+        bias = (1.0 - mask[:, None, None, :].to(cdt)) * torch.finfo(cdt).min
+        for layer in self.encoder["layer"]:
+            hidden = layer(hidden, bias)
+        return hidden.float()
+
+    def _decoder_hidden_states(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Positions ``arange(T)`` (right padding keeps real tokens first);
+        a causal and padding mask, or padding only with ``bidirectional``, at
+        the compute type's finite min, so a fully padded row softmaxes to a
+        uniform row instead of NaN; the final RMSNorm."""
+        cfg, cdt = self.config, self.compute_dtype
+        t = token_ids.shape[1]
+        hidden = self.embed_tokens(token_ids).to(cdt)
+        cos, sin = rope_cos_sin(t, self.head_dim, cfg.rope_theta, cdt, token_ids.device)
+        keep = mask[:, None, None, :] > 0
+        if not cfg.bidirectional:
+            keep = keep & torch.ones(t, t, dtype=torch.bool, device=token_ids.device).tril()
+        bias = torch.zeros(keep.shape, dtype=torch.float32, device=token_ids.device)
+        bias.masked_fill_(~keep, torch.finfo(cdt).min)
+        for layer in self.layers:
+            hidden = layer(hidden, cos, sin, bias)
+        return self.norm(hidden).float()
+
+    def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Pooled vectors [B, D], float32: ``POOLING[config.pooling]`` or the
+        latent-attention head, then (``normalize``) the L2 norm."""
+        cfg = self.config
+        hidden = self.hidden_states(token_ids, mask)
+        if cfg.latent_pool:
+            pooled = self.latent_pool(hidden, mask.float())
+        else:
+            pooled = POOLING[cfg.pooling](hidden, mask)
+        if cfg.normalize:
+            pooled = pooled / torch.sqrt((pooled * pooled).sum(-1, keepdim=True) + 1e-12)
+        return pooled
+
+
+@torch.no_grad()
+def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
+    """Seeded random weights drawn on the encoder's own device (fast at full
+    width on the card): linear weights N(0, 1/fan_in), biases N(0, 0.02^2),
+    embeddings N(0, 1), norm scales 1 + N(0, 0.1^2) and shifts N(0, 0.1^2),
+    the head's latents N(0, 1). For tests against the JAX package use
+    ``models.convert.random_encoder_params``, which both packages load."""
+    gen = torch.Generator(device=next(encoder.parameters()).device).manual_seed(seed)
+
+    def normal_(p: torch.Tensor, scale: float, shift: float = 0.0) -> None:
+        p.copy_(torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32) * scale + shift)
+
+    for module in encoder.modules():
+        if isinstance(module, nn.Linear):
+            normal_(module.weight, module.in_features**-0.5)
+            if module.bias is not None:
+                normal_(module.bias, 0.02)
+        elif isinstance(module, nn.Embedding):
+            normal_(module.weight, 1.0)
+        elif isinstance(module, (nn.LayerNorm, RMSNorm)):
+            normal_(module.weight, 0.1, 1.0)
+            if getattr(module, "bias", None) is not None:
+                normal_(module.bias, 0.1)
+        elif isinstance(module, LatentAttentionTower):
+            normal_(module.latents, 1.0)
+    return encoder
+
+
+# ---------------------------------------------------------------------------
+# HF configs and checkpoints
+# ---------------------------------------------------------------------------
+
+# HF architectures with a layout here, and the pooling each one's embeddings
+# use (Qwen2: the last token; XLM-R (e5): the masked mean; BERT: the first).
+# Mistral and Llama share Qwen2's decoder layout without q/k/v biases.
+_SUPPORTED_ARCHS = {
+    "XLMRobertaModel": ("bert", "mean"),
+    "XLMRobertaForMaskedLM": ("bert", "mean"),
+    "BertModel": ("bert", "first"),
+    "BertForMaskedLM": ("bert", "first"),
+    "Qwen2Model": ("qwen2", "last"),
+    "Qwen2ForCausalLM": ("qwen2", "last"),
+    "MistralModel": ("qwen2", "last"),
+    "MistralForCausalLM": ("qwen2", "last"),
+    "LlamaModel": ("qwen2", "last"),
+    "LlamaForCausalLM": ("qwen2", "last"),
+}
+
+
+def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
+    """An ``EncoderConfig`` from an HF ``config.json`` dict: the layout and
+    pooling by architecture name, the widths, and for decoders the GQA,
+    rotary and bias fields. ``NVEmbedModel`` reads its Mistral backbone from
+    ``text_config`` and its head from ``latent_attention_config``, and turns
+    on ``bidirectional`` and ``latent_pool``. Raises on an unsupported
+    architecture, on ``rope_scaling`` (only plain ``rope_theta`` is
+    applied), on a ``sliding_window`` under 512 tokens (attention here is
+    always full), on an NV-Embed head whose ``latent_dim`` is not the
+    backbone's width, and on an NV-Embed config without ``text_config``."""
+    arch_name = (hf_config.get("architectures") or ["XLMRobertaModel"])[0]
+    if arch_name == "NVEmbedModel":
+        text = dict(hf_config.get("text_config") or {})
+        if not text:
+            raise ValueError(
+                "NVEmbedModel config has no text_config (the Mistral-family "
+                "backbone fields) — is this a complete NV-Embed config.json?"
+            )
+        text.setdefault("architectures", ["MistralModel"])
+        lat = hf_config.get("latent_attention_config") or {}
+        latent_dim = lat.get("latent_dim", text.get("hidden_size"))
+        if latent_dim != text.get("hidden_size"):
+            raise ValueError(
+                f"NV-Embed latent_attention latent_dim={latent_dim} != "
+                f"backbone hidden_size={text.get('hidden_size')}; the head is "
+                "residual in the token stream so these must match"
+            )
+        return encoder_config_from_hf(
+            text,
+            **{
+                "bidirectional": True,
+                "latent_pool": True,
+                "latent_pool_num_latents": lat.get("num_latents_value", lat.get("num_latents", 512)),
+                "latent_pool_heads": lat.get("num_cross_heads", lat.get("cross_heads", 8)),
+                "latent_pool_dim_head": lat.get("cross_dim_head", 4096),
+                "pooling": "mean",  # the head mean-pools over tokens itself
+                **overrides,
+            },
+        )
+    try:
+        arch, pooling = _SUPPORTED_ARCHS[arch_name]
+    except KeyError:
+        raise ValueError(
+            f"architecture {arch_name!r} is not supported; supported HF "
+            f"architectures: {sorted(_SUPPORTED_ARCHS)} (BERT/XLM-R encoder "
+            "layouts and Qwen2/Mistral/Llama-class decoder layouts)"
+        ) from None
+    if hf_config.get("rope_scaling") is not None:
+        raise ValueError(
+            f"checkpoint {arch_name!r} uses rope_scaling="
+            f"{hf_config['rope_scaling']!r}, which this rotary implementation "
+            "does not apply (plain rope_theta only) — loading it would "
+            "silently diverge from the checkpoint's positional encoding. "
+            "Llama-3.1+-style scaled-RoPE checkpoints are out of scope; "
+            "Llama/Mistral/Qwen2 checkpoints with rope_scaling null load "
+            "natively."
+        )
+    sliding = hf_config.get("sliding_window")
+    max_pos = hf_config.get("max_position_embeddings", 514)
+    if sliding is not None and sliding < min(512, max_pos):
+        raise ValueError(
+            f"checkpoint {arch_name!r} uses sliding_window={sliding} (< the "
+            "512-token news texts this framework encodes); attention here is "
+            "always full-context, so hidden states would diverge from the "
+            "checkpoint's. Windowed-attention checkpoints are out of scope."
+        )
+    cfg = EncoderConfig(
+        vocab_size=hf_config["vocab_size"],
+        hidden_dim=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        intermediate_dim=hf_config["intermediate_size"],
+        max_position=max_pos,
+        layer_norm_eps=hf_config.get("layer_norm_eps", hf_config.get("rms_norm_eps", 1e-5)),
+        pooling=pooling,
+        arch=arch,
+        num_kv_heads=hf_config.get("num_key_value_heads"),
+        head_dim=hf_config.get("head_dim"),
+        rope_theta=hf_config.get("rope_theta", 10000.0),
+        # Qwen2 always biases q/k/v (its configs predate the field);
+        # Mistral and Llama expose attention_bias, default False.
+        qkv_bias=hf_config.get("attention_bias", arch_name.startswith("Qwen2")),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+# safetensors dtype names -> torch types.
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` file's tensors in their stored types, without the
+    ``safetensors`` package: an 8-byte little-endian header length, a JSON
+    header of ``{name: {dtype, shape, data_offsets}}`` (offsets into the
+    byte buffer that follows; ``__metadata__`` skipped), then the raw
+    little-endian tensors. bfloat16 comes through ``torch.frombuffer``,
+    which numpy cannot type."""
+    with open(path, "rb") as f:
+        (size,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(size))
+        buf = bytearray(f.read())
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = meta["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[meta["dtype"]]
+        if end > begin:
+            raw = torch.frombuffer(buf, dtype=torch.uint8, count=end - begin, offset=begin).clone()
+        else:
+            raw = torch.empty(0, dtype=torch.uint8)
+        out[name] = raw.view(dtype).reshape(meta["shape"])
+    return out
+
+
+def load_hf_weights(path) -> dict[str, torch.Tensor]:
+    """An HF checkpoint's weights, floating tensors as float32: a directory
+    with ``model.safetensors``, a sharded ``model.safetensors.index.json``
+    or ``pytorch_model.bin`` (looked for in that order), or one such file.
+    ``.bin`` files load with ``torch.load(weights_only=True)``: tensors
+    only, no code."""
+    path = Path(path)
+
+    def as_float(state: dict) -> dict:
+        return {k: v.float() if v.is_floating_point() else v for k, v in state.items()}
+
+    def load_bin(f):
+        return as_float(torch.load(f, map_location="cpu", weights_only=True))
+
+    if path.is_file():
+        return as_float(read_safetensors(path)) if path.suffix == ".safetensors" else load_bin(path)
+    if (path / "model.safetensors").exists():
+        return as_float(read_safetensors(path / "model.safetensors"))
+    index = path / "model.safetensors.index.json"
+    if index.exists():
+        weight_map = json.loads(index.read_text())["weight_map"]
+        out: dict[str, torch.Tensor] = {}
+        for shard in sorted(set(weight_map.values())):
+            out.update(as_float(read_safetensors(path / shard)))
+        return out
+    if (path / "pytorch_model.bin").exists():
+        return load_bin(path / "pytorch_model.bin")
+    raise FileNotFoundError(
+        f"No weights found under {path} (looked for model.safetensors, "
+        "model.safetensors.index.json, pytorch_model.bin)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# A tokenizer for synthetic text
+# ---------------------------------------------------------------------------
+
+
+class HashTokenizer:
+    """Deterministic whitespace + hash tokenizer for tests and synthetic text
+    where no tokenizer file exists: [B, T] int32 ids and mask, BOS=0, PAD=1,
+    EOS=2, word ids md5-hashed into [3, vocab). The JAX package's, id for id."""
+
+    def __init__(self, vocab_size: int = 250002, max_length: int = 512):
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+        self.bos, self.pad, self.eos = 0, 1, 2
+
+    def _tok(self, word: str) -> int:
+        h = int.from_bytes(hashlib.md5(word.lower().encode()).digest()[:4], "little")
+        return 3 + h % (self.vocab_size - 3)
+
+    def __call__(self, texts: list[str], max_length: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:
+        T = max_length or self.max_length
+        ids = np.full((len(texts), T), self.pad, dtype=np.int32)
+        mask = np.zeros((len(texts), T), dtype=np.int32)
+        for i, text in enumerate(texts):
+            toks = [self.bos] + [self._tok(w) for w in text.split()][: T - 2] + [self.eos]
+            ids[i, : len(toks)] = toks
+            mask[i, : len(toks)] = 1
+        return ids, mask

@@ -6,7 +6,9 @@
 // `fused_latent_attention`). Same function: q [B, H, L, dh]; k, v [H, N, dh],
 // shared by every batch row; float32 logits, softmax and products; the output
 // in q's type. No mask: pad tokens are zero rows that are dropped at the pool.
-// Any N <= kMaxN and dh <= kMaxDh, ragged edges included.
+// Any N <= kMaxN and dh <= kMaxDh, ragged edges included. Nothing in a block
+// is sized by dh: q, k and V stream through the ring, so dh only sets the
+// number of stages, and element offsets are 64-bit.
 //
 // What bounds it on an H100: one query row does 4*N*dh operations for 2*dh
 // elements of q in and o out. At the tower's width (N=64, dh=512) that is 32
@@ -75,7 +77,7 @@ constexpr int kStages = 4;          // depth of the cp.async ring
 constexpr int kChunk = 16;          // bytes per cp.async
 constexpr int kTileN = 64;          // latents of a logits tile; columns of a warp's P.V tile
 constexpr int kSliceCols = 16;      // a slice of dh is a whole number of these
-constexpr int kMaxN = 1024, kMaxDh = 1024;
+constexpr int kMaxN = 1024, kMaxDh = 4096;  // dh: NV-Embed's pooling head
 constexpr int kPadN = 32;           // N is padded to this in shared memory (the deepest P.V stage)
 constexpr int kOutStride = kTileN + 8;  // floats per staged output row: no bank conflicts
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use

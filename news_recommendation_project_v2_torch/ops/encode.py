@@ -1,6 +1,13 @@
-"""The id-keyed embedding dump, the store of per-token states and the
-learned news encoder's pass over it.
+"""Corpus encoding, the id-keyed embedding dump, the store of per-token
+states and the learned news encoder's pass over it.
 
+- ``encode_corpus`` / ``encode_corpus_bucketed``: a ``NewsEncoder`` over a
+  tokenized corpus in batches of a fixed shape (the bucketed form groups the
+  rows by token count into length buckets), the [N, D] vectors left on the
+  card; ``encode_query_and_passage``: e5's two tables, passage vectors of
+  the raw text and query vectors of the instruction-prefixed text.
+- ``build_token_store``: the encoder's per-token states, mask-trimmed, into
+  a ``TokenStore`` in RAM or streamed into a memmapped directory.
 - ``save_embeddings``/``load_embeddings``: ``{dataset}.npy`` [N, D],
   optional ``query_{dataset}.npy`` [N, D] and ``{dataset}_ids.npy`` [N] (the
   row -> news-id key), the files the JAX package's ``save_emb`` writes.
@@ -28,7 +35,121 @@ import torch
 from ..config import bucket_for_open
 from ..device import resolve_device
 from ..utils.inflight import InflightWindow
-from ..utils.memory import estimate_token_attention_batch
+from ..utils.memory import estimate_encoder_batch, estimate_token_attention_batch
+
+
+# Length buckets of a corpus encode: MIND's title-only news are about 15-30
+# tokens, so most rows run 32 wide instead of the tokenizer's full width.
+TOKEN_BUCKETS = (32, 64, 128, 256, 512)
+
+
+def _auto_batch(encoder, width: int, device: torch.device) -> int:
+    """The memory model's batch at ``width`` tokens, capped at about 131,072
+    tokens a batch (at least 1,024 rows)."""
+    return min(max(1024, 131072 // width), estimate_encoder_batch(encoder.config, length=width, device=device))
+
+
+def encode_corpus(
+    encoder: torch.nn.Module,
+    token_ids: np.ndarray,
+    token_mask: np.ndarray,
+    batch_size: Optional[int] = 256,
+    device=None,
+) -> torch.Tensor:
+    """``encoder`` ([B, T] ids and mask -> [B, D]) over a tokenized corpus
+    [N, T] -> the [N, D] float32 vectors on ``device`` (``None``: CUDA;
+    the encoder must lie there). Every batch has the same [batch_size, T]
+    shape: rows past N are padding with mask slot 0 live, so no row is all
+    pad, and are dropped; an empty corpus runs one pad batch and gives
+    [0, D]. ``batch_size=None`` takes the memory model's batch for the
+    encoder's ``config`` (``estimate_encoder_batch``) at T, capped at about
+    131,072 tokens a batch. Each batch's ids go to the card from pinned
+    memory; up to 2 batches stay in flight before the oldest is written into
+    the result."""
+    device = resolve_device(device)
+    n, width = token_ids.shape
+    if batch_size is None:
+        batch_size = _auto_batch(encoder, width, device)
+    n_pad = max(batch_size, -(-n // batch_size) * batch_size)
+    ids = np.pad(token_ids, ((0, n_pad - n), (0, 0)))
+    mask = np.pad(token_mask, ((0, n_pad - n), (0, 0)))
+    mask[n:, 0] = 1
+    out: Optional[torch.Tensor] = None
+    window = InflightWindow(2, lambda item: out[item[0] : item[0] + len(item[1])].copy_(item[1]))
+    with torch.no_grad():
+        for start in range(0, n_pad, batch_size):
+            batch = _to_device((ids[start : start + batch_size], mask[start : start + batch_size]), device)
+            emb = encoder(*batch).float()
+            if out is None:
+                out = torch.empty((n_pad, emb.shape[1]), dtype=torch.float32, device=device)
+            window.push((start, emb))
+        window.flush()
+    return out[:n]
+
+
+def encode_corpus_bucketed(
+    encoder: torch.nn.Module,
+    token_ids: np.ndarray,
+    token_mask: np.ndarray,
+    buckets: tuple[int, ...] = TOKEN_BUCKETS,
+    batch_size: Optional[int] = None,
+    device=None,
+) -> torch.Tensor:
+    """``encode_corpus`` by length bucket: each row runs at the narrowest of
+    ``buckets`` (and T, always the last) that holds its tokens, so short
+    news never pay for the full width; the rows' vectors are written back
+    by index into one [N, D] float32 tensor on the card. A padded key adds
+    exactly nothing to a masked softmax, so each row equals the fixed-width
+    encode up to the order of float sums. A bucket's batch is
+    ``batch_size`` or the memory model's at its width (``None``), capped at
+    the power of two at or above its row count (at least 8), which bounds
+    the set of batch shapes across calls."""
+    device = resolve_device(device)
+    n, width = token_ids.shape
+    if n == 0:
+        return encode_corpus(encoder, token_ids, token_mask, batch_size or 8, device)
+    lengths = np.asarray(token_mask).sum(axis=1).astype(np.int64)
+    widths = tuple(sorted({int(b) for b in buckets if 0 < b < width})) + (width,)
+    assignment = np.searchsorted(np.asarray(widths), lengths, side="left")
+    out: Optional[torch.Tensor] = None
+    for bi, w in enumerate(widths):
+        rows = np.nonzero(assignment == bi)[0]
+        if len(rows) == 0:
+            continue
+        bs = batch_size or _auto_batch(encoder, w, device)
+        bs = max(8, min(bs, 1 << (len(rows) - 1).bit_length()))
+        emb = encode_corpus(
+            encoder, np.ascontiguousarray(token_ids[rows, :w]), np.ascontiguousarray(token_mask[rows, :w]), bs, device
+        )
+        if out is None:
+            out = torch.zeros((n, emb.shape[1]), dtype=torch.float32, device=device)
+        out.index_copy_(0, torch.from_numpy(rows).to(device), emb)
+    return out
+
+
+def encode_query_and_passage(
+    encoder: torch.nn.Module,
+    tokenize,
+    texts: list[str],
+    query_instruction: str,
+    batch_size: Optional[int] = 256,
+    buckets: Optional[tuple[int, ...]] = None,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """e5's two tables of ``texts``: ``(query, passage)``, each [N, D] on the
+    card. Passage vectors encode the raw text, query vectors
+    ``query_instruction + text``. ``tokenize`` maps a list of texts to
+    (ids, mask) arrays; ``buckets`` runs ``encode_corpus_bucketed``, else
+    ``encode_corpus``."""
+    ids, mask = tokenize(texts)
+    q_ids, q_mask = tokenize([query_instruction + t for t in texts])
+    if buckets is not None:
+        passage = encode_corpus_bucketed(encoder, ids, mask, buckets, batch_size, device)
+        query = encode_corpus_bucketed(encoder, q_ids, q_mask, buckets, batch_size, device)
+    else:
+        passage = encode_corpus(encoder, ids, mask, batch_size, device)
+        query = encode_corpus(encoder, q_ids, q_mask, batch_size, device)
+    return query, passage
 
 
 def save_embeddings(
@@ -225,6 +346,82 @@ class TokenStore:
             # directory that open_dir loads as a complete, zero-filled store.
             np.save(out_dir / "offsets.npy", offsets)
         return cls.open_dir(out_dir)
+
+
+def build_token_store(
+    encoder: torch.nn.Module,
+    token_ids: np.ndarray,
+    token_mask: np.ndarray,
+    batch_size: int = 64,
+    out_dir: Optional[Path] = None,
+    store_dtype=np.float32,
+    token_buckets: Optional[tuple[int, ...]] = TOKEN_BUCKETS,
+    device=None,
+) -> TokenStore:
+    """The encoder's per-token states (``encoder.hidden_states``, no pool),
+    each row trimmed to its mask, as a ``TokenStore`` of ``store_dtype``
+    (``np.float16`` halves it).
+
+    Rows run in batches of ``batch_size`` in bucket order (``token_buckets``
+    as in ``encode_corpus_bucketed``, each batch at its longest row's
+    bucket; ``None``: one pass at full width, in corpus order); pad rows are
+    all pad. With ``out_dir`` the states stream into a ``states.npy`` memmap
+    preallocated at the size the mask gives, ``offsets.npy`` is written last
+    (an interrupted build leaves no directory that opens as a store), and the
+    store comes back opened read-only from disk; without it the store is
+    assembled in RAM. One batch of [B, T, D] float32 states stays in flight
+    on the card while the one before it is fetched and trimmed."""
+    device = resolve_device(device)
+    n, width = token_ids.shape
+    lens = np.asarray(token_mask).sum(axis=1).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    if token_buckets is not None and n > 0:
+        widths = tuple(sorted({int(b) for b in token_buckets if 0 < b < width})) + (width,)
+        assignment = np.searchsorted(np.asarray(widths), lens, side="left")
+        row_order = np.argsort(assignment, kind="stable")
+        row_widths = np.asarray(widths)[assignment]
+    else:
+        row_order = np.arange(n)
+        row_widths = np.full(n, width, np.int64)
+    out_dir = None if out_dir is None else Path(out_dir)
+    states: Optional[np.ndarray] = None  # the memmap, once D is known
+    arrays: list[Optional[np.ndarray]] = [None] * n
+
+    def consume(item) -> None:
+        nonlocal states
+        rows, dev = item
+        hidden = dev.cpu().numpy()
+        if out_dir is not None and states is None:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            states = np.lib.format.open_memmap(
+                out_dir / "states.npy", mode="w+", dtype=store_dtype, shape=(int(offsets[-1]), hidden.shape[-1])
+            )
+        for j, row in enumerate(rows):
+            trimmed = hidden[j, : lens[row]].astype(store_dtype)
+            if states is not None:
+                states[offsets[row] : offsets[row + 1]] = trimmed
+            else:
+                arrays[row] = trimmed
+
+    window = InflightWindow(1, consume)
+    with torch.no_grad():
+        for start in range(0, n, batch_size):
+            rows = row_order[start : start + batch_size]
+            w = int(row_widths[rows].max())
+            pad = batch_size - len(rows)
+            ids = np.pad(np.ascontiguousarray(token_ids[rows, :w]), ((0, pad), (0, 0)))
+            mask = np.pad(np.ascontiguousarray(token_mask[rows, :w]), ((0, pad), (0, 0)))
+            window.push((rows, encoder.hidden_states(*_to_device((ids, mask), device))))
+        window.flush()
+    if out_dir is None:
+        return TokenStore.from_ragged(arrays)
+    if states is None:  # an empty corpus: a valid, empty store
+        out_dir.mkdir(parents=True, exist_ok=True)
+        np.save(out_dir / "states.npy", np.zeros((0, 1), np.float32))
+    else:
+        states.flush()
+    np.save(out_dir / "offsets.npy", offsets)
+    return TokenStore.open_dir(out_dir, mmap=True)
 
 
 def materialize_from_token_store(

@@ -4,7 +4,8 @@ PyTorch version.
 
 Layouts as in the JAX package's ``fused_latent_attention``: q [B, H, L, dh]
 history queries; k, v [H, N, dh] latent keys and values shared by every batch
-row. Returns [B, H, L, dh] in q's type. Any N <= 1024 and dh <= 1024.
+row. Returns [B, H, L, dh] in q's type. Any N <= 1024 and dh <= 4096
+(NV-Embed's pooling head: N = 512, dh = 4096).
 
 The call goes through ``LatentAttentionFunction``: the kernel forward, and the JAX package's plain backward (``pallas_attention.py::_bwd``;
 the TPU kernel has no backward kernel either).
@@ -34,7 +35,7 @@ _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 SHAPES = {128: (1, 32, 4, 2), 64: (1, 32, 4, 3), 32: (4, 16, 8, 1), 16: (4, 16, 4, 2)}
 ROWS = tuple(SHAPES)
 SLICE_COLS = 16  # a slice of dh is a whole number of these columns
-MAX_N = MAX_DH = 1024
+MAX_N, MAX_DH = 1024, 4096
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 _STAGES, _TILE_N, _PAD_N = 4, 64, 32
 
@@ -86,9 +87,14 @@ def plan_attention(
       one wave of blocks holds. Each slice recomputes its tile's logits and
       re-reads K from L2, so at a few rows more blocks do not run faster:
       the chain of stages in a block, not the number of SMs, sets the time.
+      At NV-Embed's head (N=512, dh=4,096) one news runs fastest at 16
+      slices, though each recomputes the logits over the whole dh.
 
-    A shape whose shared memory exceeds what a block may use is passed over
-    (large N falls to Small). Raises ``ValueError`` past N or dh of 1024."""
+    A shape whose shared memory exceeds what a block may use is passed over,
+    and so are Large and Medium (4 warps a block) where two of their blocks
+    do not fit that memory: at N=512 one 4-warp block an SM ran 8% behind
+    Pair's 8 warps (``plan_sweep encoder``), so large N falls to Pair or
+    Small. Raises ``ValueError`` past N of 1024 or dh of 4096."""
     if min(b, h, l) < 1:
         raise ValueError(f"latent_attention: needs B, H, L >= 1, got B={b} H={h} L={l}")
     if not 1 <= n <= MAX_N:
@@ -99,7 +105,9 @@ def plan_attention(
     want = {128: 8 * sms, 64: sms, 32: -(-sms // 4), 16: 0}
     rows = next(
         r for r in ROWS
-        if attention_smem(r, n, dtype) <= SMEM_LIMIT and -(-m // r) * h >= want[r]
+        if (smem := attention_smem(r, n, dtype)) <= SMEM_LIMIT
+        and (SHAPES[r][0] > 1 or 2 * smem <= SMEM_LIMIT)
+        and -(-m // r) * h >= want[r]
     )
     tiles = -(-m // rows) * h
     steps = -(-dh // SLICE_COLS)

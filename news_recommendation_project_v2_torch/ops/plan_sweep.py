@@ -1,7 +1,10 @@
 """Device time of the attention kernel under every block shape and slice
 count, beside the plan that ``plan_attention`` picks, on one NVIDIA GPU.
 
-    python -m news_recommendation_project_v2_torch.ops.plan_sweep
+    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder]
+
+With ``encoder`` it sweeps NV-Embed's pooling head (N = 512, dh = 4,096) at
+the batches of news an encode gives it, instead of the user tower's shapes.
 
 For each shape (B, H, L, N, dh) and type it prints the library call's time
 (``scaled_dot_product_attention``, a yardstick), the planner's plan and its
@@ -18,7 +21,15 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from .latent_attention import ROWS, SLICE_COLS, _launch, plan_attention, reference_attention
+from .latent_attention import (
+    ROWS,
+    SLICE_COLS,
+    SMEM_LIMIT,
+    _launch,
+    attention_smem,
+    plan_attention,
+    reference_attention,
+)
 from .timing import graph_ms
 
 # (B, H, L) at N=64, dh=512: a single request's history buckets, then B·L
@@ -28,6 +39,10 @@ SHAPES = [
     (1, 8, 16), (1, 8, 64), (1, 8, 128), (1, 8, 256), (8, 8, 64), (2, 8, 256), (4, 8, 256),
     (2, 8, 600), (4, 8, 300), (4, 8, 600), (8, 8, 600),
 ]
+
+# (B, H, L) at NV-Embed's pooling head, N=512, dh=4,096: one news of 16
+# tokens, then batches of news of 32 and 64 tokens.
+ENCODER_SHAPES = [(1, 8, 16), (8, 8, 32), (32, 8, 32), (128, 8, 32), (64, 8, 64)]
 
 
 def sweep(shape, dtype, gen) -> str:
@@ -45,6 +60,8 @@ def sweep(shape, dtype, gen) -> str:
     reps = (2, 2) if long else (10, 5)
     times = {}
     for rows in ROWS:
+        if attention_smem(rows, n, dtype) > SMEM_LIMIT:
+            continue
         for slices in sorted({-(-dh // (-(-steps // s) * SLICE_COLS)) for s in ((1,) if long else (1, 2, 4, 8, 16, 32))}):
             width = -(-steps // slices) * SLICE_COLS
 
@@ -72,6 +89,11 @@ def main() -> int:
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
+        if sys.argv[1:] == ["encoder"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                for b, h, l in ENCODER_SHAPES:
+                    print(sweep((b, h, l, 512, 4096), dtype, gen), flush=True)
+            return 0
         for dtype in (torch.float32, torch.bfloat16):
             for b, h, l in SHAPES:
                 print(sweep((b, h, l, 64, 512), dtype, gen), flush=True)

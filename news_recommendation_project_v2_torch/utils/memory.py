@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ..config import TowerConfig
+from ..config import EncoderConfig, TowerConfig
 
 # The budget when the device reports none (the CPU): 16 GiB, as in the JAX
 # package.
@@ -185,6 +185,35 @@ def transformer_activation_bytes(
     per_token = 3 * hidden_dim + 2 * intermediate_dim + 3 * hidden_dim
     probs = batch * num_heads * length * length
     return (tokens * per_token + probs) * bytes_per_el
+
+
+def encoder_activation_bytes(
+    config: EncoderConfig, batch: int, length: Optional[int] = None, bytes_per_el: Optional[int] = None
+) -> int:
+    """The news encoder's activation envelope over [batch, length] tokens
+    (``length`` defaults to ``config.max_length``): one block of its widths
+    (``transformer_activation_bytes``) at ``compute_dtype``'s element size
+    unless ``bytes_per_el`` is given. The backbone only: NV-Embed's
+    latent-pool head (float32, heads x dim_head wide a token) is not in it."""
+    if bytes_per_el is None:
+        bytes_per_el = _DTYPE_BYTES.get(config.compute_dtype, 4)
+    return transformer_activation_bytes(
+        config.hidden_dim, config.num_heads, config.intermediate_dim, batch, length or config.max_length, bytes_per_el
+    )
+
+
+def estimate_encoder_batch(
+    config: EncoderConfig,
+    length: Optional[int] = None,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """The news encoder's inference batch at ``length`` tokens: ``fraction``
+    of the device's memory (16 GiB on the CPU) over
+    ``encoder_activation_bytes`` of one row, a multiple of 8."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    return _floor_multiple(budget // max(encoder_activation_bytes(config, 1, length), 1), 8)
 
 
 def estimate_token_attention_batch(

@@ -37,6 +37,10 @@ SHAPES = [  # (B, H, L, N, dh)
     (1, 8, 131072, 64, 512),  # the flat eval
     (2, 3, 5, 70, 100),
     (1, 2, 20, 1024, 1024),
+    (1, 8, 16, 512, 4096),  # NV-Embed's pooling head: one news
+    (8, 8, 32, 512, 4096),
+    (128, 8, 32, 512, 4096),
+    (2, 3, 5, 70, 4000),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -86,7 +90,7 @@ def test_plan_slices_are_whole_nonempty_steps(shape, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 64, 70, 700, 1024])
-@pytest.mark.parametrize("dh", [1, 100, 512, 1024])
+@pytest.mark.parametrize("dh", [1, 100, 512, 1024, 2048, 4096])
 def test_plan_shared_memory_fits(n, dh, dtype):
     """At every N and dh up to the limits, in both types, the block the
     planner picks needs at most the 232,448 bytes a block may use."""
@@ -137,11 +141,26 @@ def test_plan_does_not_split_the_flat_eval(dtype):
     assert (p.rows, p.slices, p.slice_cols) == (max(ROWS), 1, 512)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "bl, rows, slices", [((1, 16), 16, 16), ((1, 4), 16, 16), ((8, 32), 32, 2), ((32, 32), 32, 1), ((128, 32), 32, 1)]
+)
+def test_plan_at_the_encoder_head(bl, rows, slices, dtype):
+    """NV-Embed's head (N = 512, dh = 4,096): float32 logits rows of 2 KB take
+    Large out of shared memory and leave one Medium block an SM, so the rows
+    fall to Pair and Small, as measured fastest on an H100 (``plan_sweep
+    encoder``: Pair 8% ahead of Medium at 4,096 folded rows); one news
+    splits dh 16 ways within one wave."""
+    assert attention_smem(128, 512, dtype) > SMEM_LIMIT >= attention_smem(64, 512, dtype) > SMEM_LIMIT // 2
+    p = plan_attention(bl[0], 8, bl[1], 512, 4096, dtype, SMS)
+    assert (p.rows, p.slices) == (rows, slices) and p.smem_bytes <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize(
     "shape, match",
     [
         ((1, 8, 16, MAX_N + 1, 512), "N=1025 latents is past the kernel's limit"),
-        ((1, 8, 16, 64, MAX_DH + 1), "dh=1025 is past the kernel's limit"),
+        ((1, 8, 16, 64, MAX_DH + 1), "dh=4097 is past the kernel's limit"),
         ((1, 8, 16, 0, 512), "N=0 latents is past the kernel's limit"),
         ((1, 0, 16, 64, 512), "needs B, H, L >= 1"),
     ],

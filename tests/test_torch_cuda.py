@@ -11,17 +11,21 @@ it without the conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
+from news_recommendation_project_v2_torch.config import QUERY_INSTRUCTION, EncoderConfig, TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import TokenAttentionPool, build_tower
 from news_recommendation_project_v2_torch.models.convert import (
     e2e_state_dict_from_jax,
+    encoder_state_dict_from_jax,
+    random_encoder_params,
     latent_state_dict_from_jax,
     random_e2e_params,
     random_latent_params,
@@ -41,7 +45,12 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.ops.encode import TokenStore
+from news_recommendation_project_v2_torch.models.news_encoder import HashTokenizer, NewsEncoder
+from news_recommendation_project_v2_torch.ops.encode import (
+    TokenStore,
+    build_token_store,
+    encode_query_and_passage,
+)
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan, score_all_impressions
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
 from news_recommendation_project_v2_torch.train.step import (
@@ -743,3 +752,109 @@ def test_e2e_device_store_and_streamed_are_identical_on_cuda(cuda):
     assert runs[0][0] == runs[1][0] == runs[2][0]
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], other[1]))
+
+
+# -- the news encoder: NV-Embed's pooling head --------------------------------
+
+HEAD_SHAPES = [(3, 8, 37, 512, 1040), (2, 8, 32, 512, 2048), (1, 8, 16, 512, 4096), (8, 8, 32, 512, 4096),
+               (64, 8, 32, 512, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=["dh1040_ragged", "dh2048", "dh4096_one_news", "dh4096_b8", "dh4096_b64"])
+def test_attention_at_the_encoder_head(cuda, dtype, shape):
+    """N = 512 latents and dh up to 4,096 (NV-Embed's head: 8 heads x 4,096),
+    ragged (folded rows past a tile, dh = 1,040 not a whole stage) and
+    whole, through the Small, Pair and Medium blocks the planner picks: the
+    planner's shared memory equals the CUDA source's layout, and the kernel
+    agrees with its plain version."""
+    b, h, l, n, dh = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = plan_attention(b, h, l, n, dh, dtype, sms)
+    assert p.smem_bytes == attention_smem(p.rows, n, dtype) == kernel_smem(p.rows, n, dtype)
+    q, k, v = _attention_args(shape, dtype, cuda)
+    before = latent_attention.shapes[shape]
+    got = latent_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert latent_attention.shapes[shape] == before + 1
+    want = reference_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_one_unit(want, dtype))
+
+
+def _one_unit(want, dtype):
+    """float32: 1e-5. bfloat16: one unit in the last place at the output's
+    largest magnitude, the most that two float32-accurate results rounded to
+    bfloat16 apart can differ (2^-8 of the largest value is less than that
+    unit when it lies low in its binade)."""
+    if dtype == torch.float32:
+        return 1e-5
+    return 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("c", [256, 1500])
+def test_geglu_at_the_encoder_head(cuda, c):
+    """The head's GEGLU, float32 as the head computes: D = 4,096, F =
+    16,384, so u is 64 KB a row and the 64 MB scratch takes 1,024 rows a
+    chunk (C = 1,500 runs two)."""
+    args = _geglu_args((c, 4096, 16384), torch.float32, cuda)
+    got = geglu(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=1e-4)
+
+
+SMALL_ENCODERS = {
+    "bert": dict(),
+    "qwen2": dict(arch="qwen2", num_kv_heads=2, pooling="last"),
+    "nv_embed": dict(arch="qwen2", num_kv_heads=2, qkv_bias=False, bidirectional=True, latent_pool=True,
+                     latent_pool_num_latents=6, latent_pool_heads=2, latent_pool_dim_head=8),
+}
+
+
+def _small_encoder(layout, device):
+    cfg = EncoderConfig(vocab_size=97, hidden_dim=32, num_layers=2, num_heads=4, intermediate_dim=64,
+                        max_position=40, compute_dtype="float32", **SMALL_ENCODERS[layout])
+    enc = NewsEncoder(cfg)
+    enc.load_state_dict(encoder_state_dict_from_jax(random_encoder_params(cfg, 0), cfg))
+    return enc.to(device).eval()
+
+
+@pytest.mark.parametrize("layout", list(SMALL_ENCODERS))
+def test_small_encoder_on_cuda_matches_cpu(cuda, layout):
+    """A small encoder of each layout, float32: hidden states and pooled
+    vectors on the card within 1e-5 of the CPU, an all-pad row included;
+    NV-Embed's head launches both kernels."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(3, 97, (4, 11)).astype(np.int32)
+    mask = np.zeros((4, 11), np.int32)
+    for i, n in enumerate((11, 7, 1, 0)):
+        mask[i, :n] = 1
+    out = {}
+    launches = latent_attention.launches, geglu.launches
+    for dev in ("cpu", cuda):
+        enc = _small_encoder(layout, dev)
+        args = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+        with torch.no_grad():
+            out[str(dev)] = enc.hidden_states(*args).cpu(), enc(*args).cpu()
+    if layout == "nv_embed":
+        assert latent_attention.launches > launches[0] and geglu.launches > launches[1]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_corpus_encode_and_token_store_on_cuda_match_cpu(cuda):
+    """encode_query_and_passage (bucketed) and build_token_store on the card
+    against the CPU: vectors and states within 1e-5, offsets equal."""
+    rng = np.random.default_rng(2)
+    texts = [" ".join(f"w{rng.integers(50)}" for _ in range(int(n))) for n in rng.integers(1, 30, size=29)]
+    tok = HashTokenizer(vocab_size=97, max_length=40)
+    ids, mask = tok(texts)
+    res = {}
+    for dev in ("cpu", cuda):
+        enc = _small_encoder("nv_embed", dev)
+        tables = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 8, buckets=(8, 16, 32), device=dev)
+        res[str(dev)] = [t.cpu() for t in tables], build_token_store(enc, ids, mask, batch_size=8, device=dev)
+    for got, want in zip(res["cuda"][0], res["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert np.array_equal(res["cuda"][1].offsets, res["cpu"][1].offsets)
+    np.testing.assert_allclose(res["cuda"][1].states, res["cpu"][1].states, rtol=0, atol=1e-5)
