@@ -152,10 +152,34 @@ Phases, one line or a few each, exit code non-zero on any failure:
               encode_corpus_bucketed at batch 128 (news/s) with both
               kernels' launches counted. Then each kernel against its plain
               version at every shape the head launched it at.
+ 11. pipeline: the user's path from MIND's raw TSVs through the CLIs'
+              main(argv), in a temporary directory deleted afterwards, one
+              JSON line a part. 11a: raw TSVs of MINDsmall_train and
+              MINDsmall_dev (65,238 news with 10b's titles; 50,000 and 20,000
+              rows by build_workload's rule, reduced from MIND-small's
+              156,965 / 73,152), nrtorch-ingest on each, load_dataset and the
+              compile timed. 11b: nrtorch-save-emb of both splits (e5-large,
+              bfloat16, the memory model's batch): news/s, the dump's size,
+              unit norms. 11c: nrtorch-train --tower latent at D = 1,024,
+              one epoch each, batch 512, with every launch count set to 0
+              just before and read just after: each step's host seconds, the
+              tower epoch's pairs/s, one profiled step's busy share, the peak
+              memory, the metrics; then the same command again, every step
+              from the cache and no device work. 11d: nrtorch-eval --ckpt of
+              the best checkpoint against FlatEvalPlan + DeviceMetricsPlan
+              from it (1e-5), and nrtorch-serve --ckpt in its own process
+              answering a POST /rank. 11e: LoadEmbedding -> Classification
+              -> Attention on 512 train and 256 dev rows, full width, on the
+              card and on the CPU (metrics and weights, norm-relative 1e-4).
+              11f: nrtorch-reproduce --synthetic --with-e2e with e5-large on
+              write_synthetic_mind's fixture (three finite CONFIG_ROWs),
+              then nrtorch-train-e2e at --dim 1024. Then each kernel against
+              its plain version at every shape 11c launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
-"e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10); phase 1's line holds the card's
+"e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10,
+"pipeline" from phase 11); phase 1's line holds the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
@@ -166,6 +190,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -174,6 +199,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -189,6 +215,7 @@ from news_recommendation_project_v2_torch.config import (  # noqa: E402
     HISTORY_BUCKETS,
     QUERY_INSTRUCTION,
     EncoderConfig,
+    NewsDataset,
     TowerConfig,
     TrainConfig,
     bucket_for,
@@ -544,6 +571,9 @@ def main_path_phase(shapes: dict, gen, path: str = "main path") -> dict[str, dic
                 bound_by=max(by, key=by.get),
             )
             r = record[name]
+            log(f"  {name} launches by shape on the {path}: " + ", ".join(
+                f"{MEASURED[(name, *k)]['label']} x{counts[k]}" for k in keys
+            ))
             log(
                 f"  {name} summed over the {path}'s launches: kernel_ms {r['ms']:.4f} "
                 f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
@@ -2521,6 +2551,401 @@ def encoder_phase(work_dir: Path) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the pipeline and the CLIs, from MIND's raw TSVs
+# ---------------------------------------------------------------------------
+
+# 11a's rows: bench.py's build_workload count for train, and 20,000 for dev;
+# reduced from MIND-small's 156,965 / 73,152 behaviors rows.
+PIPE_ROWS = {"MINDsmall_train": 50_000, "MINDsmall_dev": 20_000}
+PIPE_ENTITIES = 20_000  # entity vectors a split
+CHECK_ROWS = {"MINDsmall_train": 512, "MINDsmall_dev": 256}  # 11e's sample of each split
+PIPE_CATEGORIES = ("news", "sports", "finance", "lifestyle", "travel", "video", "foodanddrink", "weather")
+# 11d: the eval CLI against the flat eval computed directly (the same scores;
+# host float64 metrics against the device's float32 ones); 11e: the card
+# against the CPU, metrics and trained weights, norm-relative (the whole
+# run is a float32 Adam epoch of each trainer: phases 7-8 reached 1e-6 to
+# 3e-6 on single steps and epochs).
+EVAL_CLI_TOL, PIPE_CPU_TOL = 1e-5, 1e-4
+
+
+def write_raw_mind(root: Path, name: str, num_rows: int, seed: int) -> dict:
+    """Raw MIND TSVs of ``name`` under ``root/raw/<name>/``: 65,238 news
+    whose titles follow 10b's rule (12-32 words; news_text is then 10b's
+    text), nine in ten with an abstract, seven in ten with 1-3 title
+    entities; PIPE_ENTITIES entity vectors; ``num_rows`` behaviors rows with
+    build_workload's history and impression lengths and labels. Returns the
+    counts written."""
+    rng = np.random.default_rng(seed)
+    raw = root / "raw" / name
+    raw.mkdir(parents=True, exist_ok=True)
+    ids = np.array([f"N{i}" for i in range(NUM_NEWS)])
+    titles = [t[len("Title: "):] for t in news_texts(NUM_NEWS, seed)]
+    n_ents = np.where(rng.random(NUM_NEWS) < 0.7, rng.integers(1, 4, NUM_NEWS), 0)
+    ent_rows = rng.integers(0, PIPE_ENTITIES, int(n_ents.sum()))
+    ent_ends = np.cumsum(n_ents)
+    with open(raw / "news.tsv", "w") as f:
+        for i, (nid, title) in enumerate(zip(ids.tolist(), titles)):
+            ents = json.dumps([{"Label": "e", "WikidataId": f"Q{q}"} for q in ent_rows[ent_ends[i] - n_ents[i] : ent_ends[i]]])
+            cat = PIPE_CATEGORIES[i % len(PIPE_CATEGORIES)]
+            abstract = f"Abstract of article {i}." if i % 10 else ""
+            f.write(f"{nid}\t{cat}\t{cat}{i % 5}\t{title}\t{abstract}\thttps://example.com/{nid}\t{ents}\t[]\n")
+    vecs = rng.standard_normal((PIPE_ENTITIES, 100))
+    with open(raw / "entity_embedding.vec", "w") as f:
+        for q, row in enumerate(vecs):
+            f.write(f"Q{q}\t" + "\t".join(f"{v:.6f}" for v in row) + "\t\n")
+    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, NUM_NEWS)
+    hist_tok = ids[hist_rev].tolist()
+    imp_tok = np.char.add(ids[cand_rev], np.where(labels > 0, "-1", "-0")).tolist()
+    h_end, i_end = np.cumsum(hist_lens), np.cumsum(imp_lens)
+    with open(raw / "behaviors.tsv", "w") as f:
+        for r in range(num_rows):
+            history = " ".join(hist_tok[h_end[r] - hist_lens[r] : h_end[r]])
+            imps = " ".join(imp_tok[i_end[r] - imp_lens[r] : i_end[r]])
+            f.write(f"{r + 1}\tU{r % 9_000}\t11/1{r % 5}/2019 9:05:58 AM\t{history}\t{imps}\n")
+    return dict(rows=num_rows, history_tokens=int(hist_lens.sum()), impression_slots=int(imp_lens.sum()))
+
+
+def _timed_embed(seconds: list):
+    """The save-emb CLI's EmbeddingsComponent, timing its encode into
+    ``seconds``."""
+    from news_recommendation_project_v2_torch.pipeline import EmbeddingsComponent
+
+    class Timed(EmbeddingsComponent):
+        def transform(self, context):
+            t0 = time.perf_counter()
+            out = super().transform(context)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+    return Timed
+
+
+def pipeline_ingest_phase(data_dir: Path) -> None:
+    """11a: write both splits' raw TSVs, run nrtorch-ingest on each, then
+    time load_dataset and the compile (TransformDataComponent)."""
+    from news_recommendation_project_v2_torch.cli import ingest as ingest_cli
+    from news_recommendation_project_v2_torch.cli.common import build_context
+    from news_recommendation_project_v2_torch.pipeline import TransformDataComponent
+
+    for i, (name, rows) in enumerate(PIPE_ROWS.items()):
+        t0 = time.perf_counter()
+        counts = write_raw_mind(data_dir, name, rows, SEED + 110 + i)
+        t1 = time.perf_counter()
+        ingest_cli.main([str(data_dir), name])
+        t2 = time.perf_counter()
+        ctx = build_context(data_dir, NewsDataset[name])
+        t3 = time.perf_counter()
+        ctx = TransformDataComponent().transform(ctx)
+        t4 = time.perf_counter()
+        part_line(
+            "11a", split=name, news=NUM_NEWS, entities=PIPE_ENTITIES, **counts, compiled_news=len(ctx["compiled"].news_ids),
+            write_s=t1 - t0, ingest_s=t2 - t1, load_dataset_s=t3 - t2, compile_s=t4 - t3,
+            reduced=f"{rows} of MIND-small's {156_965 if 'train' in name else 73_152} rows",
+        )
+
+
+def pipeline_save_emb_phase(data_dir: Path, emb_dir: Path) -> None:
+    """11b: nrtorch-save-emb of both splits, e5-large at full width in
+    bfloat16 at the memory model's batch: news/s end to end and of the
+    encode step, the dump's size, the norms."""
+    from news_recommendation_project_v2_torch.cli import save_emb as save_emb_cli
+
+    for name in PIPE_ROWS:
+        encode_s: list = []
+        t0 = time.perf_counter()
+        with mock.patch.object(save_emb_cli, "EmbeddingsComponent", _timed_embed(encode_s)):
+            ctx = save_emb_cli.main([str(data_dir), name, "--save-dir", str(emb_dir)])
+        seconds = time.perf_counter() - t0
+        n = len(ctx["compiled"].news_ids)
+        norms = [np.abs(np.linalg.norm(ctx[k], axis=1) - 1).max() for k in ("news_embeddings", "query_news_embeddings")]
+        size = sum(p.stat().st_size for p in emb_dir.glob(f"*{name}*"))
+        part_line(
+            "11b", split=name, news=n, cli_s=seconds, news_per_s=n / seconds, encode_s=encode_s[0],
+            encode_news_per_s=n / encode_s[0], dump_gb=size / 1e9, norm_err=[float(x) for x in norms],
+        )
+        if not max(norms) <= 1e-3:
+            raise AssertionError(f"11b {name}: norms off 1 by {norms}")
+
+
+def _timed_tower_trainer(seen: dict):
+    """A TowerTrainer that times its epoch (pairs/s) and profiles its
+    second step (the busy share)."""
+
+    class Timed(TowerTrainer):
+        def _host_batches(self):
+            for count, batch in super()._host_batches():
+                seen["pairs"] = seen.get("pairs", 0) + count
+                yield count, batch
+
+        def _train_step(self, batch):
+            seen["steps"] = seen.get("steps", 0) + 1
+            if seen["steps"] != 2:
+                return super()._train_step(batch)
+            out = []
+            seen["profile"] = profile_call("tower epoch step", lambda: out.append(super(Timed, self)._train_step(batch)))
+            return out[0]
+
+        def train_one_epoch(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = super().train_one_epoch()
+            torch.cuda.synchronize()
+            seen["epoch_s"] = time.perf_counter() - t0
+            return loss
+
+    return Timed
+
+
+def train_argv(data_dir: Path, emb_dir: Path, work: Path) -> list[str]:
+    return [
+        str(data_dir), "--emb-dir", str(emb_dir), "--tower", "latent", "--cls-epochs", "1", "--epochs", "1",
+        "--batch-size", "512", "--log-dir", str(work / "logs"), "--ckpt-dir", str(work / "models"),
+    ]
+
+
+def pipeline_train_phase(data_dir: Path, emb_dir: Path, work: Path) -> dict:
+    """11c: nrtorch-train --tower latent at D = 1,024 on the dumps (the
+    launch counts set to 0 just before and read just after), then the same
+    command again, which must take every step from the cache with no
+    device work."""
+    from news_recommendation_project_v2_torch.cli import train as train_cli
+    from news_recommendation_project_v2_torch.pipeline import components as components_module
+
+    seen: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(components_module, "TowerTrainer", _timed_tower_trainer(seen)):
+        pipe, train_ctx, dev_ctx = train_cli.main(train_argv(data_dir, emb_dir, work))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _snapshot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    part_line(
+        "11c", command="nrtorch-train --tower latent", width=DIM, batch=512, seconds=seconds,
+        step_s={name: s for name, s, _ in pipe.step_log}, tower_epoch_s=seen["epoch_s"], pairs=seen["pairs"],
+        steps=seen["steps"], pairs_per_s=seen["pairs"] / seen["epoch_s"],
+        step_busy_share=seen["profile"]["busy_ms"] / seen["profile"]["wall_ms"], peak_gb=peak,
+        train=train_ctx["metrics"], dev=dev_ctx["metrics"], launches=counts["launches"],
+    )
+    for name, n in counts["launches"].items():
+        if n == 0:
+            raise AssertionError(f"11c: nrtorch-train never launched the {name} kernel")
+    for split in (train_ctx, dev_ctx):
+        if not all(0.0 <= split["metrics"][k] <= 1.0 for k in METRIC_KEYS):
+            raise AssertionError(f"11c: metrics {split['metrics']}")
+    first_dev = dev_ctx["metrics"]
+    del train_ctx, dev_ctx
+
+    from torch.profiler import ProfilerActivity, profile
+
+    zero_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe, _, dev_again = train_cli.main(train_argv(data_dir, emb_dir, work))
+        torch.cuda.synchronize()
+    device_events = sum(
+        e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    hits = {name: hit for name, _, hit in pipe.step_log}
+    part_line(
+        "11c", command="nrtorch-train again, cache on", seconds=time.perf_counter() - t0, cache_hits=hits,
+        step_s={name: s for name, s, _ in pipe.step_log}, device_kernels=device_events, launches=kernel_launches(),
+    )
+    if not (all(hits.values()) and device_events == 0 and not any(kernel_launches().values())):
+        raise AssertionError(f"11c rerun: cache hits {hits}, {device_events} device kernels")
+    if dev_again["metrics"] != first_dev:
+        raise AssertionError("11c rerun: the cached dev metrics differ from the run's")
+    return counts
+
+
+def pipeline_eval_serve_phase(data_dir: Path, emb_dir: Path, work: Path) -> None:
+    """11d: nrtorch-eval --ckpt of the best checkpoint against the flat eval
+    computed directly from it; nrtorch-serve --ckpt of it answers a POST
+    /rank (the CLI in its own process, stopped afterwards)."""
+    import socket
+
+    from news_recommendation_project_v2_torch.cli import eval as eval_cli
+    from news_recommendation_project_v2_torch.cli.common import build_context
+    from news_recommendation_project_v2_torch.config import DataSubset
+    from news_recommendation_project_v2_torch.eval.ranker import history_candidate_slots
+    from news_recommendation_project_v2_torch.ops.encode import load_embeddings
+    from news_recommendation_project_v2_torch.ops.scoring import _auto_flat_chunk
+    from news_recommendation_project_v2_torch.pipeline import TransformDataComponent
+    from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
+
+    ckpt = work / "models" / "attention" / "Best_model_e5_query_latent"
+    t0 = time.perf_counter()
+    ctx = eval_cli.main([str(data_dir), "--dataset", "MINDsmall_dev", "--emb-dir", str(emb_dir), "--ckpt", str(ckpt),
+                         "--log-dir", str(work / "logs")])
+    eval_s = time.perf_counter() - t0
+    compiled = TransformDataComponent().transform(
+        build_context(data_dir, NewsDataset.MINDsmall_dev, data_subset=DataSubset.WITH_HISTORY)
+    )["compiled"]
+    emb, query = load_embeddings(emb_dir, "MINDsmall_dev", with_query=True, align_to_news_ids=compiled.news_ids)
+    tower = build_tower(TowerConfig(kind="latent"))
+    tower.load_state_dict(load_pytree(ckpt))
+    tower.to("cuda")
+    slots, rows = history_candidate_slots(compiled)
+    view = compiled.with_history_view()
+    chunk = _auto_flat_chunk(DIM, int(np.minimum(view.hist_lens, HISTORY_BUCKETS[-1]).sum()), torch.device("cuda"))
+    plan = FlatEvalPlan(view.hist_rev, view.hist_lens, compiled.imp_rev[slots], rows, chunk_tokens=chunk,
+                        max_len=HISTORY_BUCKETS[-1], device="cuda")
+    mplan = DeviceMetricsPlan(compiled.imp_lens, compiled.labels_flat, hist_slots=slots, device="cuda")
+    direct = plan.metrics(tower, emb, mplan, query_news_emb=query)
+    diff = max(abs(ctx["metrics"][k] - direct[k]) for k in METRIC_KEYS)
+    part_line("11d", command="nrtorch-eval --ckpt", seconds=eval_s, metrics=ctx["metrics"], direct=direct,
+              max_abs_diff=diff, tol=EVAL_CLI_TOL)
+    if not diff <= EVAL_CLI_TOL:
+        raise AssertionError(f"11d: nrtorch-eval and the direct flat eval differ by {diff}")
+    del tower, plan, mplan
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ids = [str(n) for n in np.load(emb_dir / "MINDsmall_dev_ids.npy")[:40]]
+    hist, cands = ids[:20], ids[20:40]
+    with open(work / "serve.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "news_recommendation_project_v2_torch.cli.serve", str(emb_dir), "MINDsmall_dev",
+             "--ckpt", str(ckpt), "--port", str(port)],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
+        )
+        try:
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as resp:
+                        json.loads(resp.read())
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                        raise AssertionError("11d: nrtorch-serve did not come up: " + (work / "serve.log").read_text()[-2000:])
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/rank", data=json.dumps({"history": hist, "candidates": cands}).encode(),
+                method="POST",
+            )
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                ranked = json.loads(resp.read())["ranked"]
+            rank_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    check_ranked([(c, s) for c, s in ranked], cands)
+    part_line("11d", command="nrtorch-serve --ckpt", up_s=up_s, first_rank_ms=rank_ms, candidates=len(cands))
+
+
+def pipeline_cpu_check_phase(data_dir: Path, emb_dir: Path) -> None:
+    """11e: LoadEmbedding -> Classification -> Attention on 512 train and
+    256 dev rows of 11a's data and 11b's dumps, at full width, one epoch
+    each from the same starting weights, on the card and on the CPU."""
+    from news_recommendation_project_v2_torch.cli.common import build_context
+    from news_recommendation_project_v2_torch.cli.train import _PerSplitLoad
+    from news_recommendation_project_v2_torch.pipeline import (
+        AttentionComponent,
+        ClassificationComponent,
+        Pipeline,
+        TransformDataComponent,
+    )
+
+    cfg = TrainConfig(num_epochs=1, batch_size=512)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        attention = AttentionComponent(tower_config=TowerConfig(kind="latent"), cfg=cfg, device=device)
+        pipe = Pipeline("check", [
+            ("init_transform", TransformDataComponent()),
+            ("load_embedding", _PerSplitLoad(emb_dir)),
+            ("classification", ClassificationComponent(cfg=cfg, device=device)),
+            ("only_attention", attention),
+        ], use_cache=False)
+        contexts = [build_context(data_dir, NewsDataset[name], num_samples=n) for name, n in CHECK_ROWS.items()]
+        train_ctx, dev_ctx = pipe.train(*contexts)
+        runs[device] = dict(
+            seconds=time.perf_counter() - t0, train=train_ctx["metrics"], dev=dev_ctx["metrics"],
+            weights={k: v.detach().cpu() for k, v in attention.tower.state_dict().items()},
+        )
+    card, cpu = runs["cuda"], runs["cpu"]
+    w_err = norm_rel(torch.cat([v.flatten() for v in card["weights"].values()]),
+                     torch.cat([v.flatten() for v in cpu["weights"].values()]))
+    m_err = max(
+        norm_rel(torch.tensor([card[s][k] for k in METRIC_KEYS]), torch.tensor([cpu[s][k] for k in METRIC_KEYS]))
+        for s in ("train", "dev")
+    )
+    part_line("11e", rows=CHECK_ROWS, width=DIM, card_s=card["seconds"], cpu_s=cpu["seconds"], dev=card["dev"],
+              metrics_norm_rel=m_err, weights_norm_rel=w_err, tol=PIPE_CPU_TOL)
+    if not (m_err <= PIPE_CPU_TOL and w_err <= PIPE_CPU_TOL):
+        raise AssertionError(f"11e: card and CPU differ: metrics {m_err}, weights {w_err}")
+
+
+def pipeline_reproduce_phase(work: Path) -> None:
+    """11f: nrtorch-reproduce --synthetic --epochs 1 --with-e2e with the
+    full-width e5-large on write_synthetic_mind's default fixture (60 news,
+    40 rows a split; reduced), then nrtorch-train-e2e at --dim 1024 on it."""
+    from news_recommendation_project_v2_torch.cli import reproduce as reproduce_cli
+    from news_recommendation_project_v2_torch.cli import train_e2e as train_e2e_cli
+
+    root = work / "repro"
+    t0 = time.perf_counter()
+    rows = reproduce_cli.main([str(root), "--synthetic", "--epochs", "1", "--with-e2e", "--out", str(root / "rows.json")])
+    repro_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = train_e2e_cli.main([str(root), "--epochs", "1", "--dim", str(DIM), "--log-dir", str(root / "logs"),
+                              "--ckpt-dir", str(root / "models")])
+    part_line("11f", reproduce_s=repro_s, rows=rows, train_e2e_s=time.perf_counter() - t0, train_e2e=ctx["metrics"],
+              reduced="write_synthetic_mind's 60 news and 40 rows a split")
+    if [r["config"] for r in rows] != [0, 1, 2] or not all(np.isfinite(r[k]) for r in rows for k in METRIC_KEYS):
+        raise AssertionError(f"11f: reproduce rows {rows}")
+    if not all(np.isfinite(ctx["metrics"][k]) for k in METRIC_KEYS):
+        raise AssertionError(f"11f: train-e2e metrics {ctx['metrics']}")
+
+
+def pipeline_phase(work_dir: Path) -> dict:
+    """Phase 11 (11a-11f) in a temporary directory deleted afterwards, the
+    working directory moved there (the train CLI's cache is ./cache); each
+    part's wall time printed. Returns 11c's launches and shapes."""
+    import os
+    import tempfile
+
+    seconds = {}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    resolve_device("cuda")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=work_dir) as tmp:
+        work = Path(tmp)
+        data_dir, emb_dir = work / "data", work / "emb"
+        os.chdir(work)
+        try:
+            timed("11a", pipeline_ingest_phase, data_dir)
+            timed("11b", pipeline_save_emb_phase, data_dir, emb_dir)
+            counts = timed("11c", pipeline_train_phase, data_dir, emb_dir, work)
+            timed("11d", pipeline_eval_serve_phase, data_dir, emb_dir, work)
+            timed("11e", pipeline_cpu_check_phase, data_dir, emb_dir)
+            timed("11f", pipeline_reproduce_phase, work)
+        finally:
+            os.chdir(cwd)
+    log(json.dumps({"part": "11 wall seconds", **seconds}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2610,6 +3035,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape NV-Embed's head launched them at:")
     records["encoder"] = (main_path_phase(encoded["shapes"], gen, path="encoder"), encoded["launches"])
+
+    log("phase 11 the pipeline and the CLIs from MIND's raw TSVs at full width " + since(t_start))
+    piped = pipeline_phase(work_dir)
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape nrtorch-train launched them at:")
+    records["pipeline"] = (main_path_phase(piped["shapes"], gen, path="pipeline"), piped["launches"])
 
     kernels = [
         {

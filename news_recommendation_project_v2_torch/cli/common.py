@@ -1,15 +1,18 @@
-"""Shared CLI plumbing: the news encoder and its tokenizer."""
+"""Shared CLI plumbing: a dataset's pipeline context, the news encoder and
+its tokenizer, and the final scores' log."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+from datetime import datetime
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from ..config import EncoderConfig
+from ..config import DataSubset, EncoderConfig, NewsDataset
+from ..data.ingest import load_dataset
 from ..device import resolve_device
 from ..models import DTYPES
 from ..models.convert import encoder_state_dict_from_hf
@@ -20,6 +23,50 @@ from ..models.news_encoder import (
     init_random_weights,
     load_hf_weights,
 )
+
+
+def build_context(
+    data_dir: Path,
+    dataset: NewsDataset,
+    data_subset: DataSubset = DataSubset.ALL,
+    num_samples: Optional[int] = None,
+) -> dict:
+    """The entry context of a pipeline run over ``dataset``'s processed
+    store (``data.ingest.load_dataset``): the behaviors rows, the news
+    texts, the dataset's name and the per-news category and entity
+    features."""
+    ds = load_dataset(data_dir, dataset, num_samples=num_samples, data_subset=data_subset)
+    return {
+        "behaviors": ds.behaviors,
+        "news_text_dict": ds.news_text,
+        "dataset_name": dataset.value,
+        "news_category": ds.news_category,
+        "news_subcategory": ds.news_subcategory,
+        "news_title_entity": ds.news_title_entity,
+        "news_abstract_entity": ds.news_abstract_entity,
+    }
+
+
+def tiny_encoder_config(max_length: int, dim: int = 128) -> EncoderConfig:
+    """A small random BERT-layout encoder for offline and synthetic runs: a
+    5,003-word vocabulary, 2 layers of 4 heads at ``dim``, an MLP of
+    ``2 * dim``."""
+    return EncoderConfig(
+        vocab_size=5003,
+        hidden_dim=dim,
+        num_layers=2,
+        num_heads=4,
+        intermediate_dim=2 * dim,
+        max_position=max_length + 2,
+    )
+
+
+def add_device_argument(parser) -> None:
+    parser.add_argument(
+        "--device",
+        default=None,
+        help="torch device (default: cuda; cpu runs the kernels' plain versions)",
+    )
 
 
 def build_encoder(
@@ -85,3 +132,23 @@ def build_encoder(
         enc = NewsEncoder(cfg)
     enc.load_state_dict(encoder_state_dict_from_hf(load_hf_weights(path), cfg), assign=True)
     return enc.to(device, DTYPES[cfg.param_dtype]).eval(), tok
+
+
+def log_final_scores(
+    log_dir: Path, exp_name: str, train_metrics: Optional[dict], val_metrics: Optional[dict]
+) -> None:
+    """Append a run's final metrics to ``log_dir/final_scores.jsonl``."""
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with open(log_dir / "final_scores.jsonl", "a") as f:
+        f.write(
+            json.dumps(
+                {
+                    "timestamp": datetime.now().isoformat(),
+                    "exp_name": exp_name,
+                    "train_scores": train_metrics,
+                    "eval_scores": val_metrics,
+                }
+            )
+            + "\n"
+        )

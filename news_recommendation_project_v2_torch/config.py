@@ -4,7 +4,31 @@ settings (the port's own copy)."""
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional
+
+
+class NewsDataset(enum.Enum):
+    """The MIND splits."""
+
+    MINDsmall_train = "MINDsmall_train"
+    MINDsmall_dev = "MINDsmall_dev"
+    MINDlarge_train = "MINDlarge_train"
+    MINDlarge_dev = "MINDlarge_dev"
+    MINDlarge_test = "MINDlarge_test"
+
+
+class DataSubset(enum.Enum):
+    """Which behaviors rows a load keeps: those with a history, those
+    without, or all."""
+
+    WITH_HISTORY = "with_history"
+    WITHOUT_HISTORY = "without_history"
+    ALL = "all"
+
+
+# The width of MIND's entity vectors (``entity_embedding.vec``).
+ENTITY_EMBEDDING_DIM = 100
 
 # The news encoder: intfloat/multilingual-e5-large-instruct, its token cap,
 # and the e5 instruction prompts (query side; the classification prompt).
@@ -50,6 +74,18 @@ def bucket_for_open(length: int, buckets: tuple[int, ...]) -> int:
             return b
     step = buckets[-1]
     return -(-length // step) * step
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of the multi-GPU presets (config[3..4]): ``data``
+    shards the batches, ``model`` the news table's rows. The port runs on
+    one device until the multi-GPU slice (ROADMAP.md §1)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_size: int = -1  # -1: every device
+    model_size: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,21 @@
-"""Preset experiment configurations. This port has config[0], the frozen
-mean-pool scorer (no training, the bucketed eval); config[1], a user tower
+"""Preset experiment configurations: the five scenarios of
+``BASELINE_CONFIGS`` and runners for three of them. config[0] is the frozen
+mean-pool scorer (no training, the bucketed eval); config[1] a user tower
 trained on frozen news embeddings, with epoch evals and the MIND metrics;
-and config[2], a learned token encoder and the latent tower trained end to
-end from frozen per-token states. The multi-GPU presets (config[3..4]) wait
-for their modules (ROADMAP.md §1)."""
+config[2] a learned token encoder and the latent tower trained end to end
+from frozen per-token states. The multi-GPU presets (config[3..4]) wait for
+their modules (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 
 import torch
 
-from .config import HISTORY_BUCKETS, TowerConfig, TrainConfig
+from .config import HISTORY_BUCKETS, MeshConfig, TowerConfig, TrainConfig
 from .data.compiler import CompiledBehaviors
 from .eval.ranker import compose_final_scores, history_candidate_slots
 from .device import resolve_device
@@ -24,10 +26,65 @@ from .ops.scoring import score_all_impressions
 from .train.trainer import EndToEndTrainer, TowerTrainer, _fused_eval_metrics
 
 
-def run_config0(compiled: CompiledBehaviors, news_embeddings: np.ndarray, device=None) -> dict:
+@dataclasses.dataclass(frozen=True)
+class BaselineScenario:
+    index: int
+    description: str
+    tower: Optional[TowerConfig]
+    train: Optional[TrainConfig]
+    mesh: Optional[MeshConfig]
+
+
+BASELINE_CONFIGS: tuple[BaselineScenario, ...] = (
+    BaselineScenario(
+        0,
+        "frozen embeddings + mean-pooled history + dot-product scorer",
+        tower=None,
+        train=None,
+        mesh=None,
+    ),
+    BaselineScenario(
+        1,
+        "latent-attention user tower + in-batch (InfoNCE) negatives",
+        tower=TowerConfig(kind="latent"),
+        train=TrainConfig(num_epochs=5, loss="infonce"),
+        mesh=None,
+    ),
+    BaselineScenario(
+        2,
+        "end-to-end trained news encoder + latent user tower",
+        tower=TowerConfig(kind="latent"),
+        train=TrainConfig(num_epochs=5, learning_rate=1e-6),
+        mesh=None,
+    ),
+    BaselineScenario(
+        3,
+        "row-sharded embedding table, data-parallel towers",
+        tower=TowerConfig(kind="latent"),
+        train=TrainConfig(num_epochs=5),
+        mesh=MeshConfig(model_size=2),
+    ),
+    BaselineScenario(
+        4,
+        "multi-host full pipeline: sharded encode -> dump -> on-device ranking",
+        tower=TowerConfig(kind="latent"),
+        train=TrainConfig(num_epochs=5),
+        mesh=MeshConfig(model_size=2),
+    ),
+)
+
+
+def run_config0(
+    compiled: CompiledBehaviors,
+    news_embeddings: np.ndarray,
+    query_news_embeddings: Optional[np.ndarray] = None,
+    device=None,
+) -> dict:
     """Config[0]: no training; each user vector is the mean of its history's
-    embeddings (the most recent ``HISTORY_BUCKETS[-1]`` clicks), candidates
-    scored by cosine, the MIND metrics. ``device=None`` means CUDA."""
+    embeddings (the most recent ``HISTORY_BUCKETS[-1]`` clicks), read from
+    ``query_news_embeddings`` (``None``: ``news_embeddings``), candidates
+    scored by cosine against ``news_embeddings``, the MIND metrics.
+    ``device=None`` means CUDA."""
     slots, cand_rows = history_candidate_slots(compiled)
     view = compiled.with_history_view()
     scores = score_all_impressions(
@@ -37,6 +94,7 @@ def run_config0(compiled: CompiledBehaviors, news_embeddings: np.ndarray, device
         view.hist_lens,
         compiled.imp_rev[slots],
         cand_rows,
+        query_news_emb=query_news_embeddings,
         device=device,
     )
     return compose_final_scores(compiled, history_scores=scores).metrics
@@ -117,4 +175,4 @@ def run_config2(
     )
     trainer.train()
     news_emb = torch.from_numpy(trainer.materialize_news_embeddings(batch_size=32)).to(device)
-    return _fused_eval_metrics({}, trainer.tower, compiled, news_emb, HISTORY_BUCKETS[-1], device)
+    return _fused_eval_metrics({}, trainer.tower, compiled, news_emb, None, HISTORY_BUCKETS[-1], device)

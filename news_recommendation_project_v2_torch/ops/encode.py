@@ -168,14 +168,40 @@ def save_embeddings(
         np.save(save_dir / f"{dataset_name}_ids.npy", np.asarray(news_ids, dtype=np.str_))
 
 
-def load_embeddings(save_dir: Path, dataset_name: str, with_query: bool = False):
+def load_embeddings(
+    save_dir: Path,
+    dataset_name: str,
+    with_query: bool = False,
+    align_to_news_ids: Optional[np.ndarray] = None,
+):
     """``emb``, or ``(emb, query)`` with ``with_query`` (FileNotFoundError if
-    the dump has no query table)."""
+    the dump has no query table).
+
+    With ``align_to_news_ids`` the rows are reordered to that news-id order
+    through the dump's id key (``{dataset}_ids.npy``), so a dump written for
+    one run's rows serves another's: ``FileNotFoundError`` if the dump has no
+    id key, ``KeyError`` naming the first id the dump lacks."""
     save_dir = Path(save_dir)
     emb = np.load(save_dir / f"{dataset_name}.npy")
+    query = np.load(save_dir / f"query_{dataset_name}.npy") if with_query else None
+    if align_to_news_ids is not None:
+        ids_path = save_dir / f"{dataset_name}_ids.npy"
+        if not ids_path.exists():
+            raise FileNotFoundError(
+                f"{ids_path} missing: this dump is positional-only and cannot "
+                "be realigned; re-run save_emb to write the id key"
+            )
+        row_of = {str(n): i for i, n in enumerate(np.load(ids_path))}
+        try:
+            order = np.array([row_of[str(n)] for n in align_to_news_ids], dtype=np.int64)
+        except KeyError as e:
+            raise KeyError(f"news id {e.args[0]!r} not present in embedding dump {dataset_name!r}") from None
+        emb = emb[order]
+        if query is not None:
+            query = query[order]
     if not with_query:
         return emb
-    return emb, np.load(save_dir / f"query_{dataset_name}.npy")
+    return emb, query
 
 
 # ---------------------------------------------------------------------------

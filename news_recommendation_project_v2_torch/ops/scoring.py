@@ -111,8 +111,11 @@ def user_vectors_device(
     device=None,
 ) -> torch.Tensor:
     """[num_rows, D] float32 user vectors on the device, by the bucketed
-    path. ``tower(gathered [B, L, D], mask [B, L])`` returns [B, D] (D the
-    table's width, as ``models.check_tower_input_dim`` requires); it is
+    path. ``news_emb`` is the table the histories are read from: the query
+    table where the caller has one (``score_all_impressions`` passes its
+    ``query_news_emb``). ``tower(gathered [B, L, D], mask [B, L])`` returns
+    [B, D] (D the table's width, as ``models.check_tower_input_dim``
+    requires); it is
     called on full [batch, bucket] blocks, pad rows included (length 0, all
     masked), whose outputs are dropped. The flat history indices are
     uploaded once, and each bucket's starts, lengths and rows once."""
@@ -146,7 +149,8 @@ def user_vectors_bucketed(
     buckets: tuple[int, ...] = HISTORY_BUCKETS,
     device=None,
 ) -> np.ndarray:
-    """``user_vectors_device`` fetched to the host, as float32."""
+    """``user_vectors_device`` fetched to the host, as float32 (``news_emb``
+    is the history table, as there)."""
     return user_vectors_device(tower, news_emb, hist_rev, hist_lens, batch_size, buckets, device).cpu().numpy()
 
 
@@ -157,16 +161,18 @@ def score_all_impressions(
     hist_lens: np.ndarray,
     cand_rev: np.ndarray,
     cand_row: np.ndarray,
+    query_news_emb=None,
     batch_size: int = 512,
     buckets: tuple[int, ...] = HISTORY_BUCKETS,
     flat_tokens: bool = False,
     flat_max_len: Optional[int] = None,
     device=None,
 ) -> np.ndarray:
-    """The eval's scores: the tower over the histories (read from
-    ``news_emb``), then the cosine of every candidate slot. ``cand_row``
-    indexes the rows of ``hist_lens`` (the caller has kept only the
-    with-history rows' slots).
+    """The eval's scores: the tower over the histories, read from
+    ``query_news_emb`` (e5's query-instruction table; ``None``:
+    ``news_emb``), then the cosine of every candidate slot against
+    ``news_emb``. ``cand_row`` indexes the rows of ``hist_lens`` (the caller
+    has kept only the with-history rows' slots).
 
     The bucketed path by default; ``flat_tokens=True`` takes the flat path
     (a one-shot ``FlatEvalPlan``; token-local towers only), in the token
@@ -177,6 +183,7 @@ def score_all_impressions(
         raise ValueError("cand_row indexes rows beyond hist_lens")
     device = resolve_device(device)
     news = torch.as_tensor(news_emb, device=device)
+    query = news if query_news_emb is None else torch.as_tensor(query_news_emb, device=device)
     if flat_tokens:
         lens = np.asarray(hist_lens)
         tokens = int((lens if flat_max_len is None else np.minimum(lens, flat_max_len)).sum())
@@ -184,8 +191,8 @@ def score_all_impressions(
             hist_rev, hist_lens, cand_rev, cand_row,
             chunk_tokens=_auto_flat_chunk(tower.dim, tokens, device), max_len=flat_max_len, device=device,
         )
-        return plan.score(tower, news)
-    user = user_vectors_device(tower, news, hist_rev, hist_lens, batch_size, buckets, device)
+        return plan.score(tower, news, query)
+    user = user_vectors_device(tower, query, hist_rev, hist_lens, batch_size, buckets, device)
     return cosine_scores_chunked(user, news, cand_rev, cand_row)
 
 

@@ -28,7 +28,11 @@ hist_rev [B], pos_idx [B], neg_idx, pair_mask)``, as
 resident on the card.
 
 In all of them, the pair rows gather the user vectors and score the
-candidates by cosine; pair rows with mask 0 are pad. On CUDA the latent
+candidates by cosine; pair rows with mask 0 are pad. The tower steps take
+two tables, as the JAX package's do: ``news_emb`` holds the candidates (the
+positives and negatives) and ``query_emb`` the history tokens the tower
+reads (e5's instruction-prefixed encodings, which ``save_emb`` writes beside
+the passage table); ``query_emb=None`` is ``news_emb``. On CUDA the latent
 tower's forward runs through both hand-written kernels, under their
 ``torch.autograd.Function``s.
 
@@ -145,44 +149,51 @@ def _pair_infonce_loss(user, news_emb, hist_rev, pos_idx, neg_idx, pair_mask) ->
     return infonce_loss(pos_scores, neg_scores, neg_valid, 1.0, pair_mask)
 
 
-def flat_margin_loss(tower, news_emb, batch, margin: float) -> torch.Tensor:
+def _query(news_emb: torch.Tensor, query_emb: Optional[torch.Tensor]) -> torch.Tensor:
+    return news_emb if query_emb is None else query_emb
+
+
+def flat_margin_loss(tower, news_emb, batch, margin: float, query_emb=None) -> torch.Tensor:
     """The margin-ranking loss of one flat batch (graph kept for backward)."""
     tok_idx, tok_rows, lens, *pairs = batch
-    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+    user = flat_user_vectors(tower, _query(news_emb, query_emb), tok_idx, tok_rows, lens, tower.output_normalize)
     return _pair_margin_loss(user, news_emb, *pairs, margin)
 
 
-def flat_infonce_loss(tower, news_emb, batch) -> torch.Tensor:
+def flat_infonce_loss(tower, news_emb, batch, query_emb=None) -> torch.Tensor:
     """InfoNCE of one flat batch at temperature 1, as the JAX package's
     flat step takes it (graph kept for backward)."""
     tok_idx, tok_rows, lens, *pairs = batch
-    user = flat_user_vectors(tower, news_emb, tok_idx, tok_rows, lens, tower.output_normalize)
+    user = flat_user_vectors(tower, _query(news_emb, query_emb), tok_idx, tok_rows, lens, tower.output_normalize)
     return _pair_infonce_loss(user, news_emb, *pairs)
 
 
-def padded_margin_loss(tower, news_emb, batch, margin: float, generator=None) -> torch.Tensor:
+def padded_margin_loss(tower, news_emb, batch, margin: float, generator=None, query_emb=None) -> torch.Tensor:
     """The margin-ranking loss of one padded batch (graph kept)."""
     hist_idx, hist_mask, *pairs = batch
-    return _pair_margin_loss(padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator), news_emb, *pairs, margin)
+    user = padded_user_vectors(tower, _query(news_emb, query_emb), hist_idx, hist_mask, generator)
+    return _pair_margin_loss(user, news_emb, *pairs, margin)
 
 
-def padded_infonce_loss(tower, news_emb, batch, generator=None) -> torch.Tensor:
+def padded_infonce_loss(tower, news_emb, batch, generator=None, query_emb=None) -> torch.Tensor:
     """InfoNCE of one padded batch at temperature 1 (graph kept)."""
     hist_idx, hist_mask, *pairs = batch
-    return _pair_infonce_loss(padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator), news_emb, *pairs)
+    user = padded_user_vectors(tower, _query(news_emb, query_emb), hist_idx, hist_mask, generator)
+    return _pair_infonce_loss(user, news_emb, *pairs)
 
 
 def joint_margin_loss(
-    tower, news_emb, batch, margin: float, blend=None, reduce=None, generator=None
+    tower, news_emb, batch, margin: float, blend=None, reduce=None, generator=None, query_emb=None
 ) -> torch.Tensor:
     """The margin loss of the tower trained jointly with ``reduce`` (a
     projector applied to the history rows and to both candidates before the
     tower and the cosine) and/or ``blend`` (a ``WeightedSumModel`` blending
     each cosine with the candidate's content baseline). ``batch`` is a
     padded batch followed by the baselines of the positives and the
-    negatives [B]."""
+    negatives [B]. The histories are read from ``query_emb`` (default
+    ``news_emb``), the candidates from ``news_emb``."""
     hist_idx, hist_mask, hist_rev, pos_idx, neg_idx, pair_mask, baseline_pos, baseline_neg = batch
-    user = padded_user_vectors(tower, news_emb, hist_idx, hist_mask, generator, reduce)
+    user = padded_user_vectors(tower, _query(news_emb, query_emb), hist_idx, hist_mask, generator, reduce)
     u = gather_rows(user, hist_rev)
     cand_p, cand_n = news_emb[pos_idx.long()], news_emb[neg_idx.long()]
     if reduce is not None:
@@ -269,11 +280,11 @@ def apply_step(optimizer, loss: torch.Tensor) -> torch.Tensor:
     return loss.detach()
 
 
-def flat_margin_step(tower, optimizer, news_emb, batch, margin: float) -> torch.Tensor:
+def flat_margin_step(tower, optimizer, news_emb, batch, margin: float, query_emb=None) -> torch.Tensor:
     """One optimizer step on the margin loss of a flat ``batch``."""
-    return apply_step(optimizer, flat_margin_loss(tower, news_emb, batch, margin))
+    return apply_step(optimizer, flat_margin_loss(tower, news_emb, batch, margin, query_emb))
 
 
-def flat_infonce_step(tower, optimizer, news_emb, batch) -> torch.Tensor:
+def flat_infonce_step(tower, optimizer, news_emb, batch, query_emb=None) -> torch.Tensor:
     """One optimizer step on the InfoNCE loss of a flat ``batch``."""
-    return apply_step(optimizer, flat_infonce_loss(tower, news_emb, batch))
+    return apply_step(optimizer, flat_infonce_loss(tower, news_emb, batch, query_emb))

@@ -138,6 +138,7 @@ def _fused_eval_metrics(
     tower: torch.nn.Module,
     compiled: CompiledBehaviors,
     news_emb: torch.Tensor,
+    query_emb: Optional[torch.Tensor],
     max_len: int,
     device: torch.device,
     baseline: Optional[np.ndarray] = None,
@@ -145,8 +146,10 @@ def _fused_eval_metrics(
 ) -> dict[str, float]:
     """Epoch eval through ``FlatEvalPlan.metrics``: the tower, the cosine, the
     score composition and the MIND metrics on one device, five scalars
-    fetched. The plans (index grids, metric grids, the baseline's slots) are
-    built once per compiled set and cached in ``plan_cache``. Equal to
+    fetched. The tower reads the histories from ``query_emb`` (``None``:
+    ``news_emb``), the candidates come from ``news_emb``. The plans (index
+    grids, metric grids, the baseline's slots) are built once per compiled
+    set and cached in ``plan_cache``. Equal to
     ``score_all_impressions(flat_tokens=True)`` +
     ``compose_final_scores(...).metrics``."""
     plans = plan_cache.get(id(compiled))
@@ -171,7 +174,7 @@ def _fused_eval_metrics(
         )
         plans = plan_cache[id(compiled)] = (fplan, mplan)
     fplan, mplan = plans
-    return fplan.metrics(tower, news_emb, mplan, alpha=alpha)
+    return fplan.metrics(tower, news_emb, mplan, query_news_emb=query_emb, alpha=alpha)
 
 
 class ResumableTrainer:
@@ -280,8 +283,10 @@ class TowerTrainer(ResumableTrainer):
     tensors, ``[num_news, D]`` float32. ``device=None`` means CUDA
     (``device.resolve_device``): without CUDA it raises, and
     ``device="cpu"`` runs the kernels' plain versions. The history tokens
-    are looked up in the same tables as the candidates. Dropout, where the
-    tower has it, draws from ``generator``, seeded from ``cfg.seed``.
+    are looked up in ``query_news_emb_train`` and ``query_news_emb_val``
+    (e5's query-side tables), the candidates in the news tables; a query
+    table left ``None`` is its split's news table. Dropout, where the tower
+    has it, draws from ``generator``, seeded from ``cfg.seed``.
     ``mesh=`` (multi-GPU) raises ``NotImplementedError``.
     """
 
@@ -293,6 +298,8 @@ class TowerTrainer(ResumableTrainer):
         compiled_val: Optional[CompiledBehaviors] = None,
         news_emb_val=None,
         cfg: TrainConfig = TrainConfig(),
+        query_news_emb_train=None,
+        query_news_emb_val=None,
         log_dir: Optional[Path] = None,
         ckpt_dir: Optional[Path] = None,
         exp_name: str = "",
@@ -324,6 +331,8 @@ class TowerTrainer(ResumableTrainer):
         self.cv = compiled_val
         self.news_emb_train = self._table(news_emb_train)
         self.news_emb_val = self._table(news_emb_val)
+        self.query_train = self.news_emb_train if query_news_emb_train is None else self._table(query_news_emb_train)
+        self.query_val = self.news_emb_val if query_news_emb_val is None else self._table(query_news_emb_val)
         self.log_dir = log_dir
         self.exp_name = exp_name
         self.buckets = buckets
@@ -441,14 +450,14 @@ class TowerTrainer(ResumableTrainer):
             yield float(batch[-1].sum()), _pinned(batch, self.device)
 
     def _train_step(self, batch) -> torch.Tensor:
-        cfg, tower, news = self.cfg, self.tower, self.news_emb_train
+        cfg, tower, news, query = self.cfg, self.tower, self.news_emb_train, self.query_train
         if self.flat_train:
             if cfg.loss == "infonce":
-                return flat_infonce_step(tower, self.optimizer, news, batch)
-            return flat_margin_step(tower, self.optimizer, news, batch, cfg.margin)
+                return flat_infonce_step(tower, self.optimizer, news, batch, query)
+            return flat_margin_step(tower, self.optimizer, news, batch, cfg.margin, query)
         if cfg.loss == "infonce":
-            return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, self.generator))
-        return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, self.generator))
+            return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, self.generator, query))
+        return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, self.generator, query))
 
     def train_one_epoch(self) -> float:
         """One epoch of steps; returns the pair-weighted mean loss. The loss
@@ -473,16 +482,18 @@ class TowerTrainer(ResumableTrainer):
         self,
         compiled: CompiledBehaviors,
         news_emb: torch.Tensor,
+        query_emb: Optional[torch.Tensor],
         baseline: Optional[np.ndarray] = None,
         alpha: Optional[float] = None,
     ) -> dict[str, float]:
-        """One split's metrics: the tower's cosine scores on the history
+        """One split's metrics: the tower over the histories read from
+        ``query_emb``, its cosine scores against ``news_emb`` on the history
         slots, composed with ``baseline`` (per unique news) and ``alpha`` as
         ``eval.ranker.compose_final_scores`` does."""
         max_len = self.buckets[-1]  # the train step's cap, so both see the same histories
         if self.device_metrics:
             return _fused_eval_metrics(
-                self._fused_plans, self.tower, compiled, news_emb, max_len, self.device, baseline, alpha
+                self._fused_plans, self.tower, compiled, news_emb, query_emb, max_len, self.device, baseline, alpha
             )
         slots, cand_rows = history_candidate_slots(compiled)
         scores = score_all_impressions(
@@ -492,6 +503,7 @@ class TowerTrainer(ResumableTrainer):
             compiled.hist_lens,
             compiled.imp_rev[slots],
             cand_rows,
+            query_news_emb=query_emb,
             batch_size=self.cfg.batch_size,
             buckets=self.buckets,
             flat_tokens=self.flat_eval,
@@ -501,8 +513,8 @@ class TowerTrainer(ResumableTrainer):
         return compose_final_scores(compiled, history_scores=scores, baseline_scores=baseline, alpha=alpha).metrics
 
     def evaluate(self) -> tuple[dict, Optional[dict]]:
-        train_scores = self._eval_split(self.ct, self.news_emb_train)
-        val_scores = self._eval_split(self.cv, self.news_emb_val) if self.cv is not None else None
+        train_scores = self._eval_split(self.ct, self.news_emb_train, self.query_train)
+        val_scores = self._eval_split(self.cv, self.news_emb_val, self.query_val) if self.cv is not None else None
         return train_scores, val_scores
 
 
@@ -513,8 +525,9 @@ class JointTowerTrainer(TowerTrainer):
     projector, under one ``ClippedAdamW`` over all of them: margin loss only,
     the padded step.
 
-    With a reducer, both tables are reduced at eval, the history table and
-    the candidate table, as in training. With a blend, the history slots
+    With a reducer, both tables are reduced at eval, the history (query)
+    table and the candidate table, as in training. With a blend, the history
+    slots
     score ``sigmoid(alpha) * cos + (1 - sigmoid(alpha)) * baseline`` (through
     ``compose_final_scores``, or ``DeviceMetricsPlan`` with the flat eval of
     the latent tower). ``baseline_train`` and ``baseline_val`` are per unique
@@ -566,7 +579,8 @@ class JointTowerTrainer(TowerTrainer):
 
     def _train_step(self, batch) -> torch.Tensor:
         loss = joint_margin_loss(
-            self.tower, self.news_emb_train, batch, self.cfg.margin, self.blend, self.reduce, self.generator
+            self.tower, self.news_emb_train, batch, self.cfg.margin, self.blend, self.reduce, self.generator,
+            self.query_train,
         )
         return apply_step(self.optimizer, loss)
 
@@ -574,14 +588,21 @@ class JointTowerTrainer(TowerTrainer):
         return None if self.blend is None else float(torch.sigmoid(self.blend.alpha.detach()))
 
     @torch.no_grad()
-    def _reduced(self, table: torch.Tensor) -> torch.Tensor:
-        return table if self.reduce is None else self.reduce(table)
+    def _reduced(self, news: torch.Tensor, query: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Both tables through the reducer (a query table that is the news
+        table once)."""
+        if self.reduce is None:
+            return news, query
+        reduced = self.reduce(news)
+        return reduced, reduced if query is news else self.reduce(query)
 
     def evaluate(self) -> tuple[dict, Optional[dict]]:
         alpha = self._alpha()
-        train_scores = self._eval_split(self.ct, self._reduced(self.news_emb_train), self.baseline_train, alpha)
+        train_scores = self._eval_split(
+            self.ct, *self._reduced(self.news_emb_train, self.query_train), self.baseline_train, alpha
+        )
         val_scores = (
-            self._eval_split(self.cv, self._reduced(self.news_emb_val), self.baseline_val, alpha)
+            self._eval_split(self.cv, *self._reduced(self.news_emb_val, self.query_val), self.baseline_val, alpha)
             if self.cv is not None
             else None
         )
@@ -901,7 +922,7 @@ class EndToEndTrainer(ResumableTrainer):
         emb = torch.from_numpy(self.materialize_news_embeddings(store=store)).to(self.device)
         max_len = self.buckets[-1]
         if self.device_metrics:
-            return _fused_eval_metrics(self._fused_plans, self.tower, compiled, emb, max_len, self.device)
+            return _fused_eval_metrics(self._fused_plans, self.tower, compiled, emb, None, max_len, self.device)
         slots, cand_rows = history_candidate_slots(compiled)
         scores = score_all_impressions(
             self.tower, emb, compiled.hist_rev, compiled.hist_lens, compiled.imp_rev[slots], cand_rows,

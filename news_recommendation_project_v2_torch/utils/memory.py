@@ -143,6 +143,23 @@ def estimate_metric_rows(
     return _floor_pow2(budget // max(16 * 4 * max(max_len, 1), 1), lo=64)
 
 
+def estimate_head_batch(
+    in_dim: int,
+    hidden_dim: int = 4096,
+    train: bool = False,
+    hbm_budget_bytes: Optional[int] = None,
+    fraction: float = 0.25,
+    device: Optional[torch.device] = None,
+) -> int:
+    """The content scorer's (``ClassificationHead``) batch: a row costs its
+    MLP widths, ``in_dim + 2 * hidden_dim`` float32 values, times
+    ``TRAIN_MULTIPLIER`` for a train step; a multiple of 8 in ``fraction``
+    of the device's memory (16 GiB on the CPU)."""
+    budget = _budget(hbm_budget_bytes, fraction, device)
+    per_row = (in_dim + 2 * hidden_dim) * 4 * (TRAIN_MULTIPLIER if train else 1)
+    return _floor_multiple(budget // max(per_row, 1), 8)
+
+
 def estimate_serve_batch_cap(
     dim: int,
     history_len: int,

@@ -858,3 +858,70 @@ def test_corpus_encode_and_token_store_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert np.array_equal(res["cuda"][1].offsets, res["cpu"][1].offsets)
     np.testing.assert_allclose(res["cuda"][1].states, res["cpu"][1].states, rtol=0, atol=1e-5)
+
+
+def test_query_table_step_on_cuda_matches_cpu(cuda):
+    """The flat margin step reading its histories from a query table that
+    differs from the passage table: the loss within 1e-6 and the gradients
+    within a norm-relative 1e-5 of the CPU, and unlike the step that reads
+    the passage table."""
+    imps, hist, emb = synthetic_learnable_behaviors(num_news=80, num_rows=120, dim=64, noise=0.05, seed=3)
+    c = compile_behaviors(imps, hist).with_history_view()
+    news = align_embeddings(c.news_ids, emb)
+    q = news + 0.7 * np.random.default_rng(1).standard_normal(news.shape).astype(np.float32)
+    query = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    tower = build_tower(SMALL_TOWER)
+    trainer = TowerTrainer(tower, c, news, cfg=TrainConfig(batch_size=64, seed=0), device="cpu")
+    batch = next(iter(trainer._epoch_batches_flat()))
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(0), SMALL_TOWER))
+    results = []
+    for dev in ("cpu", cuda):
+        t = build_tower(SMALL_TOWER)
+        t.load_state_dict(state)
+        t.to(dev)
+        args = (torch.from_numpy(news).to(dev), tuple(torch.from_numpy(a).to(dev) for a in batch))
+        loss = flat_margin_loss(t, *args, 2.0, query_emb=torch.from_numpy(query).to(dev))
+        loss.backward()
+        results.append((loss.item(), [p.grad.cpu() for p in t.parameters()]))
+        with torch.no_grad():
+            assert abs(flat_margin_loss(t, *args, 2.0).item() - loss.item()) > 1e-4
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results
+    assert l_gpu == pytest.approx(l_cpu, abs=1e-6)
+    num = math.sqrt(sum(float((a - b).pow(2).sum()) for a, b in zip(g_gpu, g_cpu)))
+    den = math.sqrt(sum(float(b.pow(2).sum()) for b in g_cpu))
+    assert num <= 1e-5 * den
+
+
+def test_train_cli_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``nrtorch-train`` at ``--dim 64``, one epoch of each trainer, on the
+    card and with ``--device cpu``, from id-keyed dumps of d=64 passage and
+    query tables: the train and dev metrics within 1e-4, the trained
+    tower's weights within a norm-relative 1e-4."""
+    from news_recommendation_project_v2_torch.cli import ingest as ingest_cli
+    from news_recommendation_project_v2_torch.cli import train as train_cli
+    from news_recommendation_project_v2_torch.ops.encode import save_embeddings
+    from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(0)
+    ids = np.array([f"N{i}" for i in range(60)])
+    tables = [rng.standard_normal((60, 64)).astype(np.float32) for _ in range(2)]
+    tables = [t / np.linalg.norm(t, axis=1, keepdims=True) for t in tables]
+    for name in ("MINDsmall_train", "MINDsmall_dev"):
+        ingest_cli.main([str(tmp_path), name, "--synthetic"])
+        save_embeddings(tmp_path / "emb", name, *tables, news_ids=ids)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, train_ctx, dev_ctx = train_cli.main(
+            [str(tmp_path), "--emb-dir", str(tmp_path / "emb"), "--dim", "64", "--epochs", "1", "--cls-epochs", "1",
+             "--batch-size", "32", "--no-cache", "--ckpt-dir", str(tmp_path / dev), "--log-dir", str(tmp_path / "logs"),
+             "--device", dev]
+        )
+        runs[dev] = train_ctx["metrics"], dev_ctx["metrics"], load_pytree(tmp_path / dev / "attention" / "Epoch_1")
+    for split in (0, 1):
+        for k in ("auc", "mrr", "ndcg5", "ndcg10"):
+            assert runs["cuda"][split][k] == pytest.approx(runs["cpu"][split][k], abs=1e-4)
+    a, b = runs["cuda"][2], runs["cpu"][2]
+    num = math.sqrt(sum(float((a[k] - b[k]).pow(2).sum()) for k in b))
+    den = math.sqrt(sum(float(b[k].pow(2).sum()) for k in b))
+    assert num <= 1e-4 * den
