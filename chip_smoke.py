@@ -175,11 +175,37 @@ Phases, one line or a few each, exit code non-zero on any failure:
               write_synthetic_mind's fixture (three finite CONFIG_ROWs),
               then nrtorch-train-e2e at --dim 1024. Then each kernel against
               its plain version at every shape 11c launched it at.
+ 12. mesh:    two ranks spawned on the one card (parallel.mesh.launch),
+              joined over gloo with CUDA tensors (NCCL refuses two ranks on
+              one GPU), full width, float32, TF32 off, one JSON line a part.
+              12a: NCCL's world of one in this process and the two gloo
+              ranks: backend, world, mesh shapes, a 64 MB all_reduce timed
+              and exact. 12b: mesh (2, 1), 7b's global batch (B = 2,048,
+              T = 65,536), margin and InfoNCE: 5 data-parallel steps, each
+              against one rank's loss (1e-6) and gradient (norm-relative
+              1e-5) at the same weights, the ranks' weights equal to the bit,
+              then 20 timed steps (ms a step, pairs/s); the padded step the
+              same at B = 512 on 8c.2's batches. 12c: mesh (1, 2), the
+              65,238 x 1024 table row-sharded: each rank's shard, the sharded
+              gather equal to the plain one to the bit, 5 steps as 12b. 12d:
+              ShardedFlatEvalPlan + ShardedMetricsPlan over phase 6's
+              workload and table: the metrics within 1e-6 of phase 6's
+              float32 ones, impressions/s, each rank's token share. 12e:
+              configs.run_config3 on mesh (1, 2) over 1,000 of
+              build_workload's rows (reduced), one epoch, with the launch
+              counts set to 0 just before and read just after on each rank,
+              against TowerTrainer without a mesh (metrics 1e-5, loss
+              relative 1e-4); then nrtorch-train --mesh 2,1 under torchrun
+              on write_synthetic_mind's fixture at --dim 1024 against the
+              same command on one rank (dev metrics 1e-5). 12f: 11a's 50,000
+              train rows compiled by the native extension and by numpy,
+              equal, both timed. Then each kernel against its plain version
+              at every shape run_config3 launched it at on the ranks.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
 "e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10,
-"pipeline" from phase 11); phase 1's line holds the card's
+"pipeline" from phase 11, "mesh" from phase 12); phase 1's line holds the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
@@ -215,13 +241,14 @@ from news_recommendation_project_v2_torch.config import (  # noqa: E402
     HISTORY_BUCKETS,
     QUERY_INSTRUCTION,
     EncoderConfig,
+    MeshConfig,
     NewsDataset,
     TowerConfig,
     TrainConfig,
     bucket_for,
     tower_kwargs_for_dim,
 )
-from news_recommendation_project_v2_torch.data.compiler import CompiledBehaviors, compile_behaviors  # noqa: E402
+from news_recommendation_project_v2_torch.data.compiler import CompiledBehaviors, compile_behaviors, compile_native  # noqa: E402
 from news_recommendation_project_v2_torch.data.synthetic import (  # noqa: E402
     align_embeddings,
     synthetic_learnable_behaviors,
@@ -896,9 +923,10 @@ def flat_eval_run(dtype, state: dict, emb: torch.Tensor, mplan, work: tuple) -> 
     )
 
 
-def flat_eval_phase(gen) -> dict:
+def flat_eval_phase(gen) -> tuple[dict, torch.Tensor]:
     """The port's flat eval at full width over bench.py's MIND-small-scale
-    workload, in float32 and in bfloat16."""
+    workload, in float32 and in bfloat16. Returns the runs and the table
+    (12d runs the sharded eval on it)."""
     work = build_workload(np.random.default_rng(SEED))
     hist_lens, imp_lens, _, cand_rev, _, labels = work
     log(
@@ -919,7 +947,7 @@ def flat_eval_phase(gen) -> dict:
     log(f"  check 6: bfloat16 scores vs float32, norm-relative difference {rel:.3g} (tol 3e-2)")
     if not rel <= 3e-2:
         raise AssertionError(f"check 6: bfloat16 and float32 scores differ by {rel}")
-    return runs
+    return runs, emb
 
 
 # ---------------------------------------------------------------------------
@@ -2622,9 +2650,11 @@ def _timed_embed(seconds: list):
     return Timed
 
 
-def pipeline_ingest_phase(data_dir: Path) -> None:
+def pipeline_ingest_phase(data_dir: Path) -> tuple[list, list]:
     """11a: write both splits' raw TSVs, run nrtorch-ingest on each, then
-    time load_dataset and the compile (TransformDataComponent)."""
+    time load_dataset and the compile (TransformDataComponent, the native
+    compiler). Returns the train split's impression and history strings
+    (12f compiles them by both paths)."""
     from news_recommendation_project_v2_torch.cli import ingest as ingest_cli
     from news_recommendation_project_v2_torch.cli.common import build_context
     from news_recommendation_project_v2_torch.pipeline import TransformDataComponent
@@ -2636,6 +2666,7 @@ def pipeline_ingest_phase(data_dir: Path) -> None:
         ingest_cli.main([str(data_dir), name])
         t2 = time.perf_counter()
         ctx = build_context(data_dir, NewsDataset[name])
+        behaviors = ctx["behaviors"]
         t3 = time.perf_counter()
         ctx = TransformDataComponent().transform(ctx)
         t4 = time.perf_counter()
@@ -2644,6 +2675,9 @@ def pipeline_ingest_phase(data_dir: Path) -> None:
             write_s=t1 - t0, ingest_s=t2 - t1, load_dataset_s=t3 - t2, compile_s=t4 - t3,
             reduced=f"{rows} of MIND-small's {156_965 if 'train' in name else 73_152} rows",
         )
+        if "train" in name:
+            strings = (behaviors["Impressions"].tolist(), behaviors["History"].tolist())
+    return strings
 
 
 def pipeline_save_emb_phase(data_dir: Path, emb_dir: Path) -> None:
@@ -2913,7 +2947,8 @@ def pipeline_reproduce_phase(work: Path) -> None:
 def pipeline_phase(work_dir: Path) -> dict:
     """Phase 11 (11a-11f) in a temporary directory deleted afterwards, the
     working directory moved there (the train CLI's cache is ./cache); each
-    part's wall time printed. Returns 11c's launches and shapes."""
+    part's wall time printed. Returns 11c's launches and shapes, and 11a's
+    train strings."""
     import os
     import tempfile
 
@@ -2934,7 +2969,7 @@ def pipeline_phase(work_dir: Path) -> dict:
         data_dir, emb_dir = work / "data", work / "emb"
         os.chdir(work)
         try:
-            timed("11a", pipeline_ingest_phase, data_dir)
+            strings = timed("11a", pipeline_ingest_phase, data_dir)
             timed("11b", pipeline_save_emb_phase, data_dir, emb_dir)
             counts = timed("11c", pipeline_train_phase, data_dir, emb_dir, work)
             timed("11d", pipeline_eval_serve_phase, data_dir, emb_dir, work)
@@ -2943,7 +2978,410 @@ def pipeline_phase(work_dir: Path) -> dict:
         finally:
             os.chdir(cwd)
     log(json.dumps({"part": "11 wall seconds", **seconds}))
-    return counts
+    return dict(counts, strings=strings)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one GPU, so the two-rank parts run gloo over CUDA
+# tensors (gloo stages them through host memory); NCCL runs a world of one.
+MESH_RANKS = 2
+ALLREDUCE_BYTES = 64 * 2**20
+# 12e's rows of build_workload, reduced from 5,000 by the smoke's 1,200 s
+# limit: on mesh (1, 2) both ranks run the whole batch on the one card, twice
+# one rank's work, and one rank runs it again as the reference. At 1,000 rows
+# that is 33.4 + 16.3 s of an 849 s smoke (H100 80GB HBM3, 700.00 W); the
+# work is linear in rows, so 5,000 would add about 200 s (PERF.md §6).
+MESH_ROWS = 1_000
+MESH_TRAIN = dict(num_epochs=1, batch_size=256)
+# 12b/12c: a data-parallel step against one rank's at the same weights (the
+# CPU tests' tolerances); 12d: the sharded eval against phase 6's; 12e:
+# whole runs against one rank's.
+MESH_LOSS_TOL, MESH_GRAD_TOL, MESH_EVAL_TOL, MESH_RUN_METRIC, MESH_RUN_LOSS = 1e-6, 1e-5, 1e-6, 1e-5, 1e-4
+
+
+def param_digest(model: torch.nn.Module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def allreduce_ms(reduce, reps: int = 5) -> tuple[list, bool]:
+    """``reps`` timed ``reduce`` calls of a 64 MB float32 tensor of ones (a
+    warm-up first), and whether every element reads the world's sum."""
+    x = torch.ones(ALLREDUCE_BYTES // 4, device="cuda")
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    world = torch.distributed.get_world_size()
+    return times[1:], bool((x == float(world) ** (reps + 1)).all())
+
+
+def flat_grad(model: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters() if p.grad is not None])
+
+
+def mesh_check_steps(mesh, make_model, make_step, loss_of, batch, table, full, steps: int) -> dict:
+    """``steps`` data-parallel steps of one global numpy ``batch`` on the
+    mesh; before each, rank 0 computes one rank's loss and gradient of the
+    whole batch at the same weights. Returns the largest differences (rank
+    0) and the weights' digest after the steps."""
+    model = make_model()
+    step = make_step(mesh, model)
+    opt = make_optimizer(TrainConfig(), model.parameters())
+    seen = []
+    opt.register_step_pre_hook(lambda o, args, kwargs: seen.append(flat_grad(model).clone()))
+    local, whole = on(step.shard(batch), "cuda"), on(batch, "cuda")
+    loss_err = grad_err = 0.0
+    for _ in range(steps):
+        if mesh.rank == 0:
+            ref = make_model()
+            ref.load_state_dict(model.state_dict())
+            want = loss_of(ref, full, whole)
+            want.backward()
+            want_loss, want_grad = float(want.detach()), flat_grad(ref)
+            del ref, want
+        got = float(step(opt, table, table, local))
+        if mesh.rank == 0:
+            loss_err = max(loss_err, abs(got - want_loss))
+            grad_err = max(grad_err, norm_rel(seen[-1], want_grad))
+    return dict(loss_err=loss_err, grad_err=grad_err, digest=param_digest(model), model=model, opt=opt, step=step)
+
+
+def mesh_timed_steps(mesh, step, opt, table, batches: list, warm: int) -> dict:
+    """``warm`` steps, then one timed step a remaining global batch (the
+    loss fetched every step, as 7b): ms a step and pairs/s of the global
+    batch."""
+    local = [on(step.shard(b), "cuda") for b in batches]
+    losses = [float(step(opt, table, table, b)) for b in local[:warm]]
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    losses += [float(step(opt, table, table, b)) for b in local[warm:]]
+    dt = (time.perf_counter() - t0) / (len(batches) - warm)
+    pairs = len(batches[-1][-1])
+    return dict(ms_per_step=dt * 1e3, pairs_per_s=pairs / dt, finite=bool(np.isfinite(losses).all()))
+
+
+def mesh_table() -> torch.Tensor:
+    """12b/12c's N(0, 1) table, made on the card from one seed on every
+    rank, as 7b makes its own."""
+    return torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator("cuda").manual_seed(SEED + 12))
+
+
+def mesh_steps_part(mesh21, mesh12) -> dict:
+    """12b: mesh (2, 1), the flat step at 7b's global batch (B = 2,048,
+    T = 65,536), margin and InfoNCE: 5 steps checked against one rank, then
+    3 warm-up and 20 timed; the padded step at B = 512 on 8c.2's batches:
+    5 checked, 20 timed. 12c: mesh (1, 2), the row-sharded table: its shard
+    and the sharded gather against the plain gather, and 5 flat margin
+    steps checked."""
+    from news_recommendation_project_v2_torch.parallel import (
+        make_sharded_flat_tower_train_step,
+        make_sharded_tower_train_step,
+        shard_news_table,
+        table_sharding,
+    )
+
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig()))
+    emb = mesh_table()
+    margin = TrainConfig().margin
+    rng = np.random.default_rng(SEED)
+    T, total, batch = flat_inputs(TRAIN_B, rng)
+    flats = {"margin": batch, "infonce": with_negatives(batch, rng)}
+    out = {}
+    table21 = shard_news_table(mesh21, emb)
+    for name, b in flats.items():
+        infonce = name == "infonce"
+        loss_fn = LOSSES[name][0]
+        r = mesh_check_steps(
+            mesh21, lambda: full_tower(state, "cuda"),
+            lambda mesh, m: make_sharded_flat_tower_train_step(mesh, m, margin, infonce),
+            lambda m, table, bb: loss_fn(m, table, bb, **LOSSES[name][2]), b, table21, emb, steps=5,
+        )
+        timed = mesh_timed_steps(mesh21, r["step"], r["opt"], table21, [b] * (3 + TRAIN_STEPS), warm=3)
+        out[f"12b flat {name}"] = dict(T=T, live_tokens=total, loss_err=r["loss_err"], grad_err=r["grad_err"],
+                                        digest=r["digest"], **timed)
+        del r
+        torch.cuda.empty_cache()
+    prng = np.random.default_rng(SEED + 84)
+    padded = [padded_from_flat(flat, n)[1] for _, n, flat in (flat_inputs(PADDED_B, prng) for _ in range(1 + TRAIN_STEPS))]
+    r = mesh_check_steps(
+        mesh21, lambda: padded_tower("latent", state, "cuda"),
+        lambda mesh, m: make_sharded_tower_train_step(mesh, m, margin),
+        lambda m, table, bb: padded_margin_loss(m, table, bb, margin), padded[0], table21, emb, steps=5,
+    )
+    timed = mesh_timed_steps(mesh21, r["step"], r["opt"], table21, padded, warm=1)
+    out["12b padded margin"] = dict(B=PADDED_B, loss_err=r["loss_err"], grad_err=r["grad_err"], digest=r["digest"],
+                                    **timed)
+    del r, table21
+    torch.cuda.empty_cache()
+
+    table12 = shard_news_table(mesh12, emb)
+    sl = table_sharding(mesh12, NUM_NEWS)
+    want = torch.zeros((sl.stop - sl.start, DIM), device="cuda")
+    want[: min(sl.stop, NUM_NEWS) - sl.start] = emb[sl.start : min(sl.stop, NUM_NEWS)]
+    rows = torch.from_numpy(np.concatenate([batch[0], np.arange(NUM_NEWS, dtype=np.int32)])).cuda().long()
+    gather_equal = torch.equal(table12.gather(rows), emb[rows])
+    r = mesh_check_steps(
+        mesh12, lambda: full_tower(state, "cuda"),
+        lambda mesh, m: make_sharded_flat_tower_train_step(mesh, m, margin),
+        lambda m, table, bb: flat_margin_loss(m, table, bb, margin), batch, table12, emb, steps=5,
+    )
+    out["12c"] = dict(rows_per_rank=table12.rows_per_shard, shard_equal=torch.equal(table12.local, want),
+                      gather_rows=int(rows.numel()), gather_equal=gather_equal, loss_err=r["loss_err"],
+                      grad_err=r["grad_err"], digest=r["digest"])
+    del r, table12
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_eval_part(mesh, emb_path: str) -> dict:
+    """12d: ShardedFlatEvalPlan + ShardedMetricsPlan over phase 6's
+    workload and table, float32: a first run, then three timed metrics runs;
+    this rank's token share."""
+    from news_recommendation_project_v2_torch.parallel.flat_eval import ShardedFlatEvalPlan, ShardedMetricsPlan
+
+    hist_lens, imp_lens, hist_rev, cand_rev, cand_row, labels = build_workload(np.random.default_rng(SEED))
+    cfg = TowerConfig(kind="latent")
+    tower = build_tower(cfg)
+    tower.load_state_dict(latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), cfg)))
+    tower = tower.to("cuda")
+    emb = torch.from_numpy(np.load(emb_path)).cuda()
+    fplan = ShardedFlatEvalPlan(mesh, hist_rev, hist_lens, cand_rev, cand_row,
+                                chunk_tokens=estimate_flat_chunk(cfg, device="cuda"))
+    mplan = ShardedMetricsPlan(fplan, imp_lens, labels, hist_slots=np.arange(len(cand_rev), dtype=np.int64))
+    first = fplan.metrics(tower, emb, mplan)
+    seconds = []
+    for _ in range(3):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        got = fplan.metrics(tower, emb, mplan)
+        seconds.append(time.perf_counter() - t0)
+    return dict(metrics=first, repeat_equal=got == first, seconds=seconds,
+                impressions_per_s=[FLAT_ROWS / t for t in seconds], token_share=fplan.token_share,
+                impressions=mplan.num_impressions)
+
+
+def mesh_config3_part() -> dict:
+    """12e: configs.run_config3 on mesh (1, 2) at full width over MESH_ROWS
+    of build_workload's rows, one epoch, with every launch count set to 0
+    just before and read just after; the trainer's history kept."""
+    seen = {}
+    train = TowerTrainer.train
+
+    def recorded(self, *args, **kwargs):
+        seen["history"] = train(self, *args, **kwargs)
+        seen["digest"] = param_digest(self.tower)
+        return seen["history"]
+
+    ct, emb = mesh_config3_data()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TowerTrainer, "train", recorded):
+        metrics = configs_module.run_config3(
+            ct, emb, mesh_cfg=MeshConfig(model_size=2), train_cfg=TrainConfig(**MESH_TRAIN)
+        )
+    torch.cuda.synchronize()
+    return dict(
+        seconds=time.perf_counter() - t0, metrics=metrics, history=seen["history"], digest=seen["digest"],
+        launches=kernel_launches(),
+        shapes={k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+                for k, v in KERNELS.items()},
+    )
+
+
+def mesh_config3_data() -> tuple[CompiledBehaviors, np.ndarray]:
+    """12e's rows and a row-normalized table, from seeds."""
+    ct = mind_behaviors(np.random.default_rng(SEED + 12), MESH_ROWS)
+    emb = np.random.default_rng(SEED + 12).standard_normal((NUM_NEWS, DIM), dtype=np.float32)
+    return ct, emb / np.linalg.norm(emb, axis=1, keepdims=True)
+
+
+def mesh_rank(emb_path: str) -> dict:
+    """One rank of phase 12 (two ranks over gloo, CUDA tensors on the one
+    card): 12a, 12b, 12c, 12d and 12e's run_config3."""
+    from news_recommendation_project_v2_torch.parallel import build_mesh
+
+    resolve_device("cuda")  # TF32 off, as every phase runs
+    mesh21 = build_mesh(MeshConfig(data_size=2, model_size=1), backend="gloo")
+    mesh12 = build_mesh(MeshConfig(data_size=1, model_size=2), backend="gloo")
+    times, exact = allreduce_ms(mesh21.sum)
+    out = {"12a": dict(backend=torch.distributed.get_backend(), world=torch.distributed.get_world_size(),
+                       rank=mesh21.rank, meshes=[mesh21.shape, mesh12.shape], allreduce_64mb_ms=times, exact=exact)}
+    out.update(mesh_steps_part(mesh21, mesh12))
+    out["12d"] = mesh_eval_part(mesh21, emb_path)
+    torch.cuda.empty_cache()
+    out["12e"] = mesh_config3_part()
+    return out
+
+
+def nccl_world_of_one() -> dict:
+    """12a's NCCL part: a world of one rank (this process) over NCCL, the
+    mesh built on it and a 64 MB all_reduce timed."""
+    import tempfile
+
+    from news_recommendation_project_v2_torch.parallel import build_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(str(Path(tmp) / "store"), 1)
+        torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = build_mesh(MeshConfig(), backend="nccl")
+            times, exact = allreduce_ms(torch.distributed.all_reduce)
+            return dict(backend=torch.distributed.get_backend(), world=1, mesh=mesh.shape, allreduce_64mb_ms=times,
+                        exact=exact)
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def mesh_cli_part(work_dir: Path) -> dict:
+    """12e's CLI part: nrtorch-train --encode-inline --dim 1024 on
+    write_synthetic_mind's fixture (11f's data) in this process, then the same
+    with --mesh 2,1 --dist-backend gloo under torchrun (two processes); the
+    dev metrics must agree."""
+    import os
+    import tempfile
+
+    from news_recommendation_project_v2_torch.cli import train as train_cli
+    from news_recommendation_project_v2_torch.data.ingest import store_processed_data
+    from news_recommendation_project_v2_torch.data.synthetic import write_synthetic_mind
+
+    with tempfile.TemporaryDirectory(dir=work_dir) as tmp:
+        root = Path(tmp)
+        for ds in (NewsDataset.MINDsmall_train, NewsDataset.MINDsmall_dev):
+            write_synthetic_mind(root, ds)
+            store_processed_data(root, ds)
+        argv = [str(root), "--encode-inline", "--dim", str(DIM), "--epochs", "1", "--cls-epochs", "1",
+                "--batch-size", "32", "--no-cache"]
+        t0 = time.perf_counter()
+        _, _, dev = train_cli.main(argv + ["--log-dir", str(root / "logs1"), "--ckpt-dir", str(root / "models1")])
+        one_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(MESH_RANKS),
+             "-m", "news_recommendation_project_v2_torch.cli.train", *argv, "--mesh", f"{MESH_RANKS},1",
+             "--dist-backend", "gloo", "--log-dir", str(root / "logs2"), "--ckpt-dir", str(root / "models2")],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        mesh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"12e: torchrun nrtorch-train --mesh exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = [line.split(" metrics: ", 1)[1] for line in proc.stdout.splitlines() if line.startswith("dev metrics: ")]
+        if len(lines) != 1:
+            raise AssertionError(f"12e: want one rank's dev metrics line, got {lines}")
+        import ast
+
+        got, want = ast.literal_eval(lines[0]), dev["metrics"]
+    gap = max(abs(got[k] - want[k]) for k in METRIC_KEYS)
+    return dict(one_rank_s=one_s, torchrun_s=mesh_s, dev=got, gap=gap, same_samples=got["num_samples"] == want["num_samples"])
+
+
+def mesh_native_part(strings: tuple[list, list]) -> dict:
+    """12f: 11a's 50,000 train rows compiled by the native extension alone
+    (compile_native raises where compile_behaviors would fall back to numpy)
+    and by numpy; the arrays must be equal."""
+    impressions, history = strings
+    t0 = time.perf_counter()
+    a = compile_native(impressions, history)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = compile_behaviors(impressions, history, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    fields = ("imp_rev", "imp_row", "imp_lens", "hist_rev", "hist_row", "hist_lens", "hist_row_index", "labels_flat")
+    equal = a.news_ids.tolist() == b.news_ids.tolist() and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in fields
+    )
+    return dict(rows=len(impressions), native_s=native_s, numpy_s=numpy_s, speedup=numpy_s / native_s, equal=equal)
+
+
+def mesh_phase(work_dir: Path, flat: dict, flat_emb: torch.Tensor, strings: tuple) -> dict:
+    """Phase 12 (12a-12f); one JSON line a part. Returns 12e's run_config3
+    launches and shapes, summed over the ranks."""
+    from news_recommendation_project_v2_torch.parallel import launch
+
+    seconds = {}
+    t0 = time.perf_counter()
+    part_line("12a", **nccl_world_of_one())
+    emb_path = work_dir / "flat_emb.npy"
+    np.save(emb_path, flat_emb.cpu().numpy())
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch(mesh_rank, MESH_RANKS, args=(str(emb_path),), backend="gloo", timeout=900)
+    emb_path.unlink()
+    seconds["ranks"] = time.perf_counter() - t0
+    for r in ranks:
+        part_line("12a", **r["12a"])
+        if not (r["12a"]["exact"] and r["12a"]["backend"] == "gloo" and r["12a"]["world"] == MESH_RANKS):
+            raise AssertionError(f"12a: {r['12a']}")
+    first, other = ranks
+    for key in ("12b flat margin", "12b flat infonce", "12b padded margin", "12c"):
+        got = first[key]
+        same = got["digest"] == other[key]["digest"]
+        part_line(key, **{k: v for k, v in got.items() if k != "digest"}, ranks_bit_identical=same,
+                  rank1=({k: other[key][k] for k in ("ms_per_step", "pairs_per_s")} if "ms_per_step" in got else None))
+        if not (same and got["loss_err"] <= MESH_LOSS_TOL and got["grad_err"] <= MESH_GRAD_TOL
+                and got.get("finite", True)):
+            raise AssertionError(f"{key}: {got}, ranks bit-identical {same}")
+    if not (first["12c"]["shard_equal"] and first["12c"]["gather_equal"] and other["12c"]["gather_equal"]):
+        raise AssertionError(f"12c: the sharded table {first['12c']} / {other['12c']}")
+
+    want = flat[torch.float32]["metrics"]
+    for r in ranks:
+        d = r["12d"]
+        gap = max(abs(d["metrics"][k] - want[k]) for k in METRIC_KEYS)
+        part_line("12d", **{k: v for k, v in d.items() if k != "metrics"}, metrics=d["metrics"],
+                  phase6=want, gap=gap)
+        if not (gap <= MESH_EVAL_TOL and d["metrics"]["num_samples"] == FLAT_ROWS and d["repeat_equal"]):
+            raise AssertionError(f"12d: the sharded eval {d['metrics']} against phase 6's {want}")
+    if sum(r["12d"]["impressions"] for r in ranks) != FLAT_ROWS:
+        raise AssertionError("12d: the ranks' impressions do not cover the workload")
+
+    t0 = time.perf_counter()
+    ct, emb = mesh_config3_data()
+    tower_cfg = configs_module._sized_tower(DIM)
+    tower = build_tower(tower_cfg)
+    cfg = TrainConfig(**MESH_TRAIN)
+    tower.load_state_dict(tower_state_dict_from_jax("latent", random_tower_params(np.random.default_rng(cfg.seed), tower_cfg)))
+    one = TowerTrainer(tower, ct.with_history_view(), emb, cfg=cfg, flat_train=False, flat_eval=True,
+                       device_metrics=True, device="cuda").train()
+    one_s = time.perf_counter() - t0
+    for r in ranks:
+        e = r["12e"]
+        got, ref = e["history"][-1], one[-1]
+        metric_gap = max(abs(got["train"][k] - ref["train"][k]) for k in METRIC_KEYS)
+        loss_gap = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        part_line("12e run_config3", mesh=[1, 2], rows=MESH_ROWS, seconds=e["seconds"], one_rank_seconds=one_s,
+                  metrics=e["metrics"], one_rank=ref["train"], metric_gap=metric_gap, loss=got["loss"],
+                  loss_gap=loss_gap, launches=e["launches"], reduced=f"{MESH_ROWS} of 5,000 rows")
+        if not (metric_gap <= MESH_RUN_METRIC and loss_gap <= MESH_RUN_LOSS and min(e["launches"].values()) > 0):
+            raise AssertionError(f"12e: run_config3 on the mesh against one rank: {metric_gap}, {loss_gap}")
+    if first["12e"]["digest"] != other["12e"]["digest"]:
+        raise AssertionError("12e: the ranks' towers differ after run_config3")
+    cli = mesh_cli_part(work_dir)
+    part_line("12e nrtorch-train --mesh 2,1", **cli)
+    if not (cli["gap"] <= MESH_RUN_METRIC and cli["same_samples"]):
+        raise AssertionError(f"12e: the CLI on the mesh against one rank: {cli}")
+    native_run = mesh_native_part(strings)
+    part_line("12f", **native_run)
+    if not native_run["equal"]:
+        raise AssertionError("12f: the native and numpy compiles differ")
+    seconds["12e one rank, CLI, 12f"] = time.perf_counter() - t0
+    log(json.dumps({"part": "12 wall seconds", **seconds}))
+    launches = {k: sum(r["12e"]["launches"][k] for r in ranks) for k in KERNELS}
+    shapes = {k: sum((r["12e"]["shapes"][k] for r in ranks), collections.Counter()) for k in KERNELS}
+    return dict(launches=launches, shapes=shapes)
 
 
 def main() -> int:
@@ -2994,7 +3432,7 @@ def main() -> int:
         "phase 6 flat eval: FlatEvalPlan + DeviceMetricsPlan at full width, MIND-small scale (TF32 off) "
         + since(t_start)
     )
-    runs = flat_eval_phase(gen)
+    runs, flat_emb = flat_eval_phase(gen)
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape the flat eval launched them at:")
     flat = {name: sum((r["shapes"][name] for r in runs.values()), collections.Counter()) for name in KERNELS}
@@ -3041,6 +3479,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape nrtorch-train launched them at:")
     records["pipeline"] = (main_path_phase(piped["shapes"], gen, path="pipeline"), piped["launches"])
+
+    log("phase 12 the mesh: two ranks on the card over gloo, NCCL's world of one, full width " + since(t_start))
+    meshed = mesh_phase(work_dir, runs, flat_emb, piped["strings"])
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape run_config3 launched them at on the mesh:")
+    records["mesh"] = (main_path_phase(meshed["shapes"], gen, path="mesh"), meshed["launches"])
 
     kernels = [
         {

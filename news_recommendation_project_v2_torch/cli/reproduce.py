@@ -82,8 +82,9 @@ def main(argv=None):
     if devices >= 2:
         # Not a silent skip on a machine that could run the mesh presets.
         raise NotImplementedError(
-            f"configs 3-4 need the multi-GPU slice, which is not ported yet (ROADMAP.md §1); "
-            f"{devices} devices are visible (limit them with CUDA_VISIBLE_DEVICES to run configs 0-2)"
+            f"configs 3-4 run with run_config4 (sharded encoding, the sharded token store and mesh serving), "
+            f"the second half of multi-GPU, which is not ported yet (ROADMAP.md §1); {devices} devices are "
+            f"visible (limit them with CUDA_VISIBLE_DEVICES to run configs 0-2)"
         )
     train_ds = NewsDataset[args.train_dataset]
     dev_ds = NewsDataset[args.dev_dataset]

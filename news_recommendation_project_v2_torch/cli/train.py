@@ -6,6 +6,16 @@ logged. Checkpoints (``Best_model_<exp>``, ``Epoch_N``) are the port's
 
     nrtorch-train DATA_DIR --train MINDsmall_train --dev MINDsmall_dev \
         --emb-dir embeddings --tower latent --epochs 5
+
+``--mesh DATA,MODEL`` trains the content scorer and the tower data parallel
+over DATA x MODEL ranks, one process each, started by torchrun:
+
+    torchrun --nproc-per-node 2 -m news_recommendation_project_v2_torch.cli.train \
+        DATA_DIR --emb-dir embeddings --mesh 2,1
+
+NCCL joins the ranks on CUDA (one card each), gloo on the CPU
+(``--device cpu``); ``--dist-backend gloo`` lets ranks share a card. Only
+rank 0 prints the metrics and writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -13,7 +23,9 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from ..config import NewsDataset, TowerConfig, TrainConfig, tower_kwargs_for_dim
+import torch.distributed as dist
+
+from ..config import MeshConfig, NewsDataset, TowerConfig, TrainConfig, tower_kwargs_for_dim
 from ..pipeline import (
     AttentionComponent,
     ClassificationComponent,
@@ -47,7 +59,13 @@ def main(argv=None):
         "--mesh",
         default=None,
         metavar="DATA,MODEL",
-        help="multi-GPU training (not ported yet)",
+        help="data-parallel training over DATA x MODEL ranks (run under torchrun)",
+    )
+    parser.add_argument(
+        "--dist-backend",
+        choices=["nccl", "gloo"],
+        default=None,
+        help="the mesh's backend (default: nccl on CUDA, gloo on the CPU; gloo lets ranks share a card)",
     )
     parser.add_argument("--log-dir", type=Path, default=Path("logs"))
     parser.add_argument("--ckpt-dir", type=Path, default=Path("models"))
@@ -55,8 +73,20 @@ def main(argv=None):
     parser.add_argument("--no-cache", action="store_true")
     add_device_argument(parser)
     args = parser.parse_args(argv)
+    mesh = None
     if args.mesh:
-        raise NotImplementedError("--mesh (multi-GPU training) is not ported yet (ROADMAP.md §1)")
+        from ..parallel import build_mesh
+
+        try:
+            data_size, model_size = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            parser.error("--mesh wants DATA,MODEL integers, e.g. 2,1")
+        if data_size < 1 or model_size < 1:
+            parser.error("--mesh wants positive sizes")
+        mesh = build_mesh(
+            MeshConfig(data_size=data_size, model_size=model_size), backend=args.dist_backend, device=args.device
+        )
+    rank0 = mesh is None or mesh.rank == 0
 
     train_ds = NewsDataset[args.train]
     dev_ds = NewsDataset[args.dev]
@@ -93,6 +123,7 @@ def main(argv=None):
                     log_dir=args.log_dir,
                     ckpt_dir=args.ckpt_dir / "classification",
                     exp_name=exp_name,
+                    mesh=mesh,
                     device=args.device,
                 ),
             ),
@@ -104,6 +135,7 @@ def main(argv=None):
                     log_dir=args.log_dir,
                     ckpt_dir=args.ckpt_dir / "attention",
                     exp_name=exp_name,
+                    mesh=mesh,
                     device=args.device,
                 ),
             ),
@@ -114,9 +146,10 @@ def main(argv=None):
     val_context = build_context(args.data_dir, dev_ds)
     train_context, val_context = pipe.train(train_context, val_context)
 
-    log_final_scores(args.log_dir, exp_name, train_context.get("metrics"), val_context.get("metrics"))
-    print("train metrics:", train_context.get("metrics"))
-    print("dev metrics:", val_context.get("metrics"))
+    if rank0:
+        log_final_scores(args.log_dir, exp_name, train_context.get("metrics"), val_context.get("metrics"))
+        print("train metrics:", train_context.get("metrics"))
+        print("dev metrics:", val_context.get("metrics"))
     return pipe, train_context, val_context
 
 
@@ -133,3 +166,5 @@ class _PerSplitLoad(LoadEmbeddingComponent):
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from pathlib import Path
 from typing import Optional
 
 
@@ -78,9 +79,10 @@ def bucket_for_open(length: int, buckets: tuple[int, ...]) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh of the multi-GPU presets (config[3..4]): ``data``
-    shards the batches, ``model`` the news table's rows. The port runs on
-    one device until the multi-GPU slice (ROADMAP.md §1)."""
+    """The mesh of the multi-GPU presets (config[3..4]): the world's ranks
+    (one process each, joined by ``torch.distributed``) as a ``(data,
+    model)`` grid; ``data`` shards the batches, ``model`` the news table's
+    rows. ``parallel.mesh.build_mesh`` builds it."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -184,3 +186,19 @@ class EncoderConfig:
     latent_pool_num_latents: int = 512
     latent_pool_heads: int = 8
     latent_pool_dim_head: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """One experiment: the data, the tower, the training and the mesh."""
+
+    name: str = "e5_query_latent_attention"
+    data_dir: Path = Path("data")
+    dataset_train: NewsDataset = NewsDataset.MINDsmall_train
+    dataset_dev: NewsDataset = NewsDataset.MINDsmall_dev
+    data_subset: DataSubset = DataSubset.ALL
+    tower: TowerConfig = dataclasses.field(default_factory=TowerConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    log_dir: Path = Path("logs")
+    ckpt_dir: Path = Path("models")

@@ -1,10 +1,11 @@
 """Preset experiment configurations: the five scenarios of
-``BASELINE_CONFIGS`` and runners for three of them. config[0] is the frozen
+``BASELINE_CONFIGS`` and runners for four of them. config[0] is the frozen
 mean-pool scorer (no training, the bucketed eval); config[1] a user tower
 trained on frozen news embeddings, with epoch evals and the MIND metrics;
 config[2] a learned token encoder and the latent tower trained end to end
-from frozen per-token states. The multi-GPU presets (config[3..4]) wait for
-their modules (ROADMAP.md §1)."""
+from frozen per-token states; config[3] config[1] on a mesh of ranks (a
+row-sharded table, data-parallel steps, the sharded eval). config[4]
+(sharded encoding and serving) waits for its modules (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
@@ -132,6 +133,51 @@ def run_config1(
         flat_train=flat,
         flat_eval=flat,
         device_metrics=flat,  # epoch evals fetch five scalars
+        device=device,
+    )
+    last = trainer.train()[-1]
+    return last["val"] if last["val"] is not None else last["train"]
+
+
+def run_config3(
+    compiled: CompiledBehaviors,
+    news_embeddings: np.ndarray,
+    compiled_val: Optional[CompiledBehaviors] = None,
+    news_embeddings_val: Optional[np.ndarray] = None,
+    mesh_cfg: Optional[MeshConfig] = None,
+    train_cfg: Optional[TrainConfig] = None,
+    tower_cfg: Optional[TowerConfig] = None,
+    device=None,
+) -> dict:
+    """Config[3]: config[1] on the mesh of ``mesh_cfg`` (default
+    ``MeshConfig(model_size=2)``, built by ``parallel.build_mesh`` over the
+    world's ranks, on the process group that torchrun or ``launch``
+    started): the table row-sharded over the model
+    axis, the padded step data parallel (as the JAX package's config[3]
+    trains), and the sharded flat eval with the metrics on the device for a
+    token-local tower. Every rank calls it and returns the last epoch's val
+    (or train) metrics, equal to a single-device ``TowerTrainer``'s.
+    ``device=None`` means CUDA (the rank's card)."""
+    from .parallel import build_mesh
+
+    mesh = build_mesh(mesh_cfg or MeshConfig(model_size=2), device=device)
+    tower_cfg = tower_cfg or _sized_tower(news_embeddings.shape[1])
+    train_cfg = train_cfg or TrainConfig(num_epochs=2, batch_size=256)
+    tower = build_tower(tower_cfg)
+    params = random_tower_params(np.random.default_rng(train_cfg.seed), tower_cfg)
+    tower.load_state_dict(tower_state_dict_from_jax(tower_cfg.kind, params))
+    flat = supports_flat_scoring(tower_cfg)
+    trainer = TowerTrainer(
+        tower,
+        compiled.with_history_view(),
+        news_embeddings,
+        compiled_val=compiled_val.with_history_view() if compiled_val else None,
+        news_emb_val=news_embeddings_val,
+        cfg=train_cfg,
+        mesh=mesh,
+        flat_train=False,
+        flat_eval=flat,
+        device_metrics=flat,  # the sharded eval's only exchange is five sums
         device=device,
     )
     last = trainer.train()[-1]

@@ -1,5 +1,6 @@
-"""The behaviors compiler: MIND history/impression strings -> flat index arrays
-(numpy only: no pandas, no native extension).
+"""The behaviors compiler: MIND history/impression strings -> flat index arrays,
+by the native extension (``native/behaviors_compiler.cpp``) where it builds,
+else in numpy (no pandas); the two give equal arrays.
 
 - ``news_ids``: unique news ids in first-appearance order, scanning each row's
   history tokens, then its impression tokens.
@@ -87,21 +88,68 @@ def _factorize(tokens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return rank[inverse.reshape(-1)], uniques[order]
 
 
+def _from_native(result) -> CompiledBehaviors:
+    news, imp_rev, imp_row, imp_lens, hist_rev, hist_row, hist_lens, hist_row_index, labels, label_present = result
+
+    def i32(b: bytes) -> np.ndarray:
+        return np.frombuffer(b, dtype=np.int32).copy()  # writable, as the numpy path's
+
+    return CompiledBehaviors(
+        news_ids=np.asarray(news, dtype=np.str_),
+        imp_rev=i32(imp_rev),
+        imp_row=i32(imp_row),
+        imp_lens=i32(imp_lens),
+        hist_rev=i32(hist_rev),
+        hist_row=i32(hist_row),
+        hist_lens=i32(hist_lens),
+        hist_row_index=i32(hist_row_index),
+        labels_flat=None if labels is None else np.frombuffer(labels, dtype=np.int8).copy(),
+        label_present=bool(label_present),
+    )
+
+
+def compile_native(impressions: Sequence[str], history: Sequence[Optional[str]]) -> CompiledBehaviors:
+    """``compile_behaviors`` through the C++ extension alone, for a caller
+    that must know it ran: raises ``RuntimeError`` where ``native.load``
+    gives none and ``TypeError`` for inputs it does not read (anything but
+    ``str``, and ``None`` or NaN in ``history``), where ``compile_behaviors``
+    would take the numpy path."""
+    from .. import native
+
+    module = native.load()
+    if module is None:
+        raise RuntimeError("the native behaviors compiler could not be built")
+    return _from_native(module.compile_behaviors(list(impressions), list(history)))
+
+
 def compile_behaviors(
-    impressions: Sequence[str], history: Sequence[Optional[str]]
+    impressions: Sequence[str], history: Sequence[Optional[str]], use_native: bool = True
 ) -> CompiledBehaviors:
     """Compile behavior strings into flat index arrays.
 
     ``impressions[i]`` is a space-separated list of ``NewsID`` or
     ``NewsID-{0,1}`` tokens; ``history[i]`` is a space-separated ``NewsID``
     list or missing. A labeled token that does not end in ``-0`` or ``-1``
-    raises ``ValueError``.
+    raises ``ValueError`` on both paths. ``use_native`` takes the C++
+    extension where ``native.load`` gives one, else (or for inputs of other
+    types than it reads) the numpy path.
     """
     n = len(impressions)
     if n == 0:
         raise ValueError("No impressions given")
     if len(history) != n:
         raise ValueError("history and impressions must have equal row counts")
+    if use_native:
+        from .. import native
+
+        if native.load() is not None:
+            try:
+                return compile_native(impressions, history)
+            except TypeError:
+                # Inputs of other types (numpy strings, ...): the numpy path
+                # reads them or raises. A ValueError (a malformed label)
+                # propagates, as the numpy path raises it too.
+                pass
     label_present = "-" in impressions[0]
 
     hist_tokens, hist_row_index = [], []

@@ -63,6 +63,14 @@ def gather_end_aligned(
     return idx, mask
 
 
+def expand_items(items: np.ndarray, rev_index: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """``items[rev_index]``, where ``counts`` partitions ``rev_index`` into
+    segments (checked)."""
+    if counts.sum() != len(rev_index):
+        raise ValueError("counts must partition rev_index")
+    return items[rev_index]
+
+
 def group_items(items: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """Split a flat array into a per-segment object array."""
     offsets = lengths_to_offsets(counts)
@@ -99,3 +107,9 @@ def dense_rank_by_segment(scores: np.ndarray, counts: np.ndarray) -> np.ndarray:
     ranks = np.empty(len(order), dtype=np.int32)
     ranks[order] = (cum - seg_start_cum + 1).astype(np.int32)
     return ranks
+
+
+def rank_group_preds(scores: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Per-impression dense ranks (``dense_rank_by_segment``) as an object
+    array of rank vectors, the form the metric suite takes."""
+    return group_items(dense_rank_by_segment(np.asarray(scores), counts), counts)

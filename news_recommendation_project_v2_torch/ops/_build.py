@@ -5,7 +5,10 @@ C interface, ``build/kernels/lib<name>-<hash>.so`` at the root of the
 checkout. The hash covers the sources and the flags, so an edited kernel is
 rebuilt and a stale library is never loaded. Building happens at first use
 (``load``) or up front for all sources at once (``build``, one ``nvcc`` per
-source, all started together). A failed build raises with nvcc's output.
+source, all started together). A build holds a cross-process file lock
+(``build/kernels/.lock``), so processes that reach it together (the ranks of
+a mesh on one host) compile each source once. A failed build raises with
+nvcc's output.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Iterable, Optional
+
+from ..utils.locking import file_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -59,6 +64,11 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, str]:
     shared-memory use from ``-Xptxas -v``); sources already built are absent."""
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with file_lock(BUILD_DIR / ".lock"):
+        return _build_locked(names)
+
+
+def _build_locked(names: list[str]) -> dict[str, str]:
     nvcc = None
     jobs = {}
     for name in names:

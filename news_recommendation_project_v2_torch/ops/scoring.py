@@ -75,6 +75,21 @@ def cosine_scores_chunked(
     return out.cpu().numpy()
 
 
+@torch.inference_mode()
+def cosine_scores_flat(user_vecs, news_emb, cand_rev, cand_row, eps: float = EPS) -> torch.Tensor:
+    """[C] cosine scores of ``user_vecs[cand_row]`` against
+    ``news_emb[cand_rev]`` (each norm clamped at ``eps``), on the user
+    vectors' device in one pass; ``cosine_scores_chunked`` bounds the memory
+    and fetches to the host."""
+    user_vecs = torch.as_tensor(user_vecs)
+    news = torch.as_tensor(news_emb, device=user_vecs.device)
+    u = user_vecs[torch.as_tensor(cand_row, device=user_vecs.device).long()]
+    c = news[torch.as_tensor(cand_rev, device=user_vecs.device).long()]
+    nu = torch.linalg.vector_norm(u, dim=-1).clamp_min(eps)
+    nc = torch.linalg.vector_norm(c, dim=-1).clamp_min(eps)
+    return (u * c).sum(-1) / (nu * nc)
+
+
 def _bucket_plan(hist_lens: np.ndarray, buckets: tuple[int, ...], batch_size: int):
     """The padded path's host plan: per bucket that holds rows,
     ``(bucket_len, batch, starts, lens, rows)``, the arrays padded to a
@@ -166,6 +181,7 @@ def score_all_impressions(
     buckets: tuple[int, ...] = HISTORY_BUCKETS,
     flat_tokens: bool = False,
     flat_max_len: Optional[int] = None,
+    mesh=None,
     device=None,
 ) -> np.ndarray:
     """The eval's scores: the tower over the histories, read from
@@ -178,22 +194,47 @@ def score_all_impressions(
     (a one-shot ``FlatEvalPlan``; token-local towers only), in the token
     chunks ``_auto_flat_chunk`` picks, with ``flat_max_len`` capping each row
     at its most recent clicks, as the largest bucket caps the bucketed path.
-    ``device=None`` means CUDA."""
+    ``device=None`` means CUDA.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``; every rank calls this with the
+    same arguments), the rows are cut by token count into one contiguous
+    part per rank (``parallel.flat_eval.partition_rows_by_tokens``); each
+    rank computes the user vectors of its part, the ``[rows, D]`` matrix is
+    summed over the mesh with zeros where a rank has no row (exact), and
+    every rank scores every slot and returns the same scores."""
     if len(hist_lens) and np.asarray(cand_row).max() >= len(hist_lens):
         raise ValueError("cand_row indexes rows beyond hist_lens")
     device = resolve_device(device)
     news = torch.as_tensor(news_emb, device=device)
     query = news if query_news_emb is None else torch.as_tensor(query_news_emb, device=device)
+    hist_rev, hist_lens = np.asarray(hist_rev), np.asarray(hist_lens)
+    rows = slice(0, len(hist_lens))
+    if mesh is not None:
+        from ..parallel.flat_eval import partition_rows_by_tokens
+
+        capped = hist_lens if not flat_tokens or flat_max_len is None else np.minimum(hist_lens, flat_max_len)
+        bounds = partition_rows_by_tokens(capped, mesh.size)
+        rows = slice(int(bounds[mesh.rank]), int(bounds[mesh.rank + 1]))
+    offsets = lengths_to_offsets(hist_lens)
+    part_rev, part_lens = hist_rev[offsets[rows.start] : offsets[rows.stop]], hist_lens[rows]
     if flat_tokens:
-        lens = np.asarray(hist_lens)
-        tokens = int((lens if flat_max_len is None else np.minimum(lens, flat_max_len)).sum())
-        plan = FlatEvalPlan(
-            hist_rev, hist_lens, cand_rev, cand_row,
-            chunk_tokens=_auto_flat_chunk(tower.dim, tokens, device), max_len=flat_max_len, device=device,
+        tokens = int((part_lens if flat_max_len is None else np.minimum(part_lens, flat_max_len)).sum())
+        if mesh is None:
+            plan = FlatEvalPlan(
+                hist_rev, hist_lens, cand_rev, cand_row,
+                chunk_tokens=_auto_flat_chunk(tower.dim, tokens, device), max_len=flat_max_len, device=device,
+            )
+            return plan.score(tower, news, query)
+        part = user_vectors_flat(
+            tower, query, part_rev, part_lens, _auto_flat_chunk(tower.dim, tokens, device), flat_max_len, device=device
         )
-        return plan.score(tower, news, query)
-    user = user_vectors_device(tower, query, hist_rev, hist_lens, batch_size, buckets, device)
-    return cosine_scores_chunked(user, news, cand_rev, cand_row)
+    else:
+        part = user_vectors_device(tower, query, part_rev, part_lens, batch_size, buckets, device)
+    if mesh is None:
+        return cosine_scores_chunked(part, news, cand_rev, cand_row)
+    user = torch.zeros((len(hist_lens), part.shape[-1]), dtype=torch.float32, device=device)
+    user[rows] = part
+    return cosine_scores_chunked(mesh.sum(user), news, cand_rev, cand_row)
 
 
 def _auto_flat_chunk(out_dim: int, num_tokens: int, device) -> int:
@@ -380,3 +421,26 @@ class FlatEvalPlan:
         full = metrics_plan.compose(self._scores(tower, news_emb, query_news_emb, normalize), alpha)
         return metrics_plan.finalize(metric_sums(full, metrics_plan.grids).tolist())
 
+
+def score_all_impressions_flat(
+    tower: torch.nn.Module,
+    news_emb,
+    hist_rev: np.ndarray,
+    hist_lens: np.ndarray,
+    cand_rev: np.ndarray,
+    cand_row: np.ndarray,
+    query_news_emb=None,
+    chunk_tokens: int = DEFAULT_FLAT_CHUNK,
+    cand_chunk: int = COSINE_CHUNK,
+    max_len: Optional[int] = None,
+    normalize: Optional[bool] = None,
+    device=None,
+) -> np.ndarray:
+    """The flat eval's scores in one shot: a ``FlatEvalPlan`` built and
+    scored once (build the plan directly to score one dataset many times).
+    ``device=None`` means CUDA."""
+    plan = FlatEvalPlan(
+        hist_rev, hist_lens, cand_rev, cand_row,
+        chunk_tokens=chunk_tokens, cand_chunk=cand_chunk, max_len=max_len, device=device,
+    )
+    return plan.score(tower, news_emb, query_news_emb=query_news_emb, normalize=normalize)

@@ -262,8 +262,6 @@ class _TowerComponentBase(PipelineComponent):
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU) is not ported yet (ROADMAP.md §1)")
         self.tower_config = tower_config
         self.cfg = cfg
         self.log_dir = log_dir
@@ -350,6 +348,7 @@ class AttentionComponent(_TowerComponentBase):
             flat_train=flat and self.cfg.loss == "margin",
             flat_eval=flat,
             device_metrics=flat,  # epoch evals fetch five scalars
+            mesh=self.mesh,
             device=self.device,
             **self._bucket_kwargs(),
         )
@@ -408,6 +407,7 @@ class AttentionWeightComponent(_TowerComponentBase):
             exp_name=self.exp_name,
             flat_eval=flat,
             device_metrics=flat,
+            mesh=self.mesh,
             device=self.device,
         )
         self._trainer.train()
@@ -457,6 +457,7 @@ class AttentionReduceComponent(_TowerComponentBase):
             ckpt_dir=self.ckpt_dir,
             exp_name=self.exp_name,
             flat_eval=False,
+            mesh=self.mesh,
             device=self.device,
         )
         self._trainer.train()

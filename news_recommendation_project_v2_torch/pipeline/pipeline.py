@@ -16,6 +16,7 @@ dicts key by key.
 from __future__ import annotations
 
 import hashlib
+import os
 import pickle
 import time
 from abc import ABC, abstractmethod
@@ -166,8 +167,12 @@ class Pipeline:
                 if val_context is not None:
                     val_context = component.transform(val_context)
                 if cache_file is not None:
-                    with open(cache_file, "wb") as f:
+                    # Renamed into place: the ranks of a mesh, which run the
+                    # same pipeline, never read a half-written entry.
+                    tmp = cache_file.with_name(f"{cache_file.name}.{os.getpid()}.tmp")
+                    with open(tmp, "wb") as f:
                         pickle.dump({"context": context, "val_context": val_context}, f)
+                    os.replace(tmp, cache_file)
             seconds = time.perf_counter() - t0
             self.step_log.append((step_name, seconds, hit))
             print(f"Completed step {step_name} in {seconds:.3f} s{' (cached)' if hit else ''}")

@@ -40,23 +40,28 @@ def mean_metric(scores: dict[str, float]) -> float:
 
 class BestTracker:
     """Saves every epoch's checkpoint and keeps the best by ``mean_metric``
-    (nothing when ``ckpt_dir`` is None)."""
+    (nothing when ``ckpt_dir`` is None). With ``write=False`` (the ranks of
+    a mesh but the first) it tracks the same best score and path without
+    writing: one rank writes, every rank knows where."""
 
-    def __init__(self, ckpt_dir: Optional[Path], exp_name: str):
+    def __init__(self, ckpt_dir: Optional[Path], exp_name: str, write: bool = True):
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.exp_name = exp_name
+        self.write = write
         self.best_score = -np.inf
         self.best_path: Optional[Path] = None
 
     def update(self, epoch: int, scores: dict[str, float], tree: Any) -> bool:
         if self.ckpt_dir is None:
             return False
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        save_pytree(self.ckpt_dir / f"Epoch_{epoch}", tree)
+        if self.write:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+            save_pytree(self.ckpt_dir / f"Epoch_{epoch}", tree)
         m = mean_metric(scores)
         if m > self.best_score:
             self.best_score = m
             self.best_path = self.ckpt_dir / f"Best_model_{self.exp_name}"
-            save_pytree(self.best_path, tree)
+            if self.write:
+                save_pytree(self.best_path, tree)
             return True
         return False

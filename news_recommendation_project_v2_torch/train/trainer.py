@@ -14,6 +14,14 @@ flat eval (``ops.scoring.FlatEvalPlan``, with ``device_metrics`` its fused
 ``metrics`` call, five scalars fetched) or the bucketed
 ``score_all_impressions``.
 
+With ``mesh=`` (``parallel.mesh.Mesh``; the tower, joint and classification
+trainers) every rank of the mesh runs the trainer: each draws the same
+epoch's pairs from the same seed, takes its data rank's share of every
+batch (``parallel.sharding``'s data-parallel steps over the row-sharded
+tables), and the evals run sharded (``parallel.flat_eval``, or
+``score_all_impressions(mesh=)``), so every rank reads the same metrics and
+stops at the same epoch. Only rank 0 writes logs and checkpoints.
+
 The optimizer is optax's ``chain(clip_by_global_norm, adamw)`` as the JAX
 package builds it (``ClippedAdamW``).
 """
@@ -39,6 +47,14 @@ from ..eval.device_metrics import DeviceMetricsPlan
 from ..eval.ranker import compose_final_scores, history_candidate_slots
 from ..ops.encode import TokenStore, materialize_from_token_store
 from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions
+from ..parallel.sharding import (
+    ShardedTable,
+    make_sharded_classification_step,
+    make_sharded_flat_tower_train_step,
+    make_sharded_joint_train_step,
+    make_sharded_tower_train_step,
+    shard_news_table,
+)
 from ..utils.memory import fits_device_token_store
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
 from .step import (
@@ -143,35 +159,38 @@ def _fused_eval_metrics(
     device: torch.device,
     baseline: Optional[np.ndarray] = None,
     alpha: Optional[float] = None,
+    mesh=None,
 ) -> dict[str, float]:
     """Epoch eval through ``FlatEvalPlan.metrics``: the tower, the cosine, the
     score composition and the MIND metrics on one device, five scalars
-    fetched. The tower reads the histories from ``query_emb`` (``None``:
-    ``news_emb``), the candidates come from ``news_emb``. The plans (index
-    grids, metric grids, the baseline's slots) are built once per compiled
-    set and cached in ``plan_cache``. Equal to
-    ``score_all_impressions(flat_tokens=True)`` +
-    ``compose_final_scores(...).metrics``."""
+    fetched; with a ``mesh``, through the sharded plans
+    (``parallel.flat_eval``), whose only exchange is the five sums. The
+    tower reads the histories from ``query_emb`` (``None``: ``news_emb``),
+    the candidates come from ``news_emb``. The plans (index grids, metric
+    grids, the baseline's slots) are built once per compiled set and cached
+    in ``plan_cache``. Equal to ``score_all_impressions(flat_tokens=True)``
+    + ``compose_final_scores(...).metrics``."""
     plans = plan_cache.get(id(compiled))
     if plans is None:
         slots, cand_rows = history_candidate_slots(compiled)
         tokens = int(np.minimum(compiled.hist_lens, max_len).sum())
-        fplan = FlatEvalPlan(
-            compiled.hist_rev,
-            compiled.hist_lens,
-            compiled.imp_rev[slots],
-            cand_rows,
-            chunk_tokens=_auto_flat_chunk(tower.dim, tokens, device),
-            max_len=max_len,
-            device=device,
-        )
-        mplan = DeviceMetricsPlan(
-            compiled.imp_lens,
-            compiled.labels_flat,
-            hist_slots=slots,
-            baseline_slots=None if baseline is None else np.asarray(baseline, np.float32)[compiled.imp_rev],
-            device=device,
-        )
+        if mesh is not None:
+            tokens = -(-tokens // mesh.size)  # about one rank's share
+        grids = (compiled.hist_rev, compiled.hist_lens, compiled.imp_rev[slots], cand_rows)
+        chunk = _auto_flat_chunk(tower.dim, tokens, device)
+        baseline_slots = None if baseline is None else np.asarray(baseline, np.float32)[compiled.imp_rev]
+        if mesh is None:
+            fplan = FlatEvalPlan(*grids, chunk_tokens=chunk, max_len=max_len, device=device)
+            mplan = DeviceMetricsPlan(
+                compiled.imp_lens, compiled.labels_flat, hist_slots=slots, baseline_slots=baseline_slots, device=device
+            )
+        else:
+            from ..parallel.flat_eval import ShardedFlatEvalPlan, ShardedMetricsPlan
+
+            fplan = ShardedFlatEvalPlan(mesh, *grids, chunk_tokens=chunk, max_len=max_len, device=device)
+            mplan = ShardedMetricsPlan(
+                fplan, compiled.imp_lens, compiled.labels_flat, hist_slots=slots, baseline_slots=baseline_slots
+            )
         plans = plan_cache[id(compiled)] = (fplan, mplan)
     fplan, mplan = plans
     return fplan.metrics(tower, news_emb, mplan, query_news_emb=query_emb, alpha=alpha)
@@ -187,9 +206,9 @@ class ResumableTrainer:
     generator's state (the epoch sampling stream).
 
     A trainer sets ``model``, ``optimizer``, ``generator`` (or None),
-    ``rng``, ``best``, ``plateau``, ``history``, ``cfg``, ``log_dir`` and
-    ``exp_name``, and defines ``train_one_epoch`` and ``evaluate``;
-    ``LOG_NAME`` names its JSONL logs."""
+    ``rng``, ``best``, ``plateau``, ``history``, ``cfg``, ``log_dir``,
+    ``exp_name`` and ``mesh`` (or None), and defines ``train_one_epoch`` and
+    ``evaluate``; ``LOG_NAME`` names its JSONL logs."""
 
     LOG_NAME = "final_history"
 
@@ -217,7 +236,26 @@ class ResumableTrainer:
                 )
                 self.best.update(epoch, val_scores, self.model.state_dict())
                 self.plateau.update(self.optimizer, mean_metric(val_scores))
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's checkpoints are on disk before any rank reads them
         return self.history
+
+    def _table(self, emb):
+        """A table on the device; on a mesh, row-sharded over its model axis."""
+        if emb is None:
+            return None
+        if self.mesh is not None:
+            return shard_news_table(self.mesh, emb, self.device)
+        return torch.as_tensor(emb, device=self.device)
+
+    def _shard(self, batch: tuple) -> tuple:
+        """This rank's share of a global batch (the batch itself off a mesh)."""
+        return batch if self._mesh_step is None else self._mesh_step.shard(batch)
+
+    @staticmethod
+    def _whole(table):
+        """A table whole on the device: a mesh's row shards gathered."""
+        return table.full() if isinstance(table, ShardedTable) else table
 
     def save_training_state(self, path: Path) -> None:
         path = Path(path)
@@ -286,8 +324,10 @@ class TowerTrainer(ResumableTrainer):
     are looked up in ``query_news_emb_train`` and ``query_news_emb_val``
     (e5's query-side tables), the candidates in the news tables; a query
     table left ``None`` is its split's news table. Dropout, where the tower
-    has it, draws from ``generator``, seeded from ``cfg.seed``.
-    ``mesh=`` (multi-GPU) raises ``NotImplementedError``.
+    has it, draws from ``generator``, seeded from ``cfg.seed`` (plus the
+    data index on a mesh). ``mesh=`` trains data parallel over the ranks of
+    a ``parallel.mesh.Mesh`` (the module docstring); ``cfg.batch_size``
+    must divide over its data axis.
     """
 
     def __init__(
@@ -310,8 +350,8 @@ class TowerTrainer(ResumableTrainer):
         device_metrics: bool = False,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU training) is not ported yet (ROADMAP.md §1)")
+        if mesh is not None and cfg.batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide over the mesh's data axis ({mesh.data_size})")
         if (flat_train or flat_eval) and not getattr(tower, "token_local", False):
             raise ValueError(
                 f"flat_train and flat_eval need a token-local tower (models.supports_flat_scoring: "
@@ -324,6 +364,7 @@ class TowerTrainer(ResumableTrainer):
         if cfg.loss not in ("margin", "infonce"):
             raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.tower = tower.to(self.device)
         self.model = self._trained_model()
         self.cfg = cfg
@@ -333,13 +374,15 @@ class TowerTrainer(ResumableTrainer):
         self.news_emb_val = self._table(news_emb_val)
         self.query_train = self.news_emb_train if query_news_emb_train is None else self._table(query_news_emb_train)
         self.query_val = self.news_emb_val if query_news_emb_val is None else self._table(query_news_emb_val)
-        self.log_dir = log_dir
+        writer = mesh is None or mesh.rank == 0
+        self.log_dir = log_dir if writer else None
         self.exp_name = exp_name
         self.buckets = buckets
         self.rng = np.random.default_rng(cfg.seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        seed = cfg.seed if mesh is None else cfg.seed + mesh.data_index
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
-        self.best = BestTracker(ckpt_dir, exp_name)
+        self.best = BestTracker(ckpt_dir, exp_name, write=writer)
         self.plateau = PlateauScheduler(cfg)
         self.history: list[dict] = []
         self._hist_offsets = lengths_to_offsets(compiled_train.hist_lens)
@@ -347,13 +390,18 @@ class TowerTrainer(ResumableTrainer):
         self.flat_eval = flat_eval
         self.device_metrics = device_metrics
         self._fused_plans: dict = {}
+        self._mesh_step = None if mesh is None else self._sharded_step()
 
     def _trained_model(self) -> torch.nn.Module:
         """The module the optimizer steps and the checkpoint saves: the tower."""
         return self.tower
 
-    def _table(self, emb) -> Optional[torch.Tensor]:
-        return None if emb is None else torch.as_tensor(emb, device=self.device)
+    def _sharded_step(self):
+        """The data-parallel step of ``_train_step``'s loss."""
+        cfg, infonce = self.cfg, self.cfg.loss == "infonce"
+        if self.flat_train:
+            return make_sharded_flat_tower_train_step(self.mesh, self.tower, cfg.margin, infonce)
+        return make_sharded_tower_train_step(self.mesh, self.tower, cfg.margin, infonce, self.generator)
 
     # ------------------------------------------------------------------
     # Host input pipeline
@@ -447,10 +495,12 @@ class TowerTrainer(ResumableTrainer):
         (built on the prefetch thread)."""
         batches = self._epoch_batches_flat() if self.flat_train else self._epoch_batches()
         for batch in batches:
-            yield float(batch[-1].sum()), _pinned(batch, self.device)
+            yield float(batch[-1].sum()), _pinned(self._shard(batch), self.device)
 
     def _train_step(self, batch) -> torch.Tensor:
         cfg, tower, news, query = self.cfg, self.tower, self.news_emb_train, self.query_train
+        if self._mesh_step is not None:
+            return self._mesh_step(self.optimizer, news, query, batch)
         if self.flat_train:
             if cfg.loss == "infonce":
                 return flat_infonce_step(tower, self.optimizer, news, batch, query)
@@ -493,7 +543,8 @@ class TowerTrainer(ResumableTrainer):
         max_len = self.buckets[-1]  # the train step's cap, so both see the same histories
         if self.device_metrics:
             return _fused_eval_metrics(
-                self._fused_plans, self.tower, compiled, news_emb, query_emb, max_len, self.device, baseline, alpha
+                self._fused_plans, self.tower, compiled, news_emb, query_emb, max_len, self.device, baseline, alpha,
+                self.mesh,
             )
         slots, cand_rows = history_candidate_slots(compiled)
         scores = score_all_impressions(
@@ -508,13 +559,23 @@ class TowerTrainer(ResumableTrainer):
             buckets=self.buckets,
             flat_tokens=self.flat_eval,
             flat_max_len=max_len,
+            mesh=self.mesh,
             device=self.device,
         )
         return compose_final_scores(compiled, history_scores=scores, baseline_scores=baseline, alpha=alpha).metrics
 
+    def _eval_tables(self, news, query) -> tuple[torch.Tensor, torch.Tensor]:
+        """A split's (news, query) tables whole on the device, once per eval."""
+        full = self._whole(news)
+        return full, full if query is news else self._whole(query)
+
     def evaluate(self) -> tuple[dict, Optional[dict]]:
-        train_scores = self._eval_split(self.ct, self.news_emb_train, self.query_train)
-        val_scores = self._eval_split(self.cv, self.news_emb_val, self.query_val) if self.cv is not None else None
+        train_scores = self._eval_split(self.ct, *self._eval_tables(self.news_emb_train, self.query_train))
+        val_scores = (
+            self._eval_split(self.cv, *self._eval_tables(self.news_emb_val, self.query_val))
+            if self.cv is not None
+            else None
+        )
         return train_scores, val_scores
 
 
@@ -575,9 +636,16 @@ class JointTowerTrainer(TowerTrainer):
         for batch in self._epoch_batches():
             pos, neg = batch[3], batch[4]
             extras = (baseline[pos].astype(np.float32), baseline[neg].astype(np.float32))
-            yield float(batch[-1].sum()), _pinned(batch + extras, self.device)
+            yield float(batch[-1].sum()), _pinned(self._shard(batch + extras), self.device)
+
+    def _sharded_step(self):
+        return make_sharded_joint_train_step(
+            self.mesh, self.tower, self.cfg.margin, self.blend, self.reduce, self.generator
+        )
 
     def _train_step(self, batch) -> torch.Tensor:
+        if self._mesh_step is not None:
+            return self._mesh_step(self.optimizer, self.news_emb_train, self.query_train, batch)
         loss = joint_margin_loss(
             self.tower, self.news_emb_train, batch, self.cfg.margin, self.blend, self.reduce, self.generator,
             self.query_train,
@@ -599,10 +667,12 @@ class JointTowerTrainer(TowerTrainer):
     def evaluate(self) -> tuple[dict, Optional[dict]]:
         alpha = self._alpha()
         train_scores = self._eval_split(
-            self.ct, *self._reduced(self.news_emb_train, self.query_train), self.baseline_train, alpha
+            self.ct, *self._reduced(*self._eval_tables(self.news_emb_train, self.query_train)), self.baseline_train, alpha
         )
         val_scores = (
-            self._eval_split(self.cv, *self._reduced(self.news_emb_val, self.query_val), self.baseline_val, alpha)
+            self._eval_split(
+                self.cv, *self._reduced(*self._eval_tables(self.news_emb_val, self.query_val)), self.baseline_val, alpha
+            )
             if self.cv is not None
             else None
         )
@@ -615,7 +685,7 @@ class ClassificationTrainer(ResumableTrainer):
     pairs in a full permutation. Its eval ranks every candidate by the head's
     score alone; ``baseline_scores`` gives those scores per unique news, the
     baseline ``JointTowerTrainer``'s blend takes. ``device=None`` means
-    CUDA; ``mesh=`` raises ``NotImplementedError``."""
+    CUDA; ``mesh=`` trains data parallel, as ``TowerTrainer`` does."""
 
     LOG_NAME = "classification"
 
@@ -633,25 +703,32 @@ class ClassificationTrainer(ResumableTrainer):
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU training) is not ported yet (ROADMAP.md §1)")
+        if mesh is not None and cfg.batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide over the mesh's data axis ({mesh.data_size})")
         if cfg.loss not in ("margin", "infonce"):
             raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.head = self.model = head.to(self.device)
         self.cfg = cfg
         self.ct = compiled_train
         self.cv = compiled_val
-        self.news_emb_train = torch.as_tensor(news_emb_train, device=self.device)
-        self.news_emb_val = None if news_emb_val is None else torch.as_tensor(news_emb_val, device=self.device)
-        self.log_dir = log_dir
+        self.news_emb_train = self._table(news_emb_train)
+        self.news_emb_val = self._table(news_emb_val)
+        writer = mesh is None or mesh.rank == 0
+        self.log_dir = log_dir if writer else None
         self.exp_name = exp_name
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = None  # the head has no dropout
         self.optimizer = make_optimizer(cfg, self.model.parameters())
-        self.best = BestTracker(ckpt_dir, exp_name)
+        self.best = BestTracker(ckpt_dir, exp_name, write=writer)
         self.plateau = PlateauScheduler(cfg)
         self.history: list[dict] = []
+        self._mesh_step = (
+            None
+            if mesh is None
+            else make_sharded_classification_step(mesh, head, cfg.margin, cfg.loss == "infonce")
+        )
 
     def _host_batches(self) -> Iterator[tuple[float, tuple]]:
         """``(pair count, (pos, neg, pair_mask))`` per step, padded to
@@ -675,7 +752,7 @@ class ClassificationTrainer(ResumableTrainer):
                 neg_batch_column(pairs, negs, start, stop, pad),
                 np.pad(np.ones(stop - start, np.float32), (0, pad)),
             )
-            yield float(stop - start), _pinned(batch, self.device)
+            yield float(stop - start), _pinned(self._shard(batch), self.device)
 
     def train_one_epoch(self) -> float:
         """One epoch; returns the pair-weighted mean loss (fetched every
@@ -684,11 +761,14 @@ class ClassificationTrainer(ResumableTrainer):
         losses, counts = [], []
         for count, batch in prefetch(self._host_batches()):
             batch = tuple(t.to(self.device, non_blocking=True) for t in batch)
-            if self.cfg.loss == "infonce":
-                loss = classification_infonce_loss(self.head, self.news_emb_train, batch)
+            if self._mesh_step is not None:
+                losses.append(self._mesh_step(self.optimizer, self.news_emb_train, None, batch))
             else:
-                loss = classification_margin_loss(self.head, self.news_emb_train, batch, self.cfg.margin)
-            losses.append(apply_step(self.optimizer, loss))
+                if self.cfg.loss == "infonce":
+                    loss = classification_infonce_loss(self.head, self.news_emb_train, batch)
+                else:
+                    loss = classification_margin_loss(self.head, self.news_emb_train, batch, self.cfg.margin)
+                losses.append(apply_step(self.optimizer, loss))
             if len(losses) % sync == 0:
                 losses[-1] = float(losses[-1])
             counts.append(count)
@@ -706,8 +786,8 @@ class ClassificationTrainer(ResumableTrainer):
         return compose_final_scores(compiled, baseline_scores=preds).metrics
 
     def evaluate(self) -> tuple[dict, Optional[dict]]:
-        train_scores = self._eval_split(self.ct, self.news_emb_train)
-        val_scores = self._eval_split(self.cv, self.news_emb_val) if self.cv is not None else None
+        train_scores = self._eval_split(self.ct, self._whole(self.news_emb_train))
+        val_scores = self._eval_split(self.cv, self._whole(self.news_emb_val)) if self.cv is not None else None
         return train_scores, val_scores
 
 
@@ -756,8 +836,14 @@ class EndToEndTrainer(ResumableTrainer):
         flat_eval: bool = False,
         device_metrics: bool = False,
         device_store: Optional[bool] = None,
+        mesh=None,
         device=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "EndToEndTrainer(mesh=) comes with the second half of multi-GPU, with the sharded token store "
+                "(ROADMAP.md §1)"
+            )
         if len(compiled_train.hist_lens) != compiled_train.num_rows:
             raise ValueError("EndToEndTrainer needs a with-history view (every row must have history)")
         if (compiled_val is None) != (val_token_store is None):
@@ -769,6 +855,7 @@ class EndToEndTrainer(ResumableTrainer):
         if cfg.loss not in ("margin", "infonce"):
             raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
         self.device = resolve_device(device)
+        self.mesh = None
         self.model = torch.nn.ModuleDict({"token_encoder": token_encoder, "tower": tower}).to(self.device)
         self.token_encoder, self.tower = self.model["token_encoder"], self.model["tower"]
         self.ct, self.store = compiled_train, token_store

@@ -10,8 +10,13 @@ and ``nrtorch-train-e2e`` run at ``--dim 32``. One epoch each. The eval's
 metrics are held to the flat eval computed directly from the same
 checkpoint and tables within 1e-5."""
 
+import ast
 import io
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +42,7 @@ from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
 SPLITS = ("MINDsmall_train", "MINDsmall_dev")
 METRICS = ("auc", "mrr", "ndcg5", "ndcg10")
 CPU = ["--device", "cpu"]
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -146,8 +152,40 @@ def test_train_encode_inline_at_dim_32(root, monkeypatch):
 
 
 def test_train_refuses_mesh(root):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """``--mesh`` in one process asks for one process per rank (torchrun);
+    a malformed value is a usage error."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         _train(root, "--mesh", "2,1")
+    with pytest.raises(SystemExit):
+        _train(root, "--mesh", "two")
+
+
+def test_train_on_a_mesh_under_torchrun(root, tmp_path):
+    """``torchrun --nproc-per-node 2 ... --mesh 2,1 --device cpu`` (gloo):
+    exits 0, rank 0 alone prints and writes, and the metrics equal the
+    single-rank CLI's within 1e-5."""
+    argv = [str(root), "--emb-dir", str(root / "emb"), "--epochs", "1", "--cls-epochs", "1", "--batch-size", "32",
+            "--dim", "128", "--no-cache", *CPU]
+    _, want_train, want_dev = train_cli.main(
+        argv + ["--log-dir", str(tmp_path / "logs1"), "--ckpt-dir", str(tmp_path / "models1")]
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "news_recommendation_project_v2_torch.cli.train", *argv, "--mesh", "2,1",
+         "--log-dir", str(tmp_path / "logs2"), "--ckpt-dir", str(tmp_path / "models2")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    printed = dict(line.split(" metrics: ", 1) for line in proc.stdout.splitlines() if " metrics: " in line)
+    assert sorted(printed) == ["dev", "train"]  # one rank prints
+    for split, want in (("train", want_train["metrics"]), ("dev", want_dev["metrics"])):
+        got = ast.literal_eval(printed[split])
+        assert got["num_samples"] == want["num_samples"]
+        for k in METRICS:
+            assert got[k] == pytest.approx(want[k], abs=1e-5), (split, k)
+    assert (tmp_path / "models2" / "attention" / "Best_model_e5_query_latent").exists()
+    assert len((tmp_path / "logs2" / "final_scores.jsonl").read_text().splitlines()) == 1
 
 
 def test_train_e2e_prints_finite_metrics(root, capsys):

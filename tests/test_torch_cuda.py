@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from news_recommendation_project_v2_torch.config import QUERY_INSTRUCTION, EncoderConfig, TowerConfig, TrainConfig
-from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
+from news_recommendation_project_v2_torch.data.compiler import compile_behaviors, compile_native
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import TokenAttentionPool, build_tower
@@ -925,3 +925,39 @@ def test_train_cli_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     num = math.sqrt(sum(float((a[k] - b[k]).pow(2).sum()) for k in b))
     den = math.sqrt(sum(float(b[k].pow(2).sum()) for k in b))
     assert num <= 1e-4 * den
+
+
+@pytest.mark.parametrize("backend,ranks", [("gloo", 2), ("nccl", 1)], ids=["gloo_two_ranks", "nccl_one_rank"])
+def test_data_parallel_steps_on_cuda(cuda, backend, ranks):
+    """The data-parallel steps on the card (``parallel.mesh.launch``, rank
+    code in ``torch_mesh_workers``): two ranks sharing the card over gloo
+    with CUDA tensors (NCCL refuses two ranks on one GPU), and NCCL's world
+    of one; each step against one rank's at the same weights (loss 1e-6,
+    gradient norm-relative 1e-5), the ranks' weights equal to the bit."""
+    import torch_mesh_workers as workers
+
+    from news_recommendation_project_v2_torch.parallel import launch
+
+    out = launch(workers.cuda_worker, ranks, args=(workers.numpy_params(), backend), backend=backend, timeout=600)
+    for rank in out:
+        assert rank["backend"] == backend and rank["shape"] == {"data": ranks, "model": 1}
+        for kind, got in rank["steps"].items():
+            assert got["steps"] == 3 and got["loss_err"] <= 1e-6 and got["grad_err"] <= 1e-5, (kind, got)
+            for k, v in got["params"].items():
+                assert np.array_equal(v, out[0]["steps"][kind]["params"][k]), (kind, k)
+
+
+def test_native_compiler_on_the_cards_machine(cuda):
+    """The native behaviors compiler builds with the machine's g++ and
+    Python headers and gives the numpy path's arrays (``compile_native``
+    raises rather than fall back to numpy)."""
+    from news_recommendation_project_v2_torch import native
+
+    assert native.load() is not None
+    rng = np.random.default_rng(0)
+    imps = [" ".join(f"N{j}-{int(j % 3 == 0)}" for j in rng.choice(500, 12, replace=False)) for _ in range(2000)]
+    hist = [" ".join(f"N{j}" for j in rng.choice(500, 20)) if i % 5 else None for i in range(2000)]
+    a, b = compile_native(imps, hist), compile_behaviors(imps, hist, use_native=False)
+    assert a.news_ids.tolist() == b.news_ids.tolist()
+    for field in ("imp_rev", "imp_row", "imp_lens", "hist_rev", "hist_row", "hist_lens", "hist_row_index", "labels_flat"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)

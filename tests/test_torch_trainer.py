@@ -17,12 +17,13 @@ from news_recommendation_project_v2_tpu.data.compiler import compile_behaviors a
 from news_recommendation_project_v2_tpu.models import build_tower as jax_build_tower
 from news_recommendation_project_v2_tpu.ops import scoring as jax_scoring
 from news_recommendation_project_v2_tpu.train import trainer as jax_trainer
-from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
+from news_recommendation_project_v2_torch.config import MeshConfig, TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.configs import run_config1
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.models.convert import latent_state_dict_from_jax, random_latent_params
+from news_recommendation_project_v2_torch.parallel.mesh import Mesh
 from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
 from news_recommendation_project_v2_torch.train.trainer import PlateauScheduler, TowerTrainer, make_optimizer
 
@@ -164,12 +165,13 @@ def test_run_config1_returns_the_metrics(fixture):
 
 
 def test_trainer_refuses_what_is_not_ported(fixture):
-    """``mesh=`` is not ported; the flat step and eval refuse a tower that
-    is not token-local, and the fused metrics need the flat eval."""
+    """A mesh whose data axis does not divide the batch is refused; the
+    flat step and eval refuse a tower that is not token-local, and the fused
+    metrics need the flat eval."""
     f = fixture
     tower = build_tower(TowerConfig(**TOWER))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TowerTrainer(tower, f["ct"], f["emb_t"], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh's data axis"):
+        TowerTrainer(tower, f["ct"], f["emb_t"], mesh=Mesh(MeshConfig(), data=3, model=1, rank=0), device="cpu")
     transformer = build_tower(TowerConfig(kind="transformer", reduced_dim=D))
     for kwargs in (dict(flat_train=False, flat_eval=True), dict(flat_train=True, flat_eval=False)):
         with pytest.raises(ValueError, match="supports_flat_scoring"):
