@@ -55,7 +55,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               forward, and two runs of 5 steps from one state giving the
               same parameter bits. 7b: bench.py's worst-case batch (B=2048,
               T = 65,536; flat_inputs copied here), margin and InfoNCE (K=5):
-              3 warm-up and 20 timed steps with the loss fetched every step,
+              3 warm-up and 10 timed steps with the loss fetched every step,
               ms/step, pairs/s, the peak memory, the device time by part (the
               kernels' forward, cuBLAS forward, the plain backward, the
               optimizer), a profiled step and its host syncs (want 1), with
@@ -89,7 +89,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               ReLU sign flips masked out, zero-gradient leaves under 1e-6 in
               norm; dropout off), two 5-step runs with dropout on
               bit-identical.
-              8c.2: 20 timed margin steps per tower at B=512, flat_inputs's
+              8c.2: 10 timed margin steps per tower at B=512, flat_inputs's
               histories padded to each batch's bucket: ms/step, pairs/s,
               peak memory, device time by part, one host sync a step (the
               latent tower's launches counted). 8c.3: TowerTrainer(
@@ -117,7 +117,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               steps on the resident store and on the streamed block give the
               same bits, and so do two resident runs. 9c: e2e_bench.py's
               batch (M=2048, T=64, B=1024, L=64), margin and InfoNCE (K=5),
-              each on the resident store and streamed: 3 warm-up and 20 timed
+              each on the resident store and streamed: 3 warm-up and 10 timed
               steps, the loss fetched every step; ms/step, pairs/s, bytes to
               the card a step, peak memory, the device time by part, host
               syncs a step. 9d: materialize_from_token_store over the whole
@@ -184,7 +184,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               T = 65,536), margin and InfoNCE: 5 data-parallel steps, each
               against one rank's loss (1e-6) and gradient (norm-relative
               1e-5) at the same weights, the ranks' weights equal to the bit,
-              then 20 timed steps (ms a step, pairs/s); the padded step the
+              then 10 timed steps (ms a step, pairs/s); the padded step the
               same at B = 512 on 8c.2's batches. 12c: mesh (1, 2), the
               65,238 x 1024 table row-sharded: each rank's shard, the sharded
               gather equal to the plain one to the bit, 5 steps as 12b. 12d:
@@ -201,11 +201,42 @@ Phases, one line or a few each, exit code non-zero on any failure:
               train rows compiled by the native extension and by numpy,
               equal, both timed. Then each kernel against its plain version
               at every shape run_config3 launched it at on the ranks.
+ 13. mesh2:   multi-GPU part 2 on two gloo ranks sharing the card (NCCL
+              refuses two ranks on one GPU), full width, float32 unless
+              named, one JSON line a part. 13a: phase 9's store rebuilt on
+              each rank from 9a's generator state; 9c's batch (M = 2,048,
+              T = 64, B = 1,024, L = 64, margin) on meshes (2, 1) and
+              (1, 2) from the streamed block, the store replicated on each
+              rank and the ShardedStore (3.01 GB a rank): 2 steps each
+              against one rank's loss (1e-6) and gradient (norm-relative
+              1e-5), 3 timed (ms a step, pairs/s, the bytes a step's
+              sharded gather moves), the ranks' weights equal to the bit;
+              materialize_from_token_store_mesh over the whole store,
+              replicated and sharded, against 9d within 1e-5 (news/s);
+              EndToEndTrainer(mesh=) on 9e's rows (batch 256, dropout off,
+              one epoch and its fused eval) against one rank. 13b:
+              make_sharded_encode_fn with e5-large (bfloat16) over 8,192 of
+              phase 10's titles against one rank (phase 10's bfloat16
+              tolerance), then configs.run_config4 on mesh (1, 2) over 12e's
+              rows with train_cfg=None and MESH_TRAIN against run_config0 /
+              TowerTrainer on one rank. 13c: e5-large in float32 under
+              shard_encoder_params_tp on mesh (1, 2): split leaves, weights
+              and forward peak per rank against one rank's, within 1e-5.
+              13d: the latent tower over [512, 512] histories with the
+              sequence split over mesh (1, 2) against the padded tower
+              within 1e-5. 13e: build_ranker(mesh=) over phase 4's dump on
+              mesh (1, 2), rank 0 answering phase 4's requests (scores 1e-5,
+              ids equal, requests/s) while rank 1 follows, then
+              nrtorch-serve --mesh 1,2 --dist-backend gloo --stdio under
+              torchrun answering one request. Then each kernel against its
+              plain version at every shape the ranks' mesh path launched it
+              at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
 "e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10,
-"pipeline" from phase 11, "mesh" from phase 12); phase 1's line holds the card's
+"pipeline" from phase 11, "mesh" from phase 12, "mesh2" from phase 13);
+phase 1's line holds the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.
 Without CUDA it exits 2 and prints no result; any failed check raises and
@@ -954,7 +985,9 @@ def flat_eval_phase(gen) -> tuple[dict, torch.Tensor]:
 # Phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 20
+# Timed steps of 7b, 8c.2, 9c and 12b: 20 until PR 11, cut to 10 by the
+# smoke's 1,200 s limit once phase 13 came (PERF.md §4, reduced).
+TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 10
 # 7c's epoch at MIND-small's scale runs on half of bench.py's rows (its
 # train rows drawn as build_workload draws them), to keep the smoke's time.
 MIND_TRAIN_ROWS, MIND_VAL_ROWS = FLAT_ROWS // 2, 5_000
@@ -1130,7 +1163,7 @@ def step_split(opt, loss_call, label: str) -> dict:
 
 def train_step_phase(state: dict, emb: torch.Tensor, card: str) -> dict:
     """7b: full width, float32, bench.py's worst-case batch (B=2048,
-    T = 65,536), margin and InfoNCE (K=5): 3 warm-up steps, then 20 timed
+    T = 65,536), margin and InfoNCE (K=5): 3 warm-up steps, then 10 timed
     steps with the loss fetched every step (as bench.py's bench_train_flat
     does), the peak memory, the device time by part, a profiled step, host
     syncs a step. Launch counts are set to 0 just before the timed steps and
@@ -1589,7 +1622,7 @@ def padded_check_phase(states: dict, emb: torch.Tensor) -> None:
 
 
 def padded_step_phase(states: dict, emb: torch.Tensor) -> dict:
-    """8c.2: 20 timed padded margin steps per tower at B=512 (TrainConfig's
+    """8c.2: 10 timed padded margin steps per tower at B=512 (TrainConfig's
     batch; no dedup, the worst case), dropout on, each step a new batch of
     flat_inputs's histories padded to its own bucket, after a warm-up step,
     the loss fetched every step: ms/step, pairs/s, the peak memory, the
@@ -2057,7 +2090,7 @@ class _Fixed(torch.nn.Module):
 def e2e_steps_phase(store: TokenStore, dev_states: torch.Tensor, state: dict, card: str) -> dict:
     """9c: e2e_bench.py's batch (M=2048, T=64, B=1024, L=64) at full width,
     float32, dropout on, margin and InfoNCE (K=5), each on the resident
-    store and on the streamed block: 3 warm-up and 20 timed steps with the
+    store and on the streamed block: 3 warm-up and 10 timed steps with the
     batch copied to the card from pinned memory without blocking and the
     loss fetched every step; ms/step, pairs/s, bytes to the card a step, the
     peak memory, the device time by part, host syncs a step, and the host's
@@ -2119,7 +2152,7 @@ def e2e_steps_phase(store: TokenStore, dev_states: torch.Tensor, state: dict, ca
     return dict(launches=dict(launches), shapes=shapes)
 
 
-def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> None:
+def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> np.ndarray:
     """9d: materialize_from_token_store over the whole store at full width,
     on the resident route and the streamed one, the batch from the memory
     model (batch_size=None) and max_token_len 64 (run_config2's): news/s, the
@@ -2139,6 +2172,7 @@ def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: di
     part_line("9d", shape=list(out["resident"].shape), routes_max_diff=diff, tol=1e-6, finite=finite)
     if not (out["resident"].shape == (store.num_items, DIM) and diff <= 1e-6 and finite):
         raise AssertionError(f"9d: routes differ by {diff}, finite {finite}")
+    return out["resident"]
 
 
 def e2e_config2_phase(store: TokenStore, part: str = "9e") -> dict:
@@ -2236,10 +2270,11 @@ def e2e_phase(gen, card: str) -> dict:
 
     resolve_device("cuda")  # TF32 off, as every entry point sets it
     state = e2e_state()
+    store_state = gen.get_state()  # phase 13's ranks rebuild the store from it
     store, dev_states = timed("9a", e2e_store_phase, gen)
     timed("9b", e2e_check_phase, store, dev_states, state)
     steps = timed("9c", e2e_steps_phase, store, dev_states, state, card)
-    timed("9d", e2e_materialize_phase, store, dev_states, state)
+    materialized = timed("9d", e2e_materialize_phase, store, dev_states, state)
     del dev_states
     torch.cuda.empty_cache()
     counts = timed("9e", e2e_config2_phase, store)
@@ -2248,7 +2283,7 @@ def e2e_phase(gen, card: str) -> dict:
         launches=dict(collections.Counter(steps["launches"]) + collections.Counter(counts["train"]["launches"])),
         shapes={k: steps["shapes"][k] + counts["train"]["shapes"][k] for k in KERNELS},
     )
-    return dict(train=train, eval=counts["eval"])
+    return dict(train=train, eval=counts["eval"], store_state=store_state, materialized=materialized)
 
 
 # ---------------------------------------------------------------------------
@@ -3081,8 +3116,8 @@ def mesh_table() -> torch.Tensor:
 def mesh_steps_part(mesh21, mesh12) -> dict:
     """12b: mesh (2, 1), the flat step at 7b's global batch (B = 2,048,
     T = 65,536), margin and InfoNCE: 5 steps checked against one rank, then
-    3 warm-up and 20 timed; the padded step at B = 512 on 8c.2's batches:
-    5 checked, 20 timed. 12c: mesh (1, 2), the row-sharded table: its shard
+    3 warm-up and 10 timed; the padded step at B = 512 on 8c.2's batches:
+    5 checked, 10 timed. 12c: mesh (1, 2), the row-sharded table: its shard
     and the sharded gather against the plain gather, and 5 flat margin
     steps checked."""
     from news_recommendation_project_v2_torch.parallel import (
@@ -3384,6 +3419,492 @@ def mesh_phase(work_dir: Path, flat: dict, flat_emb: torch.Tensor, strings: tupl
     return dict(launches=launches, shapes=shapes)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: multi-GPU part 2 on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# 13a: data-parallel e2e steps at 9c's batch, each route checked against one
+# rank for MESH2_CHECK_STEPS steps, then MESH2_TIMED_STEPS timed. On mesh
+# (2, 1) the sharded store's gather all_reduces both data ranks' [M, T, D]
+# float32 blocks (1 GB) through gloo's host copies, about 1-2 s a step.
+MESH2_CHECK_STEPS, MESH2_TIMED_STEPS = 2, 3
+MESH2_ROUTES = ("streamed", "resident", "sharded")
+# 13a's EndToEndTrainer: 9e's rows at batch 256, not run_config2's 32: at 32
+# the epoch's 280 steps would each exchange 33 M gradients through gloo
+# (about 0.1 s), 8x the exchanges for the same pairs.
+MESH2_TRAIN = dict(num_epochs=1, batch_size=256)
+MESH2_ENCODE_NEWS = 8_192  # 13b: of phase 10's titles
+MESH2_TP_NEWS = 256  # 13c: one bucket of titles, float32
+MESH2_SEQ_B, MESH2_SEQ_L = 512, 512  # 13d
+# Tolerances: the CPU tests' (tests/test_torch_mesh_{e2e,encode,serve}.py),
+# phase 10's bfloat16 one for the sharded encode (two batch splits of one
+# bfloat16 computation).
+MESH2_LOSS_TOL, MESH2_GRAD_TOL, MESH2_TOL = 1e-6, 1e-5, 1e-5
+
+
+def trimmed(ids: np.ndarray, mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Token grids cut to their longest row (the titles' 15-35 tokens of
+    the tokenizer's 128): the pads after it change no real token's state."""
+    width = int(mask.sum(1).max())
+    return ids[:, :width], mask[:, :width]
+
+
+class LaunchRecord:
+    """The kernels' launches and shapes summed over the parts of one rank's
+    mesh path: ``counted(fn)`` sets every count to 0, runs ``fn`` and adds
+    what it launched (the checks against one rank run outside it)."""
+
+    def __init__(self):
+        self.launches = collections.Counter()
+        self.shapes = {k: collections.Counter() for k in KERNELS}
+
+    def counted(self, fn):
+        torch.cuda.synchronize()
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        self.launches.update(kernel_launches())
+        for k, v in KERNELS.items():
+            self.shapes[k].update({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
+        return out
+
+
+def mesh2_steps(mesh, route: str, store: TokenStore, batch: dict, rec: LaunchRecord) -> dict:
+    """One route of 13a on ``mesh``: MESH2_CHECK_STEPS data-parallel steps of
+    9c's global batch, each against one rank's loss and gradient at the same
+    weights (rank 0), then MESH2_TIMED_STEPS timed (ms a step, pairs/s),
+    the weights' digest, and the bytes a step's store gather moves."""
+    from news_recommendation_project_v2_torch.parallel import (
+        make_sharded_e2e_train_step,
+        make_sharded_e2e_train_step_gathered,
+        shard_token_store_states,
+    )
+
+    state = e2e_state()
+    model = e2e_model(state, "cuda", dropout=False)
+    margin = TrainConfig().margin
+    enc, tower = model["token_encoder"], model["tower"]
+    if route == "streamed":
+        step, states = make_sharded_e2e_train_step(mesh, enc, tower, margin), None
+    else:
+        sharded = route == "sharded"
+        step = make_sharded_e2e_train_step_gathered(mesh, enc, tower, margin, sharded_store=sharded)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = shard_token_store_states(mesh, store.states) if sharded else _upload_states(store.states, torch.device("cuda"))
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+    opt = make_optimizer(TrainConfig(), model.parameters())
+    seen = []
+    opt.register_step_pre_hook(lambda o, args, kwargs: seen.append(flat_grad(model).clone()))
+    glob = batch["streamed" if route == "streamed" else "gathered"]
+    local = on(step.shard(glob), "cuda")
+    loss_err = grad_err = 0.0
+    for _ in range(MESH2_CHECK_STEPS):
+        if mesh.rank == 0:
+            ref = e2e_model(state, "cuda", dropout=False)
+            ref.load_state_dict(model.state_dict())
+            want = e2e_loss(ref, on(batch["streamed"], "cuda"), "margin")
+            want.backward()
+            want_loss, want_grad = float(want.detach()), flat_grad(ref)
+            del ref, want
+            torch.cuda.empty_cache()
+        got = float(step(opt, states, None, local))
+        if mesh.rank == 0:
+            loss_err = max(loss_err, abs(got - want_loss))
+            grad_err = max(grad_err, norm_rel(seen[-1], want_grad))
+    mesh.barrier()
+    t0 = time.perf_counter()
+    losses = rec.counted(lambda: [float(step(opt, states, None, local)) for _ in range(MESH2_TIMED_STEPS)])
+    dt = (time.perf_counter() - t0) / MESH2_TIMED_STEPS
+    out = dict(mesh=list(mesh.shape.values()), route=route, M=E2E_M, T=E2E_T, B=E2E_B, L=E2E_L,
+               local_M=int(local[2].shape[0]), loss_err=loss_err, grad_err=grad_err, ms_per_step=dt * 1e3,
+               pairs_per_s=E2E_B / dt, finite=bool(np.isfinite(losses).all()), digest=param_digest(model))
+    if route != "streamed":
+        out.update(store_gb_per_rank=states.local.numel() * states.local.element_size() / 1e9 if route == "sharded"
+                   else states.numel() * states.element_size() / 1e9, upload_seconds=upload_s)
+    if route == "sharded":
+        out["gather_bytes_per_step"] = int(local[0].numel()) * DIM * states.local.element_size()
+    del model, opt, step, states, local, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_materialize(mesh, store: TokenStore, want_path: str, rec: LaunchRecord) -> list:
+    """13a: materialize_from_token_store_mesh over the whole store at 9d's
+    settings, from the store resident on both ranks and from the
+    ShardedStore: news/s and the largest difference from phase 9d's resident
+    result."""
+    from news_recommendation_project_v2_torch.ops.encode import materialize_from_token_store_mesh
+    from news_recommendation_project_v2_torch.parallel import shard_token_store_states
+
+    enc = e2e_model(e2e_state(), "cuda")["token_encoder"]
+    want = np.load(want_path)
+    out = []
+    for route in ("resident", "sharded"):
+        states = shard_token_store_states(mesh, store.states) if route == "sharded" else _upload_states(
+            store.states, torch.device("cuda"))
+        mesh.barrier()
+        t0 = time.perf_counter()
+        got = rec.counted(lambda: materialize_from_token_store_mesh(
+            enc, store, mesh, states, batch_size=None, max_token_len=E2E_T))
+        seconds = time.perf_counter() - t0
+        out.append(dict(mesh=list(mesh.shape.values()), route=route, news=store.num_items, seconds=seconds,
+                        news_per_s=store.num_items / seconds, max_diff_9d=float(np.abs(got - want).max()),
+                        finite=bool(np.isfinite(got).all())))
+        del states, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_trainer(mesh, store: TokenStore, rec: LaunchRecord) -> dict:
+    """13a: EndToEndTrainer(mesh=) on 9e's rows at run_config2's modules,
+    weights and settings (batch MESH2_TRAIN's), dropout off, one epoch and
+    its fused eval, against the same trainer on one rank (rank 0)."""
+    cfg = TrainConfig(**MESH2_TRAIN)
+    compiled = mind_behaviors(np.random.default_rng(SEED + 93), E2E_ROWS).with_history_view()
+
+    def run(m):
+        model = e2e_model(e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(cfg.seed), DIM, 1, E2E_TOWER)),
+                          "cuda", dropout=False)
+        t = EndToEndTrainer(model["token_encoder"], model["tower"], compiled, store, cfg=cfg, max_token_len=E2E_T,
+                            eval_each_epoch=True, flat_eval=True, device_metrics=True, mesh=m, device="cuda")
+        t0 = time.perf_counter()
+        history = t.train()
+        return dict(seconds=time.perf_counter() - t0, history=history, digest=param_digest(t.model),
+                    store_sharded=t.store_sharded, device_store=t.device_store)
+
+    got = rec.counted(lambda: run(mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        got["one_rank"] = run(None)
+    mesh.barrier()
+    return got
+
+
+def mesh2_encode(mesh12, mesh21, rec: LaunchRecord) -> dict:
+    """13b: make_sharded_encode_fn with e5-large (bfloat16) over
+    MESH2_ENCODE_NEWS of phase 10's titles on mesh (2, 1), against one rank
+    (rank 0); then run_config4 on mesh (1, 2) over 12e's rows with phase
+    10's titles, with train_cfg=None and with MESH_TRAIN, against
+    run_config0 / run_config3 on one rank over the same table."""
+    from news_recommendation_project_v2_torch.parallel import make_sharded_encode_fn
+
+    enc, tok = build_encoder(encoder_config=EncoderConfig(), max_length=ENC_MAX_LENGTH, seed=SEED, device="cuda")
+    texts = news_texts(NUM_NEWS, SEED + 12)
+    ids, mask = trimmed(*tok(texts[:MESH2_ENCODE_NEWS]))
+    fn = make_sharded_encode_fn(mesh21, enc)
+    mesh21.barrier()
+    t0 = time.perf_counter()
+    got = fn(ids, mask)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = dict(encode=dict(mesh=[2, 1], news=MESH2_ENCODE_NEWS, T=ids.shape[1], dtype=enc.config.compute_dtype,
+                           seconds=seconds, news_per_s=MESH2_ENCODE_NEWS / seconds))
+    if mesh21.rank == 0:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = enc(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+            torch.cuda.synchronize()
+            out["encode"].update(one_rank_seconds=time.perf_counter() - t0, norm_rel=norm_rel(got, want))
+        del want
+    del got, fn
+    torch.cuda.empty_cache()
+
+    # run_config4 over 12e's rows, whose news ids are the rows of phase 10's
+    # titles; one rank's table is encoded in run_config4's chunks, so that it
+    # is the mesh's to the bit (both ranks of mesh (1, 2) encode every row).
+    ct, _ = mesh_config3_data()
+    ids, mask = trimmed(*tok([texts[int(r)] for r in ct.news_ids]))
+    config4 = {}
+    for name, train in (("config0", None), ("config3", TrainConfig(**MESH_TRAIN))):
+        mesh12.barrier()
+        t0 = time.perf_counter()
+        metrics = rec.counted(lambda: configs_module.run_config4(
+            ct, ids, mask, enc, mesh_cfg=MeshConfig(data_size=1, model_size=2), train_cfg=train))
+        config4[name] = dict(metrics=metrics, seconds=time.perf_counter() - t0)
+    if mesh12.rank == 0:
+        t0 = time.perf_counter()
+        chunk = configs_module._ENCODE_ROWS
+        with torch.inference_mode():
+            table = np.concatenate([
+                enc(torch.from_numpy(ids[a : a + chunk]).cuda(), torch.from_numpy(mask[a : a + chunk]).cuda())
+                .float().cpu().numpy() for a in range(0, len(ids), chunk)
+            ])
+        config4["config0"]["one_rank"] = configs_module.run_config0(ct, table)
+        tower_cfg = configs_module._sized_tower(DIM)
+        tower = build_tower(tower_cfg)
+        cfg = TrainConfig(**MESH_TRAIN)
+        tower.load_state_dict(tower_state_dict_from_jax(
+            "latent", random_tower_params(np.random.default_rng(cfg.seed), tower_cfg)))
+        view = ct.with_history_view()
+        history = TowerTrainer(tower, view, table, compiled_val=view, news_emb_val=table, cfg=cfg, flat_train=False,
+                               flat_eval=True, device_metrics=True, device="cuda").train()
+        config4["config3"]["one_rank"] = history[-1]["val"]
+        config4["one_rank_seconds"] = time.perf_counter() - t0
+    mesh12.barrier()
+    out["config4"] = config4
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_tensor_parallel(mesh12) -> dict:
+    """13c: e5-large in float32 under shard_encoder_params_tp on mesh
+    (1, 2) over MESH2_TP_NEWS titles, against the whole encoder on one rank
+    (each rank computes both): the split leaves, the weights' bytes and the
+    peak memory of a forward per rank, and the norm-relative difference."""
+    from news_recommendation_project_v2_torch.parallel import shard_encoder_params_tp
+
+    enc, tok = build_encoder(encoder_config=EncoderConfig(), max_length=ENC_MAX_LENGTH, compute_dtype="float32",
+                             seed=SEED, device="cuda")
+    ids, mask = (torch.from_numpy(a).cuda() for a in trimmed(*tok(news_texts(MESH2_TP_NEWS, SEED + 13))))
+
+    def forward(model):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(ids, mask)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def weight_gb(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+    want, one_s, one_peak = forward(enc)
+    one_gb = weight_gb(enc)
+    tp = shard_encoder_params_tp(mesh12, enc)
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, tp_s, tp_peak = forward(tp)
+    out = dict(mesh=[1, 2], news=MESH2_TP_NEWS, T=int(ids.shape[1]), split_leaves=len(tp.split_leaves),
+               split_examples=tp.split_leaves[:6], weights_gb=weight_gb(tp), one_rank_weights_gb=one_gb,
+               forward_peak_gb=tp_peak, one_rank_forward_peak_gb=one_peak, seconds=tp_s, one_rank_seconds=one_s,
+               norm_rel=norm_rel(got, want))
+    del tp, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_sequence(mesh12, rec: LaunchRecord) -> dict:
+    """13d: the latent tower at full width over [MESH2_SEQ_B, MESH2_SEQ_L]
+    histories (a seeded N(0, 1) block, masks of half density with slot 0
+    live) with the sequence split over mesh (1, 2), against the padded
+    tower on one rank (each rank computes both)."""
+    from news_recommendation_project_v2_torch.parallel import make_sequence_sharded_tower_fn
+
+    tower = full_tower(latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig())),
+                       "cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    mask = (torch.rand((MESH2_SEQ_B, MESH2_SEQ_L), device="cuda", generator=gen) < 0.5).float()
+    mask[:, 0] = 1.0
+    x = torch.randn((MESH2_SEQ_B, MESH2_SEQ_L, DIM), device="cuda", generator=gen) * mask[..., None]
+    fn = make_sequence_sharded_tower_fn(mesh12, tower)
+    mesh12.barrier()
+    t0 = time.perf_counter()
+    got = rec.counted(lambda: fn(x, mask))
+    seconds = time.perf_counter() - t0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = tower(x, mask)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    out = dict(mesh=[1, 2], B=MESH2_SEQ_B, L=MESH2_SEQ_L, D=DIM, seconds=seconds, one_rank_seconds=one_s,
+               max_diff=float((got - want).abs().max()))
+    del x, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_serve(mesh12, work_dir: Path, requests: list, rec: LaunchRecord) -> dict:
+    """13e: build_ranker(mesh=(1, 2)) over phase 4's dump (65,238 x 1,024)
+    and checkpoint: rank 0 answers rank, rank_batch of phase 4's requests
+    and retrieve(k=10), then three timed rank_batch (requests/s), while
+    rank 1 follows; rank 0 then answers the same with phase 4's
+    single-device ranker."""
+    ranker = build_ranker(work_dir / "emb", "MINDsmall_dev", work_dir / "tower.pt", TowerConfig(kind="latent"),
+                          device="cuda", mesh=mesh12)
+
+    def calls(r):
+        return dict(rank=[r.rank(*requests[0])], rank_batch=r.rank_batch(requests),
+                    retrieve=[r.retrieve(requests[0][0], k=10), r.retrieve(requests[1][0], k=10)])
+
+    if mesh12.rank != 0:
+        served = rec.counted(ranker.follow)
+        del ranker
+        torch.cuda.empty_cache()
+        return dict(served=served)
+    got = rec.counted(lambda: calls(ranker))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ranker.rank_batch(requests)
+        times.append(time.perf_counter() - t0)
+    ranker.close()
+    del ranker
+    torch.cuda.empty_cache()
+    want = calls(build_ranker(work_dir / "emb", "MINDsmall_dev", work_dir / "tower.pt", TowerConfig(kind="latent"),
+                              device="cuda"))
+    ids_equal, diff = True, 0.0
+    for call in want:
+        for g, w in zip(got[call], want[call]):
+            ids_equal &= [c for c, _ in g] == [c for c, _ in w]
+            diff = max(diff, max(abs(a - b) for (_, a), (_, b) in zip(g, w)))
+    return dict(mesh=[1, 2], news=NUM_NEWS, requests=len(requests), requests_per_s=[len(requests) / t for t in times],
+                ids_equal=ids_equal, max_score_diff=diff)
+
+
+def mesh2_rank(work_dir: str, store_state: torch.Tensor, want_9d: str, requests: list) -> dict:
+    """One rank of phase 13 (two ranks over gloo, CUDA tensors on the one
+    card): 13a-13e, and the kernels' launches and shapes of its mesh path."""
+    from news_recommendation_project_v2_torch.parallel import build_mesh
+
+    resolve_device("cuda")
+    mesh21 = build_mesh(MeshConfig(data_size=2, model_size=1), backend="gloo")
+    mesh12 = build_mesh(MeshConfig(data_size=1, model_size=2), backend="gloo")
+    rec = LaunchRecord()
+    seconds, out = {}, {}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return result
+
+    gen = torch.Generator(device="cuda")
+    gen.set_state(store_state)
+    store = timed("13a store", e2e_store, gen)  # phase 9's store: its rule from 9a's generator state
+    batch = e2e_batch(store, np.random.default_rng(SEED + 131), E2E_M, E2E_B)
+    out["13a steps"] = timed("13a steps", lambda: [mesh2_steps(m, route, store, batch, rec)
+                                                  for m in (mesh21, mesh12) for route in MESH2_ROUTES])
+    del batch
+    out["13a materialize"] = timed("13a materialize", mesh2_materialize, mesh21, store, want_9d, rec)
+    out["13a trainer"] = timed("13a trainer", mesh2_trainer, mesh21, store, rec)
+    del store
+    gc.collect()
+    out["13b"] = timed("13b", mesh2_encode, mesh12, mesh21, rec)
+    out["13c"] = timed("13c", mesh2_tensor_parallel, mesh12)
+    out["13d"] = timed("13d", mesh2_sequence, mesh12, rec)
+    out["13e"] = timed("13e", mesh2_serve, mesh12, Path(work_dir), requests, rec)
+    out["seconds"] = seconds
+    out["launches"], out["shapes"] = dict(rec.launches), rec.shapes
+    return out
+
+
+def mesh2_cli_part(work_dir: Path, requests: list) -> dict:
+    """13e's CLI part: nrtorch-serve --mesh 1,2 --dist-backend gloo --stdio
+    under torchrun (two processes) over phase 4's dump and checkpoint,
+    answering one rank request on stdin, against the single-device ranker
+    in this process."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    work_dir = work_dir.resolve()
+    hist, cands = requests[0]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(MESH_RANKS),
+         "-m", "news_recommendation_project_v2_torch.cli.serve", str(work_dir / "emb"), "MINDsmall_dev",
+         "--ckpt", str(work_dir / "tower.pt"), "--stdio", "--mesh", f"1,{MESH_RANKS}", "--dist-backend", "gloo"],
+        input=json.dumps({"op": "rank", "history": hist, "candidates": cands}) + "\n",
+        cwd=work_dir, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"13e: torchrun nrtorch-serve --mesh exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"13e: want rank 0's one answer, got {proc.stdout[-2000:]}")
+    got = json.loads(lines[0])["ranked"]
+    want = build_ranker(work_dir / "emb", "MINDsmall_dev", work_dir / "tower.pt", TowerConfig(kind="latent"),
+                        device="cuda").rank(hist, cands)
+    return dict(torchrun_s=seconds, ids_equal=[c for c, _ in got] == [c for c, _ in want],
+                max_score_diff=max(abs(a - b) for (_, a), (_, b) in zip(got, want)))
+
+
+def mesh2_phase(work_dir: Path, e2e: dict, requests: list) -> dict:
+    """Phase 13 (13a-13e); one JSON line a part. Returns the launches and
+    shapes of the mesh path, summed over the ranks."""
+    from news_recommendation_project_v2_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    want_path = work_dir / "materialized_9d.npy"
+    np.save(want_path, e2e["materialized"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch(mesh2_rank, MESH_RANKS, args=(str(work_dir), e2e["store_state"], str(want_path), requests),
+                   backend="gloo", timeout=900)
+    want_path.unlink()
+    first, other = ranks
+    for r in ranks:
+        log(json.dumps({"part": "13 rank wall seconds", **r["seconds"]}))
+    for got, peer in zip(first["13a steps"], other["13a steps"]):
+        same = got["digest"] == peer["digest"]
+        part_line("13a steps", **{k: v for k, v in got.items() if k != "digest"}, ranks_bit_identical=same,
+                  rank1_ms_per_step=peer["ms_per_step"], loss_tol=MESH2_LOSS_TOL, grad_tol=MESH2_GRAD_TOL)
+        if not (same and got["finite"] and got["loss_err"] <= MESH2_LOSS_TOL and got["grad_err"] <= MESH2_GRAD_TOL):
+            raise AssertionError(f"13a: {got}, ranks bit-identical {same}")
+    for r in ranks:
+        for got in r["13a materialize"]:
+            part_line("13a materialize", **got, tol=MESH2_TOL)
+            if not (got["finite"] and got["max_diff_9d"] <= MESH2_TOL):
+                raise AssertionError(f"13a materialize: {got}")
+    got, ref = first["13a trainer"], first["13a trainer"]["one_rank"]
+    g, w = got["history"][-1], ref["history"][-1]
+    metric_gap = max(abs(g["train"][k] - w["train"][k]) for k in METRIC_KEYS)
+    loss_gap = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+    same = got["digest"] == other["13a trainer"]["digest"]
+    part_line("13a EndToEndTrainer(mesh=)", mesh=[2, 1], rows=E2E_ROWS, **MESH2_TRAIN, seconds=got["seconds"],
+              one_rank_seconds=ref["seconds"], device_store=got["device_store"], store_sharded=got["store_sharded"],
+              loss=g["loss"], one_rank_loss=w["loss"], metrics=g["train"], one_rank=w["train"],
+              metric_gap=metric_gap, loss_gap=loss_gap, ranks_bit_identical=same)
+    if not (same and metric_gap <= MESH_RUN_METRIC and loss_gap <= MESH_RUN_LOSS):
+        raise AssertionError(f"13a: EndToEndTrainer on the mesh against one rank: {metric_gap}, {loss_gap}, {same}")
+
+    enc = first["13b"]["encode"]
+    part_line("13b sharded encode", **enc, tol=ENC_BF16_TOL)
+    if not enc["norm_rel"] <= ENC_BF16_TOL:
+        raise AssertionError(f"13b: the sharded encode against one rank: {enc}")
+    config4 = first["13b"]["config4"]
+    for name in ("config0", "config3"):
+        gaps = [max(abs(r["13b"]["config4"][name]["metrics"][k] - config4[name]["one_rank"][k]) for k in METRIC_KEYS)
+                for r in ranks]
+        part_line(f"13b run_config4 {name}", mesh=[1, 2], rows=MESH_ROWS, seconds=config4[name]["seconds"],
+                  metrics=config4[name]["metrics"], one_rank=config4[name]["one_rank"], gap=max(gaps),
+                  one_rank_seconds=config4["one_rank_seconds"], reduced=f"{MESH_ROWS} of 5,000 rows")
+        if not max(gaps) <= MESH_RUN_METRIC:
+            raise AssertionError(f"13b: run_config4 {name} against one rank: {gaps}")
+    for r in ranks:
+        tp = r["13c"]
+        part_line("13c tensor parallel", **tp, tol=MESH2_TOL)
+        if not (tp["norm_rel"] <= MESH2_TOL and tp["split_leaves"] > 0 and tp["weights_gb"] < tp["one_rank_weights_gb"]):
+            raise AssertionError(f"13c: {tp}")
+        seq = r["13d"]
+        part_line("13d sequence-sharded tower", **seq, tol=MESH2_TOL)
+        if not seq["max_diff"] <= MESH2_TOL:
+            raise AssertionError(f"13d: {seq}")
+    serve = first["13e"]
+    part_line("13e Ranker(mesh=)", **serve, followed=other["13e"]["served"], tol=MESH2_TOL)
+    if not (serve["ids_equal"] and serve["max_score_diff"] <= MESH2_TOL and other["13e"]["served"] > 0):
+        raise AssertionError(f"13e: {serve}, followed {other['13e']}")
+    cli = mesh2_cli_part(work_dir, requests)
+    part_line("13e nrtorch-serve --mesh 1,2", **cli, tol=MESH2_TOL)
+    if not (cli["ids_equal"] and cli["max_score_diff"] <= MESH2_TOL):
+        raise AssertionError(f"13e: the CLI on the mesh against one device: {cli}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in KERNELS}
+    shapes = {k: sum((r["shapes"][k] for r in ranks), collections.Counter()) for k in KERNELS}
+    log(json.dumps({"part": "13 wall seconds", "phase": time.perf_counter() - t0, "launches": launches}))
+    if min(launches.values()) == 0:
+        raise AssertionError(f"13: a kernel never launched on the mesh path: {launches}")
+    return dict(launches=launches, shapes=shapes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -3485,6 +4006,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape run_config3 launched them at on the mesh:")
     records["mesh"] = (main_path_phase(meshed["shapes"], gen, path="mesh"), meshed["launches"])
+
+    log("phase 13 multi-GPU part 2: two ranks on the card over gloo, full width " + since(t_start))
+    meshed2 = mesh2_phase(work_dir, e2e, serve["requests"])
+    del e2e
+    torch.cuda.empty_cache()
+    log("  the kernels vs their plain versions at every shape the phase 13 mesh path launched them at:")
+    records["mesh2"] = (main_path_phase(meshed2["shapes"], gen, path="mesh2"), meshed2["launches"])
 
     kernels = [
         {

@@ -12,9 +12,12 @@ Offline, on the synthetic fixture:
 
 DATA_DIR holds the raw MIND TSVs under ``raw/<dataset>/`` (``--synthetic``
 writes them). Rows print as ``CONFIG_ROW {json}`` lines and go to ``--out``
-as JSON. The multi-GPU presets (config[3..4]) are not ported yet: with one
-device they are skipped, as the JAX package skips them; with two or more
-they raise.
+as JSON. The mesh presets, config[3] and config[4], run with two or more
+GPUs, one NCCL rank each (``parallel.launch``); with fewer they are
+skipped, as the JAX package skips them. On the CPU, ``--cpu-ranks N`` runs
+them on N gloo ranks (the JAX package's virtual CPU mesh):
+
+    nrtorch-reproduce DATA_DIR --synthetic --tiny-encoder --epochs 1 --device cpu --cpu-ranks 2
 """
 
 from __future__ import annotations
@@ -45,6 +48,17 @@ def _compile_and_encode(data_dir, dataset, enc, tok, device):
     return ctx
 
 
+def _mesh_configs(c_train, emb_train, c_dev, emb_dev, mesh_cfg, train_cfg, tower_cfg, ids, mask, encoder, device):
+    """One rank of configs 3-4: ``run_config3``, then ``run_config4`` over
+    the dev corpus's tokens."""
+    from ..configs import run_config3, run_config4
+
+    m3 = run_config3(
+        c_train, emb_train, c_dev, emb_dev, mesh_cfg=mesh_cfg, train_cfg=train_cfg, tower_cfg=tower_cfg, device=device,
+    )
+    return m3, run_config4(c_dev, ids, mask, encoder, mesh_cfg=mesh_cfg, device=device)
+
+
 def _row(index: int, description: str, metrics: dict) -> dict:
     return {
         "config": index,
@@ -71,21 +85,22 @@ def main(argv=None):
     parser.add_argument("--with-e2e", action="store_true",
                         help="also run config[2] (frozen token store + end to end)")
     parser.add_argument("--out", type=Path, default=Path("reproduction.json"))
+    parser.add_argument("--cpu-ranks", type=int, default=0,
+                        help="with --device cpu, run configs 3-4 on this many gloo ranks of the CPU "
+                             "(the counterpart of the JAX package's virtual CPU mesh, "
+                             "XLA_FLAGS=--xla_force_host_platform_device_count=N); on CUDA they run "
+                             "with one NCCL rank per GPU")
     add_device_argument(parser)
     args = parser.parse_args(argv)
 
+    from ..config import MeshConfig
     from ..configs import BASELINE_CONFIGS, _sized_tower, run_config0, run_config1, run_config2
     from ..data.ingest import store_processed_data
 
+    if args.cpu_ranks and torch.device(args.device or "cuda").type != "cpu":
+        parser.error("--cpu-ranks runs configs 3-4 on the CPU: pass --device cpu (on CUDA one rank runs per GPU)")
     device = resolve_device(args.device)
-    devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    if devices >= 2:
-        # Not a silent skip on a machine that could run the mesh presets.
-        raise NotImplementedError(
-            f"configs 3-4 run with run_config4 (sharded encoding, the sharded token store and mesh serving), "
-            f"the second half of multi-GPU, which is not ported yet (ROADMAP.md §1); {devices} devices are "
-            f"visible (limit them with CUDA_VISIBLE_DEVICES to run configs 0-2)"
-        )
+    ranks, backend = (torch.cuda.device_count(), "nccl") if device.type == "cuda" else (args.cpu_ranks, "gloo")
     train_ds = NewsDataset[args.train_dataset]
     dev_ds = NewsDataset[args.dev_dataset]
 
@@ -136,7 +151,22 @@ def main(argv=None):
             max_token_len=args.max_length,
             device=device,
         ))
-    print(f"configs 3-4 skipped: {devices} device(s) visible, mesh scenarios need >=2")
+    if ranks >= 2:
+        from ..parallel import launch
+
+        mesh_cfg = MeshConfig(model_size=2 if ranks % 2 == 0 else 1)
+        ids, mask = tok([ctx_dev["news_text_dict"][n] for n in c_dev.news_ids], max_length=args.max_length)
+        results = launch(
+            _mesh_configs, ranks,
+            args=(c_train, emb_train, c_dev, emb_dev, mesh_cfg, train_cfg, _sized_tower(dim), ids, mask, enc.cpu(),
+                  device.type),
+            backend=backend, timeout=3600,
+        )
+        emit(3, results[0][0])
+        emit(4, results[0][1])
+    else:
+        where = "GPU(s)" if device.type == "cuda" else "CPU rank(s) (--cpu-ranks N asks for N)"
+        print(f"configs 3-4 skipped: {ranks or 1} {where}, mesh scenarios need >=2")
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:

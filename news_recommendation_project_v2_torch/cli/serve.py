@@ -10,6 +10,17 @@ retrieve requests over HTTP (JSON) or stdio (JSONL).
 
     # stdio: one JSON request per line, "op" selects the endpoint
     echo '{"op": "retrieve", "history": ["N1"], "k": 5}' | nrtorch-serve EMB_DIR MINDsmall_dev --stdio
+
+``--mesh DATA,MODEL`` serves over DATA x MODEL ranks, one process each,
+started by torchrun: the tables row-shard over MODEL, ``rank_batch``'s
+groups over DATA. Rank 0 runs the front end and the others follow it
+(``serve.Ranker.follow``); when rank 0's front end ends, it releases them.
+
+    torchrun --nproc-per-node 2 -m news_recommendation_project_v2_torch.cli.serve \
+        EMB_DIR MINDsmall_dev --ckpt tower.pt --port 8080 --mesh 1,2
+
+NCCL joins the ranks on CUDA (one card each), gloo on the CPU
+(``--device cpu``); ``--dist-backend gloo`` lets ranks share a card.
 """
 
 from __future__ import annotations
@@ -38,11 +49,13 @@ def build_ranker(
     ckpt: Path | None = None,
     tower_config: TowerConfig | None = None,
     device=None,
+    mesh=None,
 ) -> Ranker:
     """Assemble a Ranker from on-disk artifacts: the id-keyed embedding dump
     and, when ``ckpt`` is given, a tower ``state_dict`` (``torch.save``)
     loaded strictly into a tower of ``tower_config``. Without a checkpoint the
-    ranker serves the mean-pooled history."""
+    ranker serves the mean-pooled history. ``mesh``: every rank builds it
+    (``Ranker(mesh=)``)."""
     device = resolve_device(device)
     emb_dir = Path(emb_dir)
     ids_path = emb_dir / f"{dataset}_ids.npy"
@@ -58,13 +71,13 @@ def build_ranker(
         emb, query = load_embeddings(emb_dir, dataset), None
 
     if ckpt is None:
-        return Ranker(average_pool, emb, news_ids, query_news_emb=query, device=device)
+        return Ranker(average_pool, emb, news_ids, query_news_emb=query, mesh=mesh, device=device)
 
     cfg = tower_config or TowerConfig(kind="latent")
     check_tower_input_dim(cfg, int(emb.shape[1]))
     tower = build_tower(cfg)
     tower.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
-    return Ranker(tower, emb, news_ids, query_news_emb=query, device=device)
+    return Ranker(tower, emb, news_ids, query_news_emb=query, mesh=mesh, device=device)
 
 
 def _pairs(ranked) -> list:
@@ -165,9 +178,29 @@ def main(argv=None):
     parser.add_argument("--warmup", action="store_true",
                         help="run every shape bucket once before serving "
                              "(builds the kernels up front)")
+    parser.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                        help="serve over DATA x MODEL ranks (run under torchrun): "
+                             "the tables row-shard over MODEL, rank_batch groups over DATA")
+    parser.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                        help="the mesh's backend (default: nccl on CUDA, gloo on the CPU; "
+                             "gloo lets ranks share a card)")
     args = parser.parse_args(argv)
     if args.stdio == (args.port is not None):
         parser.error("exactly one of --port / --stdio is required")
+    mesh = None
+    if args.mesh:
+        from ..config import MeshConfig
+        from ..parallel import build_mesh
+
+        try:
+            data_size, model_size = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            parser.error("--mesh wants DATA,MODEL integers, e.g. 1,2")
+        if data_size < 1 or model_size < 1:
+            parser.error("--mesh wants positive sizes")
+        mesh = build_mesh(
+            MeshConfig(data_size=data_size, model_size=model_size), backend=args.dist_backend, device=args.device
+        )
 
     ranker = build_ranker(
         args.emb_dir,
@@ -175,7 +208,23 @@ def main(argv=None):
         args.ckpt,
         TowerConfig(kind=args.tower, **tower_kwargs_for_dim(args.dim)),
         device=args.device,
+        mesh=mesh,
     )
+    if mesh is not None and mesh.rank != 0:
+        ranker.follow()
+        return
+    try:
+        _front_end(ranker, args, mesh)
+    finally:
+        ranker.close()
+
+
+def _front_end(ranker: Ranker, args, mesh) -> None:
+    """Rank 0's (or the one process's) warm-up and HTTP or stdio loop."""
+    if mesh is not None and mesh.size > 1:
+        # Under the process group's timeout (10 minutes), so that idle
+        # followers keep waiting while a dead rank 0 still fails them.
+        ranker.keep_alive(60.0)
     if args.warmup:
         t0 = time.perf_counter()
         n = ranker.warmup()
@@ -197,3 +246,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

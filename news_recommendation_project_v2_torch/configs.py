@@ -1,11 +1,12 @@
 """Preset experiment configurations: the five scenarios of
-``BASELINE_CONFIGS`` and runners for four of them. config[0] is the frozen
+``BASELINE_CONFIGS`` and a runner for each. config[0] is the frozen
 mean-pool scorer (no training, the bucketed eval); config[1] a user tower
 trained on frozen news embeddings, with epoch evals and the MIND metrics;
 config[2] a learned token encoder and the latent tower trained end to end
 from frozen per-token states; config[3] config[1] on a mesh of ranks (a
-row-sharded table, data-parallel steps, the sharded eval). config[4]
-(sharded encoding and serving) waits for its modules (ROADMAP.md §1)."""
+row-sharded table, data-parallel steps, the sharded eval); config[4] the
+pipeline over a mesh: a data-parallel encode of the corpus, then config[0]
+or config[3] on the table it gives."""
 
 from __future__ import annotations
 
@@ -222,3 +223,51 @@ def run_config2(
     trainer.train()
     news_emb = torch.from_numpy(trainer.materialize_news_embeddings(batch_size=32)).to(device)
     return _fused_eval_metrics({}, trainer.tower, compiled, news_emb, None, HISTORY_BUCKETS[-1], device)
+
+
+# Rows a data rank encodes a call in run_config4: bounds the activations of
+# an encode of a whole corpus (the JAX package's one call holds them all).
+_ENCODE_ROWS = 512
+
+
+def run_config4(
+    compiled: CompiledBehaviors,
+    token_ids: np.ndarray,
+    token_mask: np.ndarray,
+    encoder: torch.nn.Module,
+    mesh_cfg: Optional[MeshConfig] = None,
+    train_cfg: Optional[TrainConfig] = None,
+    tower_cfg: Optional[TowerConfig] = None,
+    device=None,
+) -> dict:
+    """Config[4], the pipeline over the mesh of ``mesh_cfg`` (default
+    ``MeshConfig(model_size=2)``; every rank calls it alike): the corpus's
+    ``[N, T]`` token ids and mask (rows aligned with ``compiled.news_ids``)
+    encoded data parallel by ``encoder`` (a ``models.NewsEncoder``;
+    ``parallel.sharding.make_sharded_encode_fn``, in chunks of
+    ``_ENCODE_ROWS`` rows a data rank, the last padded with rows whose mask
+    keeps slot 0), then the table scored by config[0]'s mean-pool ranker
+    with ``train_cfg=None``, else trained and evaluated by config[3]. Every
+    rank returns the metrics. ``device=None`` means CUDA (the rank's card)."""
+    from .parallel import build_mesh
+    from .parallel.sharding import make_sharded_encode_fn
+
+    device = resolve_device(device)
+    mesh = build_mesh(mesh_cfg or MeshConfig(model_size=2), device=device)
+    encode = make_sharded_encode_fn(mesh, encoder.to(device).eval())
+    n, chunk = token_ids.shape[0], _ENCODE_ROWS * mesh.data_size
+    parts = []
+    for start in range(0, n, chunk):
+        ids, mask = token_ids[start : start + chunk], np.array(token_mask[start : start + chunk])
+        pad = (-len(ids)) % mesh.data_size
+        ids = np.pad(ids, ((0, pad), (0, 0)))
+        mask = np.pad(mask, ((0, pad), (0, 0)))
+        mask[len(mask) - pad :, 0] = 1
+        parts.append(encode(ids, mask)[: len(ids) - pad].float().cpu().numpy())
+    emb = np.concatenate(parts)
+    if train_cfg is None:
+        return run_config0(compiled, emb, device=device)
+    return run_config3(
+        compiled, emb, compiled_val=compiled, news_embeddings_val=emb, mesh_cfg=mesh_cfg, train_cfg=train_cfg,
+        tower_cfg=tower_cfg, device=device,
+    )

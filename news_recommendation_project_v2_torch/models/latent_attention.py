@@ -40,6 +40,15 @@ def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _project(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A bias-free projection in x's type; a tensor-parallel shard
+    (``parallel.sharding.shard_encoder_params_tp``) computes and gathers
+    its own part."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
+    return F.linear(x, layer.weight.to(x.dtype))
+
+
 class CrossAttention(nn.Module):
     """q from x; k and v from the context, which every batch row shares, so
     they are computed once; no bias, no mask."""
@@ -65,9 +74,9 @@ class CrossAttention(nn.Module):
         cdt, hd, dh = self.compute_dtype, self.heads, self.dim_head
         b, l, _ = x.shape
         n = context.shape[0]
-        q = F.linear(x.to(cdt), self.to_q.weight.to(cdt))
+        q = _project(self.to_q, x.to(cdt))
         q = q.view(b, l, hd, dh).permute(0, 2, 1, 3).contiguous()
-        k, v = F.linear(context.to(cdt), self.to_kv.weight.to(cdt)).chunk(2, dim=-1)
+        k, v = _project(self.to_kv, context.to(cdt)).chunk(2, dim=-1)
         k = k.reshape(n, hd, dh).permute(1, 0, 2).contiguous()
         v = v.reshape(n, hd, dh).permute(1, 0, 2).contiguous()
         ctx = latent_attention(q, k, v)  # [B, H, L, dh]

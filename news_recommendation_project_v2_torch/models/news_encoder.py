@@ -41,8 +41,11 @@ from .latent_attention import LatentAttentionTower
 from .pooling import POOLING
 
 
-def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``layer`` on x in x's type (the compute type)."""
+def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on x in x's type (the compute type); a tensor-parallel shard
+    (``parallel.sharding.shard_encoder_params_tp``) computes its own part."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -86,7 +89,7 @@ class EncoderLayer(nn.Module):
             return x.view(b, t, self.num_heads, -1).transpose(1, 2)
 
         q, k, v = (split(_linear(sa[n], hidden)) for n in ("query", "key", "value"))
-        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, d)
+        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, -1)  # this rank's heads under TP
         hidden = _layer_norm(out["LayerNorm"], hidden + _linear(out["dense"], ctx), hidden.dtype)
         inter = F.gelu(_linear(self.intermediate["dense"], hidden))
         ffn = _linear(self.output["dense"], inter)

@@ -17,7 +17,9 @@ states and the learned news encoder's pass over it.
   one store feeds both packages.
 - ``materialize_from_token_store``: a learned token encoder over the whole
   store -> the [N, D] news embeddings, reading the states from the host or
-  from a copy resident on the card.
+  from a copy resident on the card; ``materialize_from_token_store_mesh``
+  the same over a mesh of ranks, from a resident copy on every rank or a
+  ``parallel.sharding.ShardedStore``.
 """
 
 from __future__ import annotations
@@ -477,11 +479,7 @@ def materialize_from_token_store(
     device = resolve_device(device)
     n = store.num_items
     if batch_size is None:
-        batch_size = min(
-            1024,
-            max(8, 1 << max(0, int(n) - 1).bit_length()),
-            estimate_token_attention_batch(int(store.states.shape[1]), max_token_len, device=device),
-        )
+        batch_size = _default_materialize_batch(store, max_token_len, device)
     out: list[np.ndarray] = []
     window = InflightWindow(
         4 if dev_states is not None else 1, lambda item: out.append(item[0][: item[1]].cpu().numpy())
@@ -504,6 +502,68 @@ def materialize_from_token_store(
                 states, mask = _to_device((states, mask), device)
                 states = states.float()
             window.push((token_encoder(states, mask).float(), len(idx)))
+        window.flush()
+    return np.concatenate(out)
+
+
+def _default_materialize_batch(store: "TokenStore", max_token_len: int, device: torch.device) -> int:
+    return min(
+        1024,
+        max(8, 1 << max(0, int(store.num_items) - 1).bit_length()),
+        estimate_token_attention_batch(int(store.states.shape[1]), max_token_len, device=device),
+    )
+
+
+def materialize_from_token_store_mesh(
+    token_encoder: torch.nn.Module,
+    store: TokenStore,
+    mesh,
+    dev_states,
+    batch_size: Optional[int] = None,
+    max_token_len: int = 512,
+    token_buckets: tuple[int, ...] = (64, 128, 256, 512),
+    device=None,
+) -> np.ndarray:
+    """``materialize_from_token_store``'s resident route over a mesh of
+    ranks (``parallel.mesh.Mesh``; every rank calls it alike): each chunk of
+    ``batch_size`` items (rounded down to a multiple of the data axis, at
+    least one item a data rank) splits its rows over the data axis, each
+    data rank pools its share, reading the states from ``dev_states`` (the
+    flat states resident on every rank) or from a
+    ``parallel.sharding.ShardedStore``, and one ``all_gather`` over the data
+    axis gives every rank the chunk; returns the [N, D] float32 embeddings
+    on every rank. The model ranks of a data rank repeat its work.
+
+    The JAX package's ``multiprocess`` and ``apply_cache`` arguments have no
+    counterpart: they place arrays and cache jitted programs for XLA.
+    ``device=None`` means CUDA."""
+    from ..parallel.sharding import ShardedStore
+
+    device = resolve_device(device)
+    data = mesh.data_size
+    if batch_size is None:
+        batch_size = _default_materialize_batch(store, max_token_len, device)
+    batch_size = max(data, (batch_size // data) * data)
+    per = batch_size // data
+    mine = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    sharded = isinstance(dev_states, ShardedStore)
+    n = store.num_items
+    out: list[np.ndarray] = []
+    window = InflightWindow(4, lambda item: out.append(item[0][: item[1]].cpu().numpy()))
+    with torch.no_grad():
+        for start in range(0, n, batch_size):
+            idx = np.arange(start, min(start + batch_size, n))
+            lens = np.minimum(store.offsets[idx + 1] - store.offsets[idx], max_token_len)
+            T = bucket_for_open(int(lens.max()), token_buckets)
+            tok_idx, mask = store.padded_index_batch(idx, T, out_rows=batch_size, max_len=max_token_len)
+            if sharded:
+                grids, mask = _to_device((tok_idx.reshape(data, per, T), mask[mine]), device)
+                states = dev_states.gather(grids).float() * mask[..., None]
+            else:
+                tok_idx, mask = _to_device((tok_idx[mine], mask[mine]), device)
+                states = gathered_token_states(dev_states, tok_idx, mask)
+            pooled = token_encoder(states, mask).float()
+            window.push((torch.cat(mesh.all_gather(pooled, "data")), len(idx)))
         window.flush()
     return np.concatenate(out)
 

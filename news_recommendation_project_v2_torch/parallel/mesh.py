@@ -5,9 +5,11 @@ devices of one process, the port runs one process per rank, joined by
 ``torch.distributed``: rank ``r`` sits at ``(r // model, r % model)`` and
 runs on ``cuda:(LOCAL_RANK % device_count)``. The ``data`` axis shards the
 batches (data parallelism), the ``model`` axis the news table's rows. Each
-rank joins two process groups: its row of the grid (the ranks that share its
-data index and so its batch: the table's row shards) and its column (the
-ranks that share its model index: the gradient reduction).
+rank joins three process groups: its row of the grid (the ranks that share
+its data index and so its batch: the table's row shards), its column (the
+ranks that share its model index: the gradient reduction) and the whole
+world (the token store's shards, mesh serving's broadcasts), each with the
+mesh's timeout.
 
 Backends follow the device the caller trains on (``default_backend``):
 NCCL for CUDA, gloo for the CPU. gloo carries CUDA tensors too, but only
@@ -42,22 +44,29 @@ class Mesh:
     ``sum(tensor, axis)`` adds ``tensor`` in place over ``"data"``,
     ``"model"`` or (``axis=None``) every rank; a group of one adds nothing."""
 
-    def __init__(self, config: MeshConfig, data: int, model: int, rank: int, data_group=None, model_group=None):
+    def __init__(
+        self, config: MeshConfig, data: int, model: int, rank: int, data_group=None, model_group=None, world_group=None
+    ):
         self.axis_names = (config.data_axis, config.model_axis)
         self.shape = {config.data_axis: data, config.model_axis: model}
         self.data_size, self.model_size = data, model
         self.size = data * model
         self.rank = rank
         self.data_index, self.model_index = divmod(rank, model)
-        self._groups = {"data": data_group, "model": model_group}
+        self._groups = {"data": data_group, "model": model_group, None: world_group}
 
     def axis_size(self, axis: Optional[str]) -> int:
         return {None: self.size, "data": self.data_size, "model": self.model_size}[axis]
 
     def sum(self, tensor: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
         if self.axis_size(axis) > 1:
-            group = None if axis is None else self._groups[axis]
-            dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=self._groups[axis])
+        return tensor
+
+    def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``tensor`` from rank ``src`` to every rank, in place."""
+        if self.size > 1:
+            dist.broadcast(tensor, src=src, group=self._groups[None])
         return tensor
 
     def all_gather(self, tensor: torch.Tensor, axis: str) -> list[torch.Tensor]:
@@ -130,9 +139,10 @@ def build_mesh(
             f"a {data}x{model} mesh needs {data * model} ranks and the world has {world}: "
             f"start one process per rank (torchrun --nproc-per-node {data * model})"
         )
-    data_group = model_group = None
+    data_group = model_group = world_group = None
     if world > 1:
         # Every rank creates every group, in one order (new_group's rule).
+        world_group = dist.new_group(list(range(world)), timeout=timeout)
         for d in range(data):
             group = dist.new_group([d * model + m for m in range(model)], timeout=timeout)
             if rank // model == d:
@@ -141,7 +151,7 @@ def build_mesh(
             group = dist.new_group([d * model + m for d in range(data)], timeout=timeout)
             if rank % model == m:
                 data_group = group
-    return Mesh(config, data, model, rank, data_group, model_group)
+    return Mesh(config, data, model, rank, data_group, model_group, world_group)
 
 
 def _launched_rank(

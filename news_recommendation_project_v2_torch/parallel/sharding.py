@@ -1,4 +1,6 @@
-"""The row-sharded news table and the data-parallel train steps.
+"""The row-sharded news table and token store, the data-parallel train
+steps, and the sharded forward functions (the sequence-sharded tower, the
+sharded and tensor-parallel encoder, the sharded scoring).
 
 - **The table** is row-sharded over the ``model`` axis: rank ``k`` of a row
   of the grid holds rows ``[k·N/m, (k+1)·N/m)``, the rows padded at the end
@@ -8,14 +10,23 @@
   result is the plain gather's to the bit, and no index is exchanged: the
   batch is the same on every rank of a row. The tables are frozen (config[3]),
   so no gradient flows through the gather.
+- **The token store** (``ShardedStore``) is row-sharded over every rank of
+  the world, by the same rule; its gather takes every data rank's index
+  grid at once (each rank can build them all: every rank draws the same
+  global batch), so one ``all_reduce`` over the world completes every data
+  rank's block.
 - **The steps** are data parallel. Every rank draws the same global batch
   (the same seed); data rank ``d`` takes pairs ``[d·B/n, (d+1)·B/n)`` with
-  the history rows they read (``ShardedStep.shard``, on the host), gathers
-  the table rows its batch reads, runs the single-device loss of
-  ``train.step`` on them (both kernels on CUDA), and the gradients are
-  summed over the ``data`` axis before the optimizer step. Every rank then
-  holds the same reduced gradients and takes the same step: the parameters
-  stay equal to the bit without a broadcast.
+  the history rows (or, end to end, the news) they read
+  (``ShardedStep.shard``, on the host), gathers the rows its batch reads,
+  runs the single-device loss of ``train.step`` on them (both kernels on
+  CUDA), and the gradients are summed over the ``data`` axis before the
+  optimizer step. Every rank then holds the same reduced gradients and
+  takes the same step: the parameters stay equal to the bit without a
+  broadcast.
+- **The forward functions** return on every rank what the JAX package's
+  global array reads: each rank computes its share and the shares are
+  gathered over the axis that split them.
 
 Dropout cannot draw the single-device masks on a mesh (each data rank draws
 its own from ``seed + data_index``), so a mesh run equals a single-device
@@ -28,6 +39,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .mesh import Mesh
 
@@ -88,6 +100,77 @@ class ShardedTable:
         return torch.cat(self.mesh.all_gather(self.local, "model"))[: self.num_rows]
 
 
+def store_sharding(mesh: Mesh, total_tokens: int) -> slice:
+    """The rows of a flat ``[total_tokens, D]`` token store that this rank
+    holds: the store row-sharded over every rank of the world (both axes,
+    in rank order), padded at the end to a multiple of the world size (the
+    slice may reach into the pad)."""
+    per = -(-total_tokens // mesh.size)
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+# Rows of a store copied to the device at a time: bounds the host memory a
+# shard's upload holds beside the store (a memmap reads only these).
+_UPLOAD_ROWS = 1 << 16
+
+
+class ShardedStore:
+    """A ``TokenStore``'s flat ``[total_tokens, D]`` states row-sharded over
+    every rank of the world (``store_sharding``), in the store's own type:
+    ``local`` is this rank's ``[ceil(total/world), D]`` shard on the device.
+    Rows pad at the end with zeros, so the store's token indices stay valid
+    (a masked slot points at row 0 and is multiplied away). ``shape`` is the
+    padded store's. The store is frozen: no gradient flows through
+    ``gather``."""
+
+    def __init__(self, mesh: Mesh, states, device):
+        self.mesh = mesh
+        self.num_rows, self.dim = int(states.shape[0]), int(states.shape[1])
+        sl = store_sharding(mesh, self.num_rows)
+        self.start, self.rows_per_shard = sl.start, sl.stop - sl.start
+        if isinstance(states, torch.Tensor):
+            dtype = states.dtype
+        else:
+            dtype = torch.from_numpy(np.zeros(0, states.dtype)).dtype
+        self.local = torch.zeros((self.rows_per_shard, self.dim), dtype=dtype, device=device)
+        stop = min(sl.stop, self.num_rows)
+        for a in range(sl.start, stop, _UPLOAD_ROWS):
+            b = min(a + _UPLOAD_ROWS, stop)
+            self.local[a - sl.start : b - sl.start] = torch.as_tensor(np.asarray(states[a:b]))
+        self.shape = (self.rows_per_shard * mesh.size, self.dim)
+        self.dtype = dtype
+
+    def gather(self, grids: torch.Tensor) -> torch.Tensor:
+        """``states[grids[data_index]]`` ([M, T, D], the store's type) on
+        this rank, where ``grids`` ([data, M, T] indices into the flat
+        states) holds every data rank's grid, the same on every rank.
+
+        The index grids differ between data ranks, so the table's one shared
+        gather does not serve: each rank builds the partial block of every
+        data rank's grid from the rows it owns (zeros elsewhere), one SUM
+        ``all_reduce`` over the world completes them all, and each rank
+        keeps its own. Only zeros are added, so the block equals the plain
+        gather to the bit. It moves ``data`` blocks through every rank, where
+        a ``reduce_scatter`` would move one; gloo has no reduce_scatter for
+        the CUDA tensors that ranks sharing a card exchange, and one exact
+        rule on every backend is kept."""
+        local = grids.long() - self.start
+        owned = (local >= 0) & (local < self.rows_per_shard)
+        out = self.local[local.clamp(0, self.rows_per_shard - 1)]
+        out = torch.where(owned[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+        return self.mesh.sum(out)[self.mesh.data_index]
+
+
+def shard_token_store_states(mesh: Mesh, states, device=None) -> ShardedStore:
+    """A token store's flat ``[total_tokens, D]`` states (numpy, a memmap or
+    a tensor) row-sharded over every rank of the mesh (``store_sharding``),
+    this rank's shard on ``device`` (``None``: CUDA, as everywhere in the
+    port; ``"cpu"`` on gloo ranks of the CPU)."""
+    from ..device import resolve_device
+
+    return ShardedStore(mesh, states, resolve_device(device))
+
+
 def shard_news_table(mesh: Mesh, table, device=None) -> ShardedTable:
     """``table`` row-sharded over the mesh's model axis, this rank's shard
     on ``device`` (default: the table's)."""
@@ -106,24 +189,37 @@ class ShardedStep:
 
     ``kind`` is the global batch's layout: ``"flat"`` (``TowerTrainer``'s
     flat batches), ``"padded"``, ``"joint"`` (padded batches with the
-    positives' and negatives' baselines) or ``"classification"``.
-    ``loss(news_rows, query_rows, batch)`` is the single-device loss of a
-    batch whose table indices address ``news_rows`` / ``query_rows``.
+    positives' and negatives' baselines), ``"classification"``, or the end
+    to end ``"e2e"`` (``EndToEndTrainer``'s streamed batches, led by the
+    [M, T, D] block) and ``"e2e_gathered"`` (its resident-store batches,
+    led by the [M, T] index grid; ``sharded_store`` when the states are a
+    ``ShardedStore``). ``loss(news_rows, query_rows, batch)`` is the
+    single-device loss of a batch whose table indices address
+    ``news_rows`` / ``query_rows``; an end-to-end loss takes the local
+    batch with its [M, T, D] block in front and ignores the two tables.
 
     ``shard(batch)`` (host, numpy; the trainers call it on their prefetch
     thread) returns this rank's ``(rows, scale, *local_batch)``; the step
     ``(optimizer, news, query, local)`` takes it on the device and returns
-    the global batch's loss, the same on every rank."""
+    the global batch's loss, the same on every rank. For ``"e2e_gathered"``
+    ``news`` is the store's states (the replicated tensor or the
+    ``ShardedStore``), and ``rows`` every data rank's index grid where the
+    store is sharded (empty otherwise)."""
 
-    def __init__(self, mesh: Mesh, kind: str, loss: Callable):
-        if kind not in ("flat", "padded", "joint", "classification"):
+    KINDS = ("flat", "padded", "joint", "classification", "e2e", "e2e_gathered")
+
+    def __init__(self, mesh: Mesh, kind: str, loss: Callable, sharded_store: bool = False):
+        if kind not in self.KINDS:
             raise ValueError(f"kind {kind!r}")
         self.mesh, self.kind, self.loss = mesh, kind, loss
+        self.sharded_store = sharded_store and kind == "e2e_gathered"
 
     def shard(self, batch: tuple) -> tuple:
         mask = batch[5] if self.kind == "joint" else batch[-1]  # the joint batch ends with its baselines
         sl = batch_sharding(self.mesh, len(mask))
-        if self.kind == "classification":
+        if self.kind.startswith("e2e"):
+            local, rows = self._shard_e2e(batch, sl)
+        elif self.kind == "classification":
             pos, neg, pair_mask = (a[sl] for a in batch)
             rows = np.unique(np.concatenate([pos.ravel(), neg[neg >= 0]]))
             local = (_remap(rows, pos), _remap(rows, neg), pair_mask)
@@ -180,16 +276,73 @@ class ShardedStep:
         )
         return local, rows
 
+    def _e2e_union(self, batch: tuple, sl: slice) -> tuple[np.ndarray, np.ndarray]:
+        """The news (rows of the global batch's M) and the history rows that
+        the pairs ``sl`` read: their histories' live slots, the positives and
+        the negatives (the pad pairs' row 0 too, so every index maps)."""
+        _, _, hist_idx, hist_mask, hist_rev, pos, neg, _ = batch
+        hrows = np.unique(hist_rev[sl])
+        live = hist_idx[hrows][hist_mask[hrows] > 0]
+        neg = neg[sl]
+        return np.unique(np.concatenate([live, pos[sl].ravel(), neg[neg >= 0]])), hrows
+
+    def _shard_e2e(self, batch: tuple, sl: slice) -> tuple[tuple, np.ndarray]:
+        """Data rank ``d``'s end-to-end batch: the news union its pairs read,
+        padded to ``m`` rows (a power of two, at most the global M; pad rows
+        keep mask slot 0 live, as the trainer's do), their token block or
+        index grid and mask, the histories its pairs read remapped into the
+        union, and its pairs. A news item that two data ranks' pairs share
+        is encoded on both: the loss is a sum over pairs, so each rank's
+        gradient through it is its own pairs' share, and their sum is the
+        single-device gradient (exact)."""
+        tok, tok_mask, hist_idx, hist_mask, hist_rev, pos, neg, pair_mask = batch
+        M, n_data = len(tok_mask), self.mesh.data_size
+        per = sl.stop - sl.start
+        shares = [slice(d * per, (d + 1) * per) for d in range(n_data)] if self.sharded_store else [sl]
+        unions = [self._e2e_union(batch, s) for s in shares]
+        m = min(M, 1 << max(3, (max(len(u) for u, _ in unions) - 1).bit_length()))
+        news, hrows = unions[self.mesh.data_index if self.sharded_store else 0]
+
+        def rows_of(u: np.ndarray, a: np.ndarray) -> np.ndarray:
+            out = np.zeros((m, *a.shape[1:]), a.dtype)
+            out[: len(u)] = a[u]
+            return out
+
+        mask = rows_of(news, tok_mask)
+        mask[len(news) :, 0] = 1.0  # keep pad rows non-degenerate
+        L = hist_idx.shape[1]
+        hi = np.zeros((per, L), np.int32)
+        hm = np.zeros((per, L), np.float32)
+        live = hist_mask[hrows] > 0
+        hi[: len(hrows)] = np.where(live, np.searchsorted(news, hist_idx[hrows]), 0)
+        hm[: len(hrows)] = hist_mask[hrows]
+        p, n = pos[sl], neg[sl]
+        local = (
+            rows_of(news, tok), mask, hi, hm, np.searchsorted(hrows, hist_rev[sl]).astype(np.int32),
+            np.searchsorted(news, p).astype(np.int32),
+            np.where(n >= 0, np.searchsorted(news, np.maximum(n, 0)), -1).astype(np.int32), pair_mask[sl],
+        )
+        grids = np.stack([rows_of(u, tok) for u, _ in unions]) if self.sharded_store else np.zeros(0, np.int64)
+        return local, grids
+
     def __call__(
         self,
         optimizer: torch.optim.Optimizer,
-        news: ShardedTable,
+        news,
         query: Optional[ShardedTable],
         local: tuple,
     ) -> torch.Tensor:
         rows, scale, *batch = local
-        news_rows = news.gather(rows)
-        query_rows = news_rows if query is None or query is news else query.gather(rows)
+        if self.kind.startswith("e2e"):
+            if self.kind == "e2e_gathered":
+                # The store is frozen: the gather's collective is outside
+                # the graph, and the block enters it as an input.
+                block = news.gather(rows) if self.sharded_store else news[batch[0].long()]
+                batch[0] = block.float() * batch[1][..., None]
+            news_rows = query_rows = None
+        else:
+            news_rows = news.gather(rows)
+            query_rows = news_rows if query is None or query is news else query.gather(rows)
         # The local sum over the global count. Only gradients are reduced,
         # never activations: the backward of an all_reduce on a part every
         # rank of an axis computes alike would multiply its gradient by the
@@ -263,17 +416,248 @@ def make_sharded_classification_step(mesh: Mesh, head: torch.nn.Module, margin: 
     return ShardedStep(mesh, "classification", lambda news, query, b: classification_margin_loss(head, news, b, margin))
 
 
-def _part_two(name: str) -> Callable:
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: it comes with the second half of multi-GPU (ROADMAP.md §1)")
+def make_sharded_e2e_train_step(
+    mesh: Mesh,
+    token_encoder: torch.nn.Module,
+    tower: torch.nn.Module,
+    margin: float = 2.0,
+    infonce: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> ShardedStep:
+    """The end-to-end step (``e2e_margin_loss`` / ``e2e_infonce_loss``) on
+    streamed batches, data parallel: each data rank encodes the news its
+    pairs read from its rows of the host block."""
+    from ..train.step import e2e_infonce_loss, e2e_margin_loss
 
-    not_ported.__name__ = name
-    not_ported.__doc__ = f"``{name}``: not ported yet (ROADMAP.md §1, multi-GPU part 2)."
-    return not_ported
+    if infonce:
+        return ShardedStep(mesh, "e2e", lambda n, q, b: e2e_infonce_loss(token_encoder, tower, b, generator))
+    return ShardedStep(mesh, "e2e", lambda n, q, b: e2e_margin_loss(token_encoder, tower, b, margin, generator))
 
 
-make_sequence_sharded_tower_fn = _part_two("make_sequence_sharded_tower_fn")
-make_sharded_e2e_train_step = _part_two("make_sharded_e2e_train_step")
-shard_token_store_states = _part_two("shard_token_store_states")
-store_sharding = _part_two("store_sharding")
+def make_sharded_e2e_train_step_gathered(
+    mesh: Mesh,
+    token_encoder: torch.nn.Module,
+    tower: torch.nn.Module,
+    margin: float = 2.0,
+    infonce: bool = False,
+    sharded_store: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> ShardedStep:
+    """The end-to-end step on the resident store, data parallel: each data
+    rank's [M, T] index grid gathers its block from the store replicated on
+    every rank, or, with ``sharded_store``, from the ``ShardedStore``
+    (``ShardedStore.gather``); then the loss as the streamed step's."""
+    from ..train.step import e2e_infonce_loss, e2e_margin_loss
 
+    if infonce:
+        loss = lambda n, q, b: e2e_infonce_loss(token_encoder, tower, b, generator)  # noqa: E731
+    else:
+        loss = lambda n, q, b: e2e_margin_loss(token_encoder, tower, b, margin, generator)  # noqa: E731
+    return ShardedStep(mesh, "e2e_gathered", loss, sharded_store=sharded_store)
+
+
+# ---------------------------------------------------------------------------
+# Forward functions over the mesh
+# ---------------------------------------------------------------------------
+
+
+def _on_device_of(module: torch.nn.Module, *arrays) -> tuple:
+    device = next(module.parameters()).device
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+def make_sequence_sharded_tower_fn(mesh: Mesh, tower: torch.nn.Module) -> Callable:
+    """The tower's forward with the history axis sharded: ``fn(gathered
+    [B, L, D], mask [B, L])`` (the same on every rank) runs rows
+    ``B / data`` of its data index and positions ``L / model`` of its model
+    index, and returns the [B, D] user vectors on every rank. Forward only,
+    under ``torch.inference_mode``; ``B`` and ``L`` must divide.
+
+    A token-local tower (``models.supports_flat_scoring``: the latent tower,
+    both kernels on CUDA) runs per token on the local slice
+    (``tower(x, None)``), sums its masked states and counts, adds them over
+    the model axis with one ``all_reduce``, and ends with its pool epilogue.
+    Any other tower reads its whole history at once (a softmax or a readout
+    over positions): GSPMD gives JAX the right answer by gathering it, and
+    so does the port, which ``all_gather``s the sequence over the model axis
+    and runs the whole tower on each model rank; nothing is saved there.
+    One ``all_gather`` over the data axis ends both."""
+    from ..models.latent_attention import pool_epilogue
+
+    def fn(gathered, mask) -> torch.Tensor:
+        gathered, mask = _on_device_of(tower, gathered, mask)
+        B, L = mask.shape
+        if B % mesh.data_size or L % mesh.model_size:
+            raise ValueError(f"[{B}, {L}] does not divide over the ({mesh.data_size}, {mesh.model_size}) mesh")
+        b, l = B // mesh.data_size, L // mesh.model_size
+        rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+        cols = slice(mesh.model_index * l, (mesh.model_index + 1) * l)
+        x, m = gathered[rows, cols], mask[rows, cols]
+        with torch.inference_mode():
+            if getattr(tower, "token_local", False):
+                h = tower(x, None)
+                mf = m.float()
+                part = torch.cat([(h.float() * mf[..., None]).sum(dim=1), mf.sum(dim=1, keepdim=True)], dim=1)
+                mesh.sum(part, "model")
+                user = pool_epilogue(part[:, :-1], part[:, -1], tower.output_normalize).to(h.dtype)
+            else:
+                x = torch.cat(mesh.all_gather(x, "model"), dim=1)
+                m = torch.cat(mesh.all_gather(m, "model"), dim=1)
+                user = tower(x, m)
+            return torch.cat(mesh.all_gather(user.contiguous(), "data"))
+
+    return fn
+
+
+def make_sharded_encode_fn(mesh: Mesh, encoder: torch.nn.Module) -> Callable:
+    """Data-parallel encoding: ``fn(ids [B, T], mask [B, T])`` (the same on
+    every rank; ``B`` divides over the data axis) encodes rows ``B / data``
+    of this rank's data index, under ``torch.inference_mode``, and one
+    ``all_gather`` over the data axis returns the [B, D] vectors on every
+    rank. The model ranks of a data index repeat its work, as the JAX
+    package's ``P("data")`` replicates over the model axis."""
+
+    def fn(ids, mask) -> torch.Tensor:
+        ids, mask = _on_device_of(encoder, ids, mask)
+        rows = batch_sharding(mesh, ids.shape[0])
+        with torch.inference_mode():
+            out = encoder(ids[rows], mask[rows])
+            return torch.cat(mesh.all_gather(out.contiguous(), "data"))
+
+    return fn
+
+
+class _ColumnParallel(torch.nn.Module):
+    """A linear layer's output features split over the model axis: this
+    rank holds rows ``[k·o/m, (k+1)·o/m)`` of the weight and computes those
+    outputs (the bias stays whole and is sliced). With ``gather`` the
+    parts are ``all_gather``ed into the whole output (a layer whose
+    partner is not split); without, the next layer takes the part."""
+
+    def __init__(self, linear: torch.nn.Linear, mesh: Mesh, gather: bool):
+        super().__init__()
+        per = _split(linear.out_features, mesh)
+        self.cols = slice(mesh.model_index * per, (mesh.model_index + 1) * per)
+        self.mesh, self.gather = mesh, gather
+        self.weight = torch.nn.Parameter(linear.weight.detach()[self.cols].clone(), requires_grad=False)
+        self.bias = None if linear.bias is None else torch.nn.Parameter(linear.bias.detach().clone(), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias[self.cols].to(x.dtype)
+        y = F.linear(x, self.weight.to(x.dtype), bias)
+        if self.gather:
+            y = torch.cat(self.mesh.all_gather(y.contiguous(), "model"), dim=-1)
+        return y
+
+
+class _RowParallel(torch.nn.Module):
+    """A linear layer's input features split over the model axis: this rank
+    holds columns ``[k·i/m, (k+1)·i/m)`` of the weight and takes the matching
+    part of its input (a column-parallel layer's output); the partial
+    outputs are summed in float32 by one ``all_reduce`` over the model axis,
+    and the bias is added once, after it."""
+
+    def __init__(self, linear: torch.nn.Linear, mesh: Mesh):
+        super().__init__()
+        per = _split(linear.in_features, mesh)
+        self.mesh = mesh
+        cols = slice(mesh.model_index * per, (mesh.model_index + 1) * per)
+        self.weight = torch.nn.Parameter(linear.weight.detach()[:, cols].clone(), requires_grad=False)
+        self.bias = None if linear.bias is None else torch.nn.Parameter(linear.bias.detach().clone(), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.mesh.sum(F.linear(x, self.weight.to(x.dtype)).float(), "model").to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def _split(features: int, mesh: Mesh) -> int:
+    if features % mesh.model_size:
+        raise ValueError(f"{features} features do not split over the model axis ({mesh.model_size})")
+    return features // mesh.model_size
+
+
+def tensor_parallel_leaves(encoder: torch.nn.Module) -> dict[str, str]:
+    """The linear layers of a ``NewsEncoder`` that ``shard_encoder_params_tp``
+    splits, by their ``state_dict`` prefix: ``"column"`` or ``"row"``
+    (column-parallel with the output gathered: ``"column_gather"``). These are
+    the leaves the JAX package's rule (``place``'s test of a kernel's path for
+    ``ffn_in``, ``q/``, ``k/``, ``v/``, ``ffn_out``, ``attn_out``) splits,
+    under the port's names: the BERT/e5 layout's query, key, value and
+    intermediate projections (column) and its two output projections (row);
+    the decoder layout's ``q_proj`` ... ``down_proj`` match none of the
+    rule's names and stay replicated; the NV-Embed head's ``to_q`` and
+    ``to_kv`` match (``to_kv`` by its ``v/``) while ``to_out`` does not, so
+    their outputs are gathered."""
+    cfg = encoder.config
+    out: dict[str, str] = {}
+    if cfg.arch == "bert":
+        for i in range(cfg.num_layers):
+            p = f"encoder.layer.{i}."
+            for name in ("attention.self.query", "attention.self.key", "attention.self.value", "intermediate.dense"):
+                out[p + name] = "column"
+            for name in ("attention.output.dense", "output.dense"):
+                out[p + name] = "row"
+    if cfg.latent_pool:
+        for name in ("to_q", "to_kv"):
+            out[f"latent_pool.cross_attend_blocks.0.fn.{name}"] = "column_gather"
+    return out
+
+
+def shard_encoder_params_tp(mesh: Mesh, encoder: torch.nn.Module, device=None) -> torch.nn.Module:
+    """A tensor-parallel copy of a ``models.NewsEncoder`` for this rank,
+    forward only (Megatron's layout, the JAX package's rule; see
+    ``tensor_parallel_leaves``): column-parallel layers hold their share of
+    the output features (the attention's heads split over the model axis),
+    row-parallel ones their share of the input features, one ``all_reduce``
+    over the model axis after each row-parallel layer; every other
+    parameter is replicated. Every rank of a model group calls the copy
+    with the same inputs and gets the whole output. The copy lives on
+    ``device`` (``None``: the encoder's); ``split_leaves`` names the split
+    weights."""
+    import copy
+
+    tp = copy.deepcopy(encoder)
+    modules = dict(tp.named_modules())
+    leaves = tensor_parallel_leaves(encoder)
+    for name, kind in leaves.items():
+        parent, _, attr = name.rpartition(".")
+        linear = modules[name]
+        part = _RowParallel(linear, mesh) if kind == "row" else _ColumnParallel(linear, mesh, kind == "column_gather")
+        setattr(modules[parent], attr, part)
+    if encoder.config.arch == "bert":
+        heads = _split(encoder.config.num_heads, mesh)
+        for layer in tp.encoder["layer"]:
+            layer.num_heads = heads
+    tp.split_leaves = sorted(f"{name}.weight" for name in leaves)
+    return tp.to(next(encoder.parameters()).device if device is None else device)
+
+
+def make_sharded_scoring_fn(mesh: Mesh, tower: torch.nn.Module) -> Callable:
+    """The eval's scoring over the mesh: ``fn(news, hist_idx [R, L],
+    hist_mask, cand_rev [C], cand_row [C])`` with ``news`` a ``ShardedTable``
+    (row-sharded over the model axis; every rank passes the same grids, and
+    ``R`` and ``C`` divide over the data axis). Each data rank runs the
+    tower on its ``R / data`` history rows, the user vectors are gathered
+    over the data axis, each data rank takes the cosine of its
+    ``C / data`` candidate slots, and one ``all_gather`` returns the [C]
+    scores on every rank. Forward only, under ``torch.inference_mode``."""
+    eps = 1e-8
+
+    def fn(news: ShardedTable, hist_idx, hist_mask, cand_rev, cand_row) -> torch.Tensor:
+        device = news.local.device
+        hist_idx, hist_mask, cand_rev, cand_row = (
+            torch.as_tensor(a, device=device) for a in (hist_idx, hist_mask, cand_rev, cand_row)
+        )
+        rows = batch_sharding(mesh, hist_idx.shape[0])
+        slots = batch_sharding(mesh, cand_rev.shape[0])
+        with torch.inference_mode():
+            hi, hm = hist_idx[rows], hist_mask[rows]
+            gathered = news.gather(hi.reshape(-1).long()).view(*hi.shape, -1) * hm[..., None].to(news.dtype)
+            user = torch.cat(mesh.all_gather(tower(gathered, hm).contiguous(), "data"))
+            u = user[cand_row[slots].long()]
+            c = news.gather(cand_rev[slots].long())
+            nu = torch.linalg.norm(u, dim=-1).clamp_min(eps)
+            nc = torch.linalg.norm(c, dim=-1).clamp_min(eps)
+            return torch.cat(mesh.all_gather(((u * c).sum(-1) / (nu * nc)).contiguous(), "data"))
+
+    return fn

@@ -3,16 +3,27 @@
 A trained tower and an embedding table become a ranker: id lookup on the
 host, one tower call per request (history lengths bucketed, as in the JAX
 package, so the kernels see a small fixed set of shapes), cosine scoring on
-the device, ranked ids back. One device; multi-GPU serving comes last
-(ROADMAP.md §1).
+the device, ranked ids back.
+
+On a mesh of ranks (``Ranker(mesh=)``; one process a rank, as everywhere in
+the port, where the JAX package serves a mesh from one process) the tables
+are row-sharded over the model axis (``parallel.sharding.ShardedTable``)
+and every rank builds the ranker. Rank 0 answers the calls: each first
+broadcasts its host grids (a header, then the arrays) from rank 0, and every
+rank runs the device work together; the other ranks serve those broadcasts
+in ``Ranker.follow()`` until rank 0's ``close()``. ``rank_batch``'s groups
+split over the data axis; ``retrieve`` takes a top-k on each model shard
+and merges them.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .config import HISTORY_BUCKETS, IMPRESSION_BUCKETS, bucket_for
@@ -25,6 +36,12 @@ EPS = 1e-8  # cosine norm clamp
 
 Tower = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # ([B,L,D], [B,L]) -> [B,D]
 
+# Mesh serving: the calls rank 0 broadcasts, and the header's length (the
+# call, k, the array count, then each array's type code and two dims).
+_STOP, _NOOP, _SCORE, _RETRIEVE = range(4)
+_HEADER = 16
+_TYPES = (np.int64, np.float32)
+
 
 class Ranker:
     """Serve ranked candidates for one user request.
@@ -35,6 +52,14 @@ class Ranker:
     external news ids (the same id-keyed contract as the embedding dumps).
     Unknown history ids are dropped; unknown candidate ids score ``-inf`` and
     rank last; ties keep candidate order.
+
+    ``mesh`` (``parallel.mesh.Mesh``): every rank builds the ranker with the
+    same arguments, rank 0 answers ``rank``, ``rank_batch`` and
+    ``retrieve``, the others run ``follow()`` (the module docstring). The
+    data axis must be a power of two (``rank_batch``'s group sizes are).
+    A follower waits for rank 0's next call at most the process group's
+    timeout, so one whose rank 0 died fails instead of hanging;
+    ``keep_alive`` keeps an idle server's followers waiting.
     """
 
     def __init__(
@@ -48,23 +73,39 @@ class Ranker:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported: multi-GPU is the last item of "
-                "ROADMAP.md §1; the port serves from one device"
-            )
         self.device = resolve_device(device)
         if isinstance(tower, nn.Module):
             tower = tower.to(self.device).eval()
         self.tower = tower
-        self.news_emb = torch.as_tensor(news_emb, device=self.device)
-        self.query_emb = (
-            self.news_emb
-            if query_news_emb is None
-            else torch.as_tensor(query_news_emb, device=self.device)
-        )
-        self.num_news = int(self.news_emb.shape[0])
-        self._news_norm = torch.linalg.norm(self.news_emb, dim=-1).clamp_min(EPS)
+        self.mesh = mesh
+        if mesh is None:
+            self.news_emb = torch.as_tensor(news_emb, device=self.device)
+            self.query_emb = (
+                self.news_emb
+                if query_news_emb is None
+                else torch.as_tensor(query_news_emb, device=self.device)
+            )
+            self.num_news = int(self.news_emb.shape[0])
+            self._news_norm = torch.linalg.norm(self.news_emb, dim=-1).clamp_min(EPS)
+        else:
+            from .parallel.sharding import shard_news_table
+
+            if mesh.data_size & (mesh.data_size - 1):
+                raise ValueError(
+                    f"mesh serving needs a power-of-two data axis, not {mesh.data_size}: rank_batch's "
+                    "group batches run at power-of-two sizes, which must split evenly over it"
+                )
+            self.news_emb = shard_news_table(mesh, news_emb, self.device)
+            self.query_emb = (
+                self.news_emb if query_news_emb is None else shard_news_table(mesh, query_news_emb, self.device)
+            )
+            self.num_news = self.news_emb.num_rows
+            self._news_norm = torch.linalg.norm(self.news_emb.local, dim=-1).clamp_min(EPS)  # this shard's rows
+            self._lock = threading.Lock()
+            self._closed = False
+            self._beat: Optional[threading.Event] = None
+            nccl = dist.is_initialized() and dist.get_backend() == "nccl"
+            self._comm_device = self.news_emb.local.device if nccl else torch.device("cpu")
         self.row_of = {str(n): i for i, n in enumerate(news_ids)}
         self.id_of = [str(n) for n in news_ids]
         self.buckets = buckets
@@ -81,11 +122,17 @@ class Ranker:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _rows(self, table, idx: torch.Tensor) -> torch.Tensor:
+        """``table[idx]``; a sharded table's rows gathered over the model axis."""
+        if self.mesh is None:
+            return table[idx]
+        return table.gather(idx.reshape(-1)).view(*idx.shape, -1)
+
     @torch.inference_mode()
     def _users(self, hist_idx: np.ndarray, hist_mask: np.ndarray) -> torch.Tensor:
         """[B, L] history rows and mask -> [B, D] user vectors."""
         idx, mask = self._to_device(hist_idx), self._to_device(hist_mask)
-        gathered = self.query_emb[idx] * mask[..., None].to(self.query_emb.dtype)
+        gathered = self._rows(self.query_emb, idx) * mask[..., None].to(self.query_emb.dtype)
         return self.tower(gathered, mask)
 
     @torch.inference_mode()
@@ -93,8 +140,128 @@ class Ranker:
         """[B, D] users x [B, C] candidate rows -> [B, C] cosine scores."""
         idx = self._to_device(cand_idx)
         nu = torch.linalg.norm(user, dim=-1).clamp_min(EPS)[:, None]
-        dots = torch.einsum("bcd,bd->bc", self.news_emb[idx], user)
-        return dots / (nu * self._news_norm[idx])
+        cands = self._rows(self.news_emb, idx)
+        norms = self._news_norm[idx] if self.mesh is None else torch.linalg.norm(cands, dim=-1).clamp_min(EPS)
+        return torch.einsum("bcd,bd->bc", cands, user) / (nu * norms)
+
+    # -- mesh side -------------------------------------------------------------
+
+    def _scores(self, hist_idx: np.ndarray, hist_mask: np.ndarray, cand_idx: np.ndarray) -> torch.Tensor:
+        """[B, C] cosine scores of the users of ``hist_idx`` against their
+        ``cand_idx`` rows; on a mesh through every rank."""
+        if self.mesh is None:
+            return self._cosine(self._users(hist_idx, hist_mask), cand_idx)
+        return self._call(_SCORE, (hist_idx, hist_mask, cand_idx))
+
+    def _call(self, op: int, arrays: tuple = (), k: int = 0):
+        """Rank 0: broadcast ``op`` and its arrays, then run it with the
+        followers."""
+        if self.mesh.rank != 0:
+            raise ValueError(f"rank {self.mesh.rank} of a serving mesh follows rank 0: call follow()")
+        with self._lock:
+            if self._closed:
+                if op == _NOOP:
+                    return None
+                raise ValueError("this serving mesh is closed: its followers have left")
+            self._closed = op == _STOP
+            if self.mesh.size == 1:
+                return self._run(op, arrays, k) if op in (_SCORE, _RETRIEVE) else None
+            header = torch.zeros(_HEADER, dtype=torch.int64)
+            header[:3] = torch.tensor([op, k, len(arrays)])
+            for i, a in enumerate(arrays):
+                header[3 + 3 * i : 6 + 3 * i] = torch.tensor([_TYPES.index(a.dtype.type), *a.shape])
+            self.mesh.broadcast(header.to(self._comm_device))
+            arrays = tuple(np.ascontiguousarray(a, _TYPES[int(header[3 + 3 * i])]) for i, a in enumerate(arrays))
+            for a in arrays:
+                self.mesh.broadcast(torch.from_numpy(a).to(self._comm_device))
+            return self._run(op, arrays, k) if op in (_SCORE, _RETRIEVE) else None
+
+    def _receive(self) -> tuple[int, int, tuple]:
+        header = torch.zeros(_HEADER, dtype=torch.int64, device=self._comm_device)
+        self.mesh.broadcast(header)
+        op, k, n = (int(x) for x in header[:3])
+        arrays = []
+        for i in range(n):
+            code, *shape = (int(x) for x in header[3 + 3 * i : 6 + 3 * i])
+            t = torch.empty(shape, dtype=torch.from_numpy(np.zeros(0, _TYPES[code])).dtype, device=self._comm_device)
+            self.mesh.broadcast(t)
+            arrays.append(t.cpu().numpy())
+        return op, k, tuple(arrays)
+
+    @torch.inference_mode()
+    def _run(self, op: int, arrays: tuple, k: int):
+        """One broadcast call's device work, on every rank: ``_SCORE``'s
+        users and cosines (a group of ``B`` rows split over the data axis
+        where ``B`` divides, else run whole on every rank), or
+        ``_RETRIEVE``'s top ``k`` over the sharded table."""
+        mesh = self.mesh
+        if op == _SCORE:
+            hist_idx, hist_mask, cand_idx = arrays
+            if len(hist_idx) % mesh.data_size:
+                return self._cosine(self._users(hist_idx, hist_mask), cand_idx)
+            per = len(hist_idx) // mesh.data_size
+            sl = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+            part = self._cosine(self._users(hist_idx[sl], hist_mask[sl]), cand_idx[sl])
+            return torch.cat(mesh.all_gather(part.contiguous(), "data"))
+        if op == _RETRIEVE:
+            return self._retrieve_sharded(*arrays, k)
+        raise ValueError(f"unknown mesh call {op}")
+
+    def _retrieve_sharded(self, hist_idx: np.ndarray, hist_mask: np.ndarray, k: int) -> tuple:
+        """A top-``k`` on this rank's model shard (the shard's pad rows never
+        win), the ``model x k`` candidates gathered and merged: by score,
+        ties by the lower global row, as one device's stable sort orders
+        them."""
+        table = self.news_emb
+        user = self._users(hist_idx, hist_mask)[0]
+        nu = torch.linalg.norm(user).clamp_min(EPS)
+        scores = (table.local @ user) / (nu * self._news_norm)
+        rows = table.start + torch.arange(table.rows_per_shard, device=scores.device)
+        scores = torch.where(rows < self.num_news, scores, -torch.inf)
+        top, idx = torch.sort(scores, descending=True, stable=True)
+        kk = min(k, table.rows_per_shard)
+        top = torch.cat(self.mesh.all_gather(top[:kk].contiguous(), "model"))
+        idx = torch.cat(self.mesh.all_gather(rows[idx[:kk]].contiguous(), "model"))
+        by_row = torch.argsort(idx, stable=True)
+        top, idx = top[by_row], idx[by_row]
+        order = torch.sort(top, descending=True, stable=True).indices[:k]
+        return top[order], idx[order]
+
+    def follow(self) -> int:
+        """A rank other than 0: serve rank 0's broadcast calls until its
+        ``close()``; returns the number of calls served."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise ValueError("follow() runs on the ranks of a serving mesh other than 0")
+        served = 0
+        while True:
+            op, k, arrays = self._receive()
+            if op == _STOP:
+                return served
+            if op != _NOOP:
+                self._run(op, arrays, k)
+                served += 1
+
+    def close(self) -> None:
+        """Rank 0: stop ``keep_alive`` and release the followers (their
+        ``follow()`` returns); a closed ranker refuses calls."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            if self._beat is not None:
+                self._beat.set()
+            self._call(_STOP)
+
+    def keep_alive(self, interval: float) -> threading.Event:
+        """Rank 0: a daemon thread sends the followers an empty call every
+        ``interval`` seconds (under the process group's timeout), so that an
+        idle server's followers keep waiting; ``close`` (or setting the
+        returned event) stops it."""
+        done = self._beat = threading.Event()
+
+        def beat():
+            while not done.wait(interval):
+                self._call(_NOOP)
+
+        threading.Thread(target=beat, daemon=True, name="ranker-keep-alive").start()
+        return done
 
     # -- host side -----------------------------------------------------------
 
@@ -144,16 +311,19 @@ class Ranker:
         """Returns candidates sorted best-first with their cosine scores."""
         hist, L = self._history(history_ids, "rank")
         known = [self.row_of.get(c, -1) for c in candidate_ids]
-        user = self._users(*self._history_grid([hist], L, 1))
+        grid = self._history_grid([hist], L, 1)
+        user = self._users(*grid) if self.mesh is None else None
         # The user vector is candidate-free, so chunks of the candidate axis
-        # score independently. Every chunk is queued before any is fetched.
+        # score independently (on a mesh each chunk is one call of every
+        # rank). Every chunk is queued before any is fetched.
         pending = []
         start = 0
         for C in self._chunk_sizes(len(known)):
             part = known[start : start + C]
             cand_idx = np.zeros((1, C), np.int64)
             cand_idx[0, : len(part)] = np.maximum(part, 0)
-            pending.append((self._cosine(user, cand_idx)[0], len(part)))
+            scores = self._cosine(user, cand_idx) if user is not None else self._scores(*grid, cand_idx)
+            pending.append((scores[0], len(part)))
             start += C
         scores = np.concatenate([s.cpu().numpy()[:n] for s, n in pending])
         scores = np.where(np.asarray(known) >= 0, scores, -np.inf)
@@ -167,12 +337,16 @@ class Ranker:
         """Exhaustive top-k over the whole news table: one product over
         [N, D] and a stable descending sort on the device."""
         hist, L = self._history(history_ids, "retrieve")
-        user = self._users(*self._history_grid([hist], L, 1))[0]
-        nu = torch.linalg.norm(user).clamp_min(EPS)
-        scores = (self.news_emb @ user) / (nu * self._news_norm)
         kk = min(k, self.num_news)
-        top, idx = torch.sort(scores, descending=True, stable=True)
-        top, idx = top[:kk].cpu().numpy(), idx[:kk].cpu().numpy()
+        if self.mesh is not None:
+            top, idx = self._call(_RETRIEVE, self._history_grid([hist], L, 1), kk)
+        else:
+            user = self._users(*self._history_grid([hist], L, 1))[0]
+            nu = torch.linalg.norm(user).clamp_min(EPS)
+            scores = (self.news_emb @ user) / (nu * self._news_norm)
+            top, idx = torch.sort(scores, descending=True, stable=True)
+            top, idx = top[:kk], idx[:kk]
+        top, idx = top.cpu().numpy(), idx.cpu().numpy()
         return [(self.id_of[i], float(s)) for i, s in zip(idx, top)]
 
     def rank_batch(
@@ -215,12 +389,13 @@ class Ranker:
             for g0 in range(0, len(group), cap):
                 chunk = group[g0 : g0 + cap]
                 B = 1 << (len(chunk) - 1).bit_length()
+                if self.mesh is not None:
+                    B = max(B, self.mesh.data_size)  # both powers of two: the rows split evenly
                 hist_idx, hist_mask = self._history_grid([it[2] for it in chunk], L, B)
                 cand_idx = np.zeros((B, C), np.int64)
                 for j, item in enumerate(chunk):
                     cand_idx[j, : len(item[3])] = np.maximum(item[3], 0)
-                user = self._users(hist_idx, hist_mask)
-                window.push((self._cosine(user, cand_idx), chunk))
+                window.push((self._scores(hist_idx, hist_mask, cand_idx), chunk))
         window.flush()
 
         results: list = [None] * len(requests)

@@ -14,13 +14,14 @@ flat eval (``ops.scoring.FlatEvalPlan``, with ``device_metrics`` its fused
 ``metrics`` call, five scalars fetched) or the bucketed
 ``score_all_impressions``.
 
-With ``mesh=`` (``parallel.mesh.Mesh``; the tower, joint and classification
-trainers) every rank of the mesh runs the trainer: each draws the same
-epoch's pairs from the same seed, takes its data rank's share of every
-batch (``parallel.sharding``'s data-parallel steps over the row-sharded
-tables), and the evals run sharded (``parallel.flat_eval``, or
-``score_all_impressions(mesh=)``), so every rank reads the same metrics and
-stops at the same epoch. Only rank 0 writes logs and checkpoints.
+With ``mesh=`` (``parallel.mesh.Mesh``; every trainer) every rank of the
+mesh runs the trainer: each draws the same epoch's pairs from the same
+seed, takes its data rank's share of every batch (``parallel.sharding``'s
+data-parallel steps over the row-sharded tables, or end to end over the
+resident, streamed or row-sharded token store), and the evals run sharded
+(``parallel.flat_eval``, or ``score_all_impressions(mesh=)``), so every
+rank reads the same metrics and stops at the same epoch. Only rank 0
+writes logs and checkpoints.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adamw)`` as the JAX
 package builds it (``ClippedAdamW``).
@@ -45,15 +46,18 @@ from ..data.sampling import neg_batch_column, sample_epoch_pairs
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan
 from ..eval.ranker import compose_final_scores, history_candidate_slots
-from ..ops.encode import TokenStore, materialize_from_token_store
+from ..ops.encode import TokenStore, materialize_from_token_store, materialize_from_token_store_mesh
 from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions
 from ..parallel.sharding import (
     ShardedTable,
     make_sharded_classification_step,
+    make_sharded_e2e_train_step,
+    make_sharded_e2e_train_step_gathered,
     make_sharded_flat_tower_train_step,
     make_sharded_joint_train_step,
     make_sharded_tower_train_step,
     shard_news_table,
+    shard_token_store_states,
 )
 from ..utils.memory import fits_device_token_store
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
@@ -812,7 +816,16 @@ class EndToEndTrainer(ResumableTrainer):
     ``device_metrics`` as in ``TowerTrainer``); with ``ckpt_dir`` every epoch
     writes ``Epoch_N`` (and, with a val split, the best by its metrics), and
     ``remote_sync(path)`` is called with each. ``model`` is the ``ModuleDict``
-    of ``token_encoder`` and ``tower``; ``device=None`` means CUDA."""
+    of ``token_encoder`` and ``tower``; ``device=None`` means CUDA.
+
+    ``mesh=`` trains data parallel (``parallel.sharding``'s e2e steps;
+    ``cfg.batch_size`` must divide over the data axis). ``device_store=None``
+    then also holds when the store fits one card once row-sharded over the
+    world (``fits_device_token_store(num_shards=)``), and ``shard_store``
+    (``None``: a resident store that does not fit one card) row-shards it
+    over every rank (``ShardedStore``) instead of copying it to each. The
+    train store's embeddings materialize through
+    ``materialize_from_token_store_mesh`` where the store is resident."""
 
     TOKEN_BUCKETS = (64, 128, 256, 512)
     UNIQUE_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
@@ -837,13 +850,15 @@ class EndToEndTrainer(ResumableTrainer):
         device_metrics: bool = False,
         device_store: Optional[bool] = None,
         mesh=None,
+        shard_store: Optional[bool] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EndToEndTrainer(mesh=) comes with the second half of multi-GPU, with the sharded token store "
-                "(ROADMAP.md §1)"
-            )
+        if shard_store and mesh is None:
+            raise ValueError("shard_store needs a mesh: the store shards over its ranks")
+        if shard_store and device_store is False:
+            raise ValueError("shard_store=True needs the resident store (device_store must not be False)")
+        if mesh is not None and cfg.batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide over the mesh's data axis ({mesh.data_size})")
         if len(compiled_train.hist_lens) != compiled_train.num_rows:
             raise ValueError("EndToEndTrainer needs a with-history view (every row must have history)")
         if (compiled_val is None) != (val_token_store is None):
@@ -855,35 +870,56 @@ class EndToEndTrainer(ResumableTrainer):
         if cfg.loss not in ("margin", "infonce"):
             raise ValueError(f"loss {cfg.loss!r}: want 'margin' or 'infonce'")
         self.device = resolve_device(device)
-        self.mesh = None
+        self.mesh = mesh
         self.model = torch.nn.ModuleDict({"token_encoder": token_encoder, "tower": tower}).to(self.device)
         self.token_encoder, self.tower = self.model["token_encoder"], self.model["tower"]
         self.ct, self.store = compiled_train, token_store
         self.cv, self.store_val = compiled_val, val_token_store
         self.cfg = cfg
-        self.log_dir = log_dir
+        writer = mesh is None or mesh.rank == 0
+        self.log_dir = log_dir if writer else None
         self.exp_name = exp_name
         self.buckets = buckets
         self.max_token_len = max_token_len
-        self.remote_sync = remote_sync
+        self.remote_sync = remote_sync if writer else None
         self.eval_each_epoch = eval_each_epoch
         self.flat_eval = flat_eval
         self.device_metrics = device_metrics
         self._fused_plans: dict = {}
         self.rng = np.random.default_rng(cfg.seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        seed = cfg.seed if mesh is None else cfg.seed + mesh.data_index
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
-        self.best = BestTracker(ckpt_dir, exp_name)
+        self.best = BestTracker(ckpt_dir, exp_name, write=writer)
         self.plateau = PlateauScheduler(cfg)  # saved with the state; the e2e epochs take no plateau step
         self.history: list[dict] = []
         self._hist_offsets = lengths_to_offsets(compiled_train.hist_lens)
         states = token_store.states
+        geometry = (int(token_store.offsets[-1]), int(states.shape[1]), states.dtype.itemsize)
+        fits_one = fits_device_token_store(*geometry, device=self.device)
         if device_store is None:
-            device_store = fits_device_token_store(
-                int(token_store.offsets[-1]), int(states.shape[1]), states.dtype.itemsize, device=self.device
+            device_store = fits_one or (
+                mesh is not None and fits_device_token_store(*geometry, num_shards=mesh.size, device=self.device)
             )
+        if shard_store is None:
+            # Replicated where it fits: its gather needs no collective.
+            shard_store = bool(device_store) and mesh is not None and not fits_one
         self.device_store = bool(device_store)
-        self._dev_states = _upload_states(states, self.device) if self.device_store else None
+        self.store_sharded = bool(shard_store) and self.device_store
+        if self.store_sharded:
+            self._dev_states = shard_token_store_states(mesh, states, self.device)
+        else:
+            self._dev_states = _upload_states(states, self.device) if self.device_store else None
+        self._mesh_step = None
+        if mesh is not None:
+            infonce = cfg.loss == "infonce"
+            enc, tower = self.token_encoder, self.tower
+            if self.device_store:
+                self._mesh_step = make_sharded_e2e_train_step_gathered(
+                    mesh, enc, tower, cfg.margin, infonce, self.store_sharded, self.generator
+                )
+            else:
+                self._mesh_step = make_sharded_e2e_train_step(mesh, enc, tower, cfg.margin, infonce, self.generator)
 
     # ------------------------------------------------------------------
     # Host input pipeline
@@ -966,7 +1002,7 @@ class EndToEndTrainer(ResumableTrainer):
         """``(pair count, batch)`` per step, the batch as pinned CPU tensors
         (built on the prefetch thread)."""
         for batch in self._epoch_batches():
-            yield float(batch[-1].sum()), _pinned(batch, self.device)
+            yield float(batch[-1].sum()), _pinned(self._shard(batch), self.device)
 
     def _loss(self, batch) -> torch.Tensor:
         enc, tower, gen = self.token_encoder, self.tower, self.generator
@@ -988,7 +1024,10 @@ class EndToEndTrainer(ResumableTrainer):
         losses, counts = [], []
         for count, batch in prefetch(self._host_batches()):
             batch = tuple(t.to(self.device, non_blocking=True) for t in batch)
-            losses.append(apply_step(self.optimizer, self._loss(batch)))
+            if self._mesh_step is not None:
+                losses.append(self._mesh_step(self.optimizer, self._dev_states, None, batch))
+            else:
+                losses.append(apply_step(self.optimizer, self._loss(batch)))
             if len(losses) % sync == 0:
                 losses[-1] = float(losses[-1])
                 if not np.isfinite(losses[-1]):
@@ -1009,12 +1048,14 @@ class EndToEndTrainer(ResumableTrainer):
         emb = torch.from_numpy(self.materialize_news_embeddings(store=store)).to(self.device)
         max_len = self.buckets[-1]
         if self.device_metrics:
-            return _fused_eval_metrics(self._fused_plans, self.tower, compiled, emb, None, max_len, self.device)
+            return _fused_eval_metrics(
+                self._fused_plans, self.tower, compiled, emb, None, max_len, self.device, mesh=self.mesh
+            )
         slots, cand_rows = history_candidate_slots(compiled)
         scores = score_all_impressions(
             self.tower, emb, compiled.hist_rev, compiled.hist_lens, compiled.imp_rev[slots], cand_rows,
             batch_size=self.cfg.batch_size, buckets=self.buckets, flat_tokens=self.flat_eval,
-            flat_max_len=max_len, device=self.device,
+            flat_max_len=max_len, mesh=self.mesh, device=self.device,
         )
         return compose_final_scores(compiled, history_scores=scores).metrics
 
@@ -1043,11 +1084,13 @@ class EndToEndTrainer(ResumableTrainer):
             path = self.best.ckpt_dir / f"Epoch_{epoch}"
             if val_scores is not None:
                 self.best.update(epoch, val_scores, self.model.state_dict())  # writes Epoch_N too
-            else:
+            elif self.best.write:
                 self.best.ckpt_dir.mkdir(parents=True, exist_ok=True)
                 save_pytree(path, self.model.state_dict())
             if self.remote_sync is not None:
                 self.remote_sync(path)
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's checkpoints are on disk before any rank reads them
         return self.history
 
     def materialize_news_embeddings(self, batch_size: Optional[int] = None, store: Optional[TokenStore] = None) -> np.ndarray:
@@ -1055,8 +1098,14 @@ class EndToEndTrainer(ResumableTrainer):
         the train store) -> [N, D] float32 news embeddings
         (``ops.encode.materialize_from_token_store``); the train store reads
         its states on the card when they live there, any other streams from
-        the host."""
+        the host; on a mesh the train store's resident states (replicated or
+        sharded) go through ``materialize_from_token_store_mesh``."""
         target = self.store if store is None else store
+        if self.mesh is not None and self.device_store and target is self.store:
+            return materialize_from_token_store_mesh(
+                self.token_encoder, target, self.mesh, self._dev_states, batch_size=batch_size,
+                max_token_len=self.max_token_len, token_buckets=self.TOKEN_BUCKETS, device=self.device,
+            )
         return materialize_from_token_store(
             self.token_encoder, target, batch_size=batch_size, max_token_len=self.max_token_len,
             token_buckets=self.TOKEN_BUCKETS, dev_states=self._dev_states if target is self.store else None,

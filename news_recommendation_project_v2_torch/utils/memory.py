@@ -278,6 +278,7 @@ def fits_device_token_store(
     bytes_per_el: int = 4,
     hbm_budget_bytes: Optional[int] = None,
     fraction: float = 0.35,
+    num_shards: int = 1,
     device: Optional[torch.device] = None,
 ) -> bool:
     """True when the whole flat token store [total_tokens, dim] fits in
@@ -286,5 +287,11 @@ def fits_device_token_store(
     card and gathers each batch's [M, T, D] block there, so a step uploads
     index grids instead of the block. A MIND-small title store (about 1.5 M
     tokens x 1024 float32, 6 GB) fits an 80 GB card; a 512-token full-text
-    store (about 137 GB) streams from the host."""
-    return total_tokens * dim * bytes_per_el <= _budget(hbm_budget_bytes, fraction, device)
+    store (about 137 GB) streams from the host.
+
+    ``num_shards`` budgets a store row-sharded over that many ranks
+    (``parallel.sharding.shard_token_store_states``): each holds
+    ``ceil(total_tokens / num_shards)`` rows, and the budget stays one
+    device's."""
+    per_device = -(-total_tokens // max(num_shards, 1)) * dim * bytes_per_el
+    return per_device <= _budget(hbm_budget_bytes, fraction, device)

@@ -961,3 +961,58 @@ def test_native_compiler_on_the_cards_machine(cuda):
     assert a.news_ids.tolist() == b.news_ids.tolist()
     for field in ("imp_rev", "imp_row", "imp_lens", "hist_rev", "hist_row", "hist_lens", "hist_row_index", "labels_flat"):
         np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
+
+
+MESH2_ROUTES = [*(f"e2e_{r}" for r in ("streamed", "replicated", "sharded", "sharded_infonce")), "materialize",
+                "sharded_store", "sequence_tower", "sharded_encode", "tp_bert", "tp_nv_embed", "ranker"]
+
+
+@pytest.fixture(scope="module", params=[("gloo", 2), ("nccl", 1)], ids=["gloo_two_ranks", "nccl_one_rank"])
+def mesh2_cuda(request):
+    """Multi-GPU part 2 on the card (``parallel.mesh.launch``, rank code in
+    ``torch_mesh_workers.cuda_part2_worker``): two gloo ranks sharing the
+    card on mesh (1, 2), or NCCL's world of one; each route next to one
+    device's result on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    import torch_mesh_workers as workers
+    from news_recommendation_project_v2_torch.parallel import launch
+
+    backend, ranks = request.param
+    return launch(workers.cuda_part2_worker, ranks, args=(backend,), backend=backend, timeout=900)
+
+
+@pytest.mark.parametrize("route", MESH2_ROUTES)
+def test_mesh_part_two_on_cuda(mesh2_cuda, route):
+    """The CPU tests' tolerances (``tests/test_torch_mesh_{e2e,encode,serve}.py``)
+    against one device on the card; the ranks' weights equal to the bit."""
+    ranks = mesh2_cuda
+    assert all(r["backend"] == ("gloo" if len(ranks) == 2 else "nccl") for r in ranks)
+    for r in ranks:
+        if route.startswith("e2e_"):
+            got = r["steps"][route[4:]]
+            assert got["steps"] == 3 and got["loss_err"] <= 1e-6 and got["grad_err"] <= 1e-5, got
+            for k, v in got["params"].items():
+                assert np.array_equal(v, ranks[0]["steps"][route[4:]]["params"][k]), k
+        elif route == "materialize":
+            assert max(r["materialize"].values()) <= 1e-5, r["materialize"]
+        elif route == "sharded_store":
+            assert r["store"]["shard_equal"] and r["store"]["gather_equal"]
+        elif route == "sequence_tower":
+            assert r["forward"]["seq_latent"] <= 1e-5
+        elif route == "sharded_encode":
+            assert r["forward"]["encode"] <= 1e-5
+        elif route.startswith("tp_"):
+            assert r["forward"][route] <= 1e-5 and r["forward"]["split"][route]
+        else:
+            if r["serve"].get("served") is not None:
+                assert r["serve"]["served"] > 0
+                continue
+            for call, answers in r["serve"].items():
+                for got, want in zip(answers, r["serve_single"][call]):
+                    assert [c for c, _ in got] == [c for c, _ in want], call
+                    g = np.array([s for _, s in got])
+                    w = np.array([s for _, s in want])
+                    finite = np.isfinite(w)
+                    assert np.array_equal(np.isfinite(g), finite)
+                    assert np.abs(g[finite] - w[finite]).max(initial=0.0) <= 1e-5, call

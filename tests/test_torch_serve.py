@@ -114,8 +114,13 @@ def test_more_than_300_candidates_are_chunked(world, n):
 
 
 def test_mesh_raises(world):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Ranker(lambda e, m: e.mean(1), world["emb"], IDS, mesh=object(), device="cpu")
+    """Mesh serving (``tests/test_torch_mesh_serve.py``) refuses a data axis
+    that is no power of two, as the JAX package asserts."""
+    from news_recommendation_project_v2_torch.config import MeshConfig
+    from news_recommendation_project_v2_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="power-of-two data axis"):
+        Ranker(lambda e, m: e.mean(1), world["emb"], IDS, mesh=Mesh(MeshConfig(), 3, 1, 0), device="cpu")
 
 
 # -- the CLI ------------------------------------------------------------------
