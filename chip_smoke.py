@@ -184,14 +184,14 @@ Phases, one line or a few each, exit code non-zero on any failure:
               T = 65,536), margin and InfoNCE: 5 data-parallel steps, each
               against one rank's loss (1e-6) and gradient (norm-relative
               1e-5) at the same weights, the ranks' weights equal to the bit,
-              then 10 timed steps (ms a step, pairs/s); the padded step the
+              then 3 timed steps (ms a step, pairs/s); the padded step the
               same at B = 512 on 8c.2's batches. 12c: mesh (1, 2), the
               65,238 x 1024 table row-sharded: each rank's shard, the sharded
               gather equal to the plain one to the bit, 5 steps as 12b. 12d:
               ShardedFlatEvalPlan + ShardedMetricsPlan over phase 6's
               workload and table: the metrics within 1e-6 of phase 6's
               float32 ones, impressions/s, each rank's token share. 12e:
-              configs.run_config3 on mesh (1, 2) over 1,000 of
+              configs.run_config3 on mesh (1, 2) over 500 of
               build_workload's rows (reduced), one epoch, with the launch
               counts set to 0 just before and read just after on each rank,
               against TowerTrainer without a mesh (metrics 1e-5, loss
@@ -207,13 +207,14 @@ Phases, one line or a few each, exit code non-zero on any failure:
               each rank from 9a's generator state; 9c's batch (M = 2,048,
               T = 64, B = 1,024, L = 64, margin) on meshes (2, 1) and
               (1, 2) from the streamed block, the store replicated on each
-              rank and the ShardedStore (3.01 GB a rank): 2 steps each
+              rank and the ShardedStore (3.01 GB a rank): 1 step each
               against one rank's loss (1e-6) and gradient (norm-relative
-              1e-5), 3 timed (ms a step, pairs/s, the bytes a step's
+              1e-5), 1 timed (ms a step, pairs/s, the bytes a step's
               sharded gather moves), the ranks' weights equal to the bit;
-              materialize_from_token_store_mesh over the whole store,
-              replicated and sharded, against 9d within 1e-5 (news/s);
-              EndToEndTrainer(mesh=) on 9e's rows (batch 256, dropout off,
+              materialize_from_token_store_mesh over the store's first
+              16,384 news, replicated and sharded, against 9d within 1e-5
+              (news/s); EndToEndTrainer(mesh=) on 128 rows drawn as 9e's
+              (batch 256, dropout off,
               one epoch and its fused eval) against one rank. 13b:
               make_sharded_encode_fn with e5-large (bfloat16) over 8,192 of
               phase 10's titles against one rank (phase 10's bfloat16
@@ -231,11 +232,36 @@ Phases, one line or a few each, exit code non-zero on any failure:
               torchrun answering one request. Then each kernel against its
               plain version at every shape the ranks' mesh path launched it
               at.
+ 14. mixed:   (run after phase 11, before the mesh phases 12-13) mixed
+              precision, towers in bfloat16 or float16 (parameters
+              float32), one JSON line a part. 14a: both kernels in float16
+              against their plain versions at phase 3's shapes and at the
+              train paths' (timed as in phase 3), and each Function in
+              bfloat16 and float16 at 256 rows, output and gradients on the
+              card against the CPU (a norm-relative unit of the type). 14b:
+              7b's batch in bfloat16, margin and InfoNCE, 10 timed steps
+              (ms, pairs/s, peak memory against the memory model, device
+              time by part, the GEGLU backward's GEMMs timed alone) beside
+              7b's float32 figures; at B = 16 the card's bfloat16 gradients
+              against the CPU's float32 and bfloat16 ones with
+              tests/test_torch_mixed_precision.py's criteria. 14c: 8c.2's
+              padded steps for the three towers in bfloat16 and the latent
+              tower in float16, beside 8c.2's. 14d (run inside phase 9,
+              while the store is resident): 9c's resident steps in bfloat16
+              beside 9c's. 14e: TowerTrainer on 7c's learnable fixture in
+              bfloat16, 2 epochs, beside 7c's (the loss falls, parameters
+              stay float32). 14f: build_ranker with a float16 latent tower
+              over phase 4's dump and requests, 4 against the CPU's float16
+              ranker (scores norm-relative 3e-2, the CPU's order up to
+              near-ties). Then each kernel against its plain version at
+              every shape the bfloat16 paths (14b-14e) and the float16 ones
+              (14c's latent step, 14f) launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
 "e2e_train" and "e2e_eval" from phase 9, "encoder" from phase 10,
-"pipeline" from phase 11, "mesh" from phase 12, "mesh2" from phase 13);
+"pipeline" from phase 11, "mesh" from phase 12, "mesh2" from phase 13,
+"train_bfloat16" and "train_float16" from phase 14);
 phase 1's line holds the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.
@@ -354,6 +380,7 @@ from news_recommendation_project_v2_torch.train.trainer import (  # noqa: E402
     make_optimizer,
 )
 from news_recommendation_project_v2_torch.utils.memory import (  # noqa: E402
+    TRAIN_MULTIPLIER,
     encoder_activation_bytes,
     estimate_encoder_batch,
     estimate_flat_chunk,
@@ -369,21 +396,24 @@ N_REQUESTS = 64
 FLAT_ROWS = 50_000  # with-history impression rows of the flat eval, as in bench.py
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet, dense) and device-memory
-# bandwidth. bfloat16 on the tensor cores. float32: the card computes
+# bandwidth. bfloat16 and float16 on the tensor cores. float32: the card computes
 # float32-accurate products fastest as 3xTF32 on the tensor cores (three TF32
 # products each, 495 / 3 = 165 TFLOP/s), not on the CUDA cores (67 TFLOP/s),
 # so 165 is the least time the work can take, whichever kernel does it.
-PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_BYTES = 3.35e12
 # Tolerances of kernel vs plain version on the same inputs. Both compute
 # float32-accurate products (the GEGLU as 3xTF32) summed in float32, and
 # differ in summation order: a bfloat16 output may then round one unit apart
-# (2^-8 relative), a float32 GEGLU sums up to 6,144 + 1,536 products.
+# (2^-8 relative), a float16 output one unit of 2^-10 at its binade (2^-11
+# relative), a float32 GEGLU sums up to 6,144 + 1,536 products.
 TOL = {
     ("latent_attention", torch.float32): 1e-5,
     ("latent_attention", torch.bfloat16): 2**-8 * 4.0,
+    ("latent_attention", torch.float16): 2**-10 * 4.0,
     ("geglu", torch.float32): 1e-4,
     ("geglu", torch.bfloat16): 1e-3,
+    ("geglu", torch.float16): 2.5e-4,
 }
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -428,16 +458,17 @@ def geglu_work(shape, es: int) -> tuple[float, float]:
     return 6.0 * c * d * f, (c * d + 3.0 * d * f + 2.0 * f + d) * es + 4.0 * c * d
 
 
-# A float32 gated product u within this relative distance of a bfloat16
-# rounding tie may round either way in two float32-accurate computations:
+# A float32 gated product u within this relative distance of a bfloat16 (or
+# float16) rounding tie may round either way in two float32-accurate computations:
 # the plain version's own float32 sums differ from exact ones by about 2^-20.
 TIE = 2.0**-18
 
 
 def geglu_tie_allowance(x, w_in, b_in, w_out, b_out) -> tuple[torch.Tensor, float]:
-    """In bfloat16 the kernel and the plain version each round u to bfloat16
-    after float32 sums taken in other orders, so a u next to a rounding tie
-    may round one bfloat16 unit apart, and moves y[m, n] by that unit times
+    """In bfloat16 (float16) the kernel and the plain version each round u to
+    x's type after float32 sums taken in other orders, so a u next to a
+    rounding tie may round one unit apart (2^-8 or 2^-11 relative), and
+    moves y[m, n] by that unit times
     |W_out[n, f]|. Per output, the sum of that over the u of its row that lie
     within TIE of a tie; and the share of such u."""
     h, g = F.linear(x.float(), w_in.float(), b_in.float()).chunk(2, dim=-1)
@@ -486,6 +517,16 @@ def zero_launches() -> None:
         spec["wrapper"].shapes.clear()
 
 
+def typed_shapes(dtype) -> dict:
+    """The kernels' launches by (shape, type) since the counts were last
+    set to 0."""
+    return {k: collections.Counter({(s, dtype): n for s, n in v["wrapper"].shapes.items()}) for k, v in KERNELS.items()}
+
+
+def add_shapes(total: dict, more: dict) -> dict:
+    return {k: total.get(k, collections.Counter()) + more.get(k, collections.Counter()) for k in KERNELS}
+
+
 # The plain versions run on pieces of at most this many rows. At the flat
 # eval's chunks one call would not fit on the card beside the graph-capture
 # copy (the float32 [C, 8F] GEGLU intermediate at C = 524,288 is 17 GB); the
@@ -516,7 +557,7 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
         want = spec["plain"](*piece).float()
         diff = (g - want).abs()
         err = max(err, diff.max().item())
-        if name == "geglu" and dtype == torch.bfloat16:
+        if name == "geglu" and dtype != torch.float32:
             allowance, share = geglu_tie_allowance(*piece)
             diff = diff - allowance
             near_tie += share * piece[0].shape[dim] / n
@@ -557,9 +598,9 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
     tol = TOL[(name, dtype)]
     if len(pieces) > 1:
         log(f"  {name} {str(dtype)[6:]} {r['label']}: the plain version runs on {len(pieces)} pieces of rows")
-    if name == "geglu" and dtype == torch.bfloat16:
+    if name == "geglu" and dtype != torch.float32:
         log(
-            f"  {name} bfloat16 {r['label']}: {near_tie:.3%} of u within {TIE:.3g} of a bfloat16 tie; "
+            f"  {name} {str(dtype)[6:]} {r['label']}: {near_tie:.3%} of u within {TIE:.3g} of a rounding tie; "
             f"error beyond their one-unit roundings {excess:.3g} (tol {tol:.3g})"
         )
     log(
@@ -605,6 +646,13 @@ TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "librar
 MEASURED: dict = {}
 
 
+def measured(name: str, shape: tuple, dtype, gen) -> dict:
+    """``measure``'s record of (kernel, shape, type), taken once a run."""
+    if (name, shape, dtype) not in MEASURED:
+        MEASURED[(name, shape, dtype)] = measure(name, shape, dtype, gen)
+    return MEASURED[(name, shape, dtype)]
+
+
 def main_path_phase(shapes: dict, gen, path: str = "main path") -> dict[str, dict]:
     """Every kernel vs its plain version at each (shape, type) ``path``
     launched it at. Per kernel, the times and the bound are summed over the
@@ -614,10 +662,7 @@ def main_path_phase(shapes: dict, gen, path: str = "main path") -> dict[str, dic
     with torch.no_grad():
         for name, counts in shapes.items():
             keys = sorted(counts, key=lambda k: (str(k[1]), k[0]))
-            for k in keys:
-                if (name, *k) not in MEASURED:
-                    MEASURED[(name, *k)] = measure(name, k[0], k[1], gen)
-            rows = [(counts[k], MEASURED[(name, *k)]) for k in keys]
+            rows = [(counts[k], measured(name, k[0], k[1], gen)) for k in keys]
             by = {"operations": 0.0, "bytes": 0.0}
             for n, r in rows:
                 by[r["bound_by"]] += n * r["bound_ms"]
@@ -1037,8 +1082,8 @@ def on(batch: tuple, device) -> tuple:
     return tuple(torch.from_numpy(a).to(device) for a in batch)
 
 
-def full_tower(state: dict, device):
-    tower = build_tower(TowerConfig(kind="latent"))
+def full_tower(state: dict, device, compute: str = "float32"):
+    tower = build_tower(TowerConfig(kind="latent", compute_dtype=compute))
     tower.load_state_dict(state)
     return tower.to(device)
 
@@ -1096,7 +1141,7 @@ def train_check_phase(state: dict, emb: torch.Tensor) -> None:
         raise AssertionError("7a: two runs of 5 steps from one state differ")
 
 
-CUBLAS_NAMES = ("gemm", "gemv", "xmma", "cutlass")
+CUBLAS_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
 
 
 def part(times: dict, test) -> float:
@@ -1115,19 +1160,43 @@ def cublas(key: str) -> bool:
     return any(k in key.lower() for k in CUBLAS_NAMES) and not ours(key)
 
 
-def device_ms_by_kernel(fn) -> tuple[object, dict]:
-    """``fn()``'s result and its device time by kernel name (ms), under the
-    profiler, synchronized at the end."""
+# The profiler has been seen to drop a window's kernels late in a long run
+# (a step's forward at 0.04 ms of its 14). A split whose part the profiler
+# covers less than PROFILE_COVER of, against the part's span on CUDA events,
+# is taken again, up to PROFILE_TRIES times.
+PROFILE_TRIES, PROFILE_COVER = 3, 0.2
+
+
+def device_ms_by_kernel(fn) -> tuple[object, dict, float]:
+    """``fn()``'s result, its device time by kernel name (ms) under the
+    profiler, synchronized at the end, and that time's share of ``fn``'s
+    span on CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
         out = fn()
+        end.record()
         torch.cuda.synchronize()
-    return out, {
+    times = {
         e.key: e.self_device_time_total / 1e3
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
     }
+    return out, times, sum(times.values()) / max(start.elapsed_time(end), 1e-6)
+
+
+def profiled_parts(run) -> tuple[list, int]:
+    """``run()``'s list of (result, times, cover) per part, taken again while
+    a part's cover is below PROFILE_COVER, up to PROFILE_TRIES times; and
+    the tries it took."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        parts = run()
+        if min(cover for _, _, cover in parts) >= PROFILE_COVER:
+            break
+    return parts, tries
 
 
 def step_split(opt, loss_call, label: str) -> dict:
@@ -1136,11 +1205,15 @@ def step_split(opt, loss_call, label: str) -> dict:
     kernels, its cuBLAS GEMMs and the rest of it; the plain backward's GEMMs
     (cuBLAS: the linears, the GEGLU recompute, the attention's einsums) and
     the rest of it (GELU, softmax, reductions, copies); the optimizer (clip
-    and AdamW)."""
-    loss, fwd = device_ms_by_kernel(loss_call)
-    _, bwd = device_ms_by_kernel(loss.backward)
-    _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+    and AdamW). Taken again where the profiler dropped a part's kernels."""
 
+    def run():
+        loss, fwd, c1 = device_ms_by_kernel(loss_call)
+        return [(loss, fwd, c1), device_ms_by_kernel(loss.backward),
+                device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))]
+
+    parts, tries = profiled_parts(run)
+    (_, fwd, _), (_, bwd, _), (_, optim, _) = parts
     split = {
         "forward kernels": part(fwd, ours),
         "forward cuBLAS": part(fwd, cublas),
@@ -1154,63 +1227,75 @@ def step_split(opt, loss_call, label: str) -> dict:
     log(
         f"  {label}: one step's device time by part (ms): "
         + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
-        + f"; total {split['total']:.2f}"
+        + f"; total {split['total']:.2f}; profiler's cover of each part's span "
+        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries)"
     )
     for key, ms in top:
         log(f"    backward {ms:9.3f} ms  {key[:100]}")
     return split
 
 
-def train_step_phase(state: dict, emb: torch.Tensor, card: str) -> dict:
-    """7b: full width, float32, bench.py's worst-case batch (B=2048,
-    T = 65,536), margin and InfoNCE (K=5): 3 warm-up steps, then 10 timed
-    steps with the loss fetched every step (as bench.py's bench_train_flat
-    does), the peak memory, the device time by part, a profiled step, host
-    syncs a step. Launch counts are set to 0 just before the timed steps and
-    read just after. Returns the launches and the launches by shape."""
+def timed_steps(step, inputs: list, warm: int, dtype) -> dict:
+    """``step(x)`` (which returns the step's loss) for each of ``inputs``:
+    the first ``warm`` as warm-up, the rest timed with the loss fetched
+    every step, the peak memory reset and the launch counts set to 0 just
+    before them and read just after. Returns the losses (warm-up first), ms
+    a timed step, the peak memory above the start (GB), the launches and
+    the launches by (shape, ``dtype``)."""
+    losses = [step(x) for x in inputs[:warm]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    t0 = time.perf_counter()
+    losses += [step(x) for x in inputs[warm:]]
+    ms = (time.perf_counter() - t0) * 1e3 / (len(inputs) - warm)
+    return dict(losses=losses, ms=ms, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                launches=kernel_launches(), shapes=typed_shapes(dtype))
+
+
+def train_step_phase(state: dict, emb: torch.Tensor, card: str, compute: str = "float32", part: str = "7b") -> dict:
+    """7b (14b in bfloat16): full width, the tower in ``compute``,
+    bench.py's worst-case batch (B=2048, T = 65,536), margin and InfoNCE
+    (K=5): 3 warm-up steps, then 10 timed steps with the loss fetched every
+    step (as bench.py's bench_train_flat does), the peak memory, the device
+    time by part, a profiled step, host syncs a step. Launch counts are set
+    to 0 just before the timed steps and read just after. Returns the
+    launches, the launches by shape and each loss's figures."""
     rng = np.random.default_rng(SEED)
     T, total, batch = flat_inputs(TRAIN_B, rng)
     batches = {"margin": batch, "infonce": with_negatives(batch, rng)}
-    launches = collections.Counter()
-    shapes = {k: collections.Counter() for k in KERNELS}
+    launches, shapes, figures = collections.Counter(), {}, {}
     for name, b in batches.items():
-        _, step_fn, kw = LOSSES[name]
-        tower = full_tower(state, "cuda")
+        loss_fn, step_fn, kw = LOSSES[name]
+        tower = full_tower(state, "cuda", compute)
         opt = make_optimizer(TrainConfig(), tower.parameters())
         args = on(b, "cuda")
 
-        def step():
+        def step(_=None):
             return float(step_fn(tower, opt, emb, args, **kw))
 
-        warm = [step() for _ in range(3)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        zero_launches()
-        t0 = time.perf_counter()
-        losses = [step() for _ in range(TRAIN_STEPS)]
-        dt = (time.perf_counter() - t0) / TRAIN_STEPS
-        launches.update(kernel_launches())
-        for k, v in KERNELS.items():
-            shapes[k].update({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
-        peak = torch.cuda.max_memory_allocated() - base
+        r = timed_steps(step, [None] * (3 + TRAIN_STEPS), 3, getattr(torch, compute))
+        launches.update(r["launches"])
+        shapes = add_shapes(shapes, r["shapes"])
         log(
-            f"  7b {name}: B={TRAIN_B}, T={T:,} ({total:,} live tokens), float32: {dt * 1e3:.2f} ms/step, "
-            f"{TRAIN_B / dt:,.0f} pairs/s over {TRAIN_STEPS} steps (loss fetched every step) on {card}; "
-            f"losses {warm[0]:.5f} -> {losses[-1]:.5f}; peak memory above the tables and weights "
-            f"{peak / 1e9:.3f} GB; launches {dict(kernel_launches())}"
+            f"  {part} {name}: B={TRAIN_B}, T={T:,} ({total:,} live tokens), {compute}: {r['ms']:.2f} ms/step, "
+            f"{TRAIN_B * 1e3 / r['ms']:,.0f} pairs/s over {TRAIN_STEPS} steps (loss fetched every step) on {card}; "
+            f"losses {r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}; peak memory above the tables and weights "
+            f"{r['peak_gb']:.3f} GB; launches {r['launches']}"
         )
-        if not all(np.isfinite(warm + losses)):
-            raise AssertionError(f"7b {name}: a loss is not finite: {warm + losses}")
-        loss_fn, _, kw = LOSSES[name]
-        step_split(opt, lambda: loss_fn(tower, emb, args, **kw), f"7b {name}")
-        profile_call(f"{name} train step (B={TRAIN_B})", step, top=8)
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"{part} {name}: a loss is not finite: {r['losses']}")
+        split = step_split(opt, lambda: loss_fn(tower, emb, args, **kw), f"{part} {name}")
+        figures[name] = dict(ms_per_step=r["ms"], pairs_per_s=TRAIN_B * 1e3 / r["ms"], peak_gb=r["peak_gb"],
+                             device_ms_by_part=split)
+        profile_call(f"{name} train step (B={TRAIN_B}, {compute})", step, top=8)
         syncs = count_syncs(step)
-        log(f"  7b {name}: host syncs in one step with its loss fetched: {syncs} (want 1)")
+        log(f"  {part} {name}: host syncs in one step with its loss fetched: {syncs} (want 1)")
         if syncs != 1:
-            raise AssertionError(f"7b {name}: a step synced {syncs} times")
+            raise AssertionError(f"{part} {name}: a step synced {syncs} times")
         del tower, opt, args
-    return dict(launches=dict(launches), shapes=shapes)
+    return dict(launches=dict(launches), shapes=shapes, figures=figures, T=T, live_tokens=total)
 
 
 def learnable_split(num_rows: int, n_train: int, dim: int, seed: int):
@@ -1220,7 +1305,7 @@ def learnable_split(num_rows: int, n_train: int, dim: int, seed: int):
     return ct, cv, align_embeddings(ct.news_ids, emb), align_embeddings(cv.news_ids, emb)
 
 
-def trainer_phase() -> None:
+def trainer_phase() -> list:
     """7c: TowerTrainer on the card (flat_train, flat_eval, device_metrics).
     1. bench.py's bench_trained_metrics fixture (600/200 rows, d=64, 8
        latents of 8 heads x 16, lr 3e-4, batch 128, 3 epochs), each epoch's
@@ -1231,7 +1316,8 @@ def trainer_phase() -> None:
        history tokens a row, steps of T = 8,192 or less), 2 epochs; then
        bench.py's MIND-small-scale rows at half depth (build_workload's
        draws: 25,000 train rows, 33 history tokens a row, steps of T = 2,048
-       or 4,096, and 5,000 val rows), 1 epoch."""
+       or 4,096, and 5,000 val rows), 1 epoch.
+    Returns the learnable fixture's epoch figures."""
     ct, cv, emb_t, emb_v = learnable_split(800, 600, 64, seed=7)
     cfg = TowerConfig(kind="latent", reduced_dim=64, num_latents=8, latent_dim_head=16)
     state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(0), cfg))
@@ -1268,13 +1354,14 @@ def trainer_phase() -> None:
         raise AssertionError(f"7c: the fixture on the card: {worst_loss}, {worst_metric}, AUC {best}")
 
     ct, cv, emb_t, emb_v = learnable_split(25_000, 20_000, DIM, seed=7)
-    full_width_epochs("learnable fixture", ct, cv, emb_t, emb_v, epochs=2)
+    learnable, _, _ = full_width_epochs("learnable fixture", ct, cv, emb_t, emb_v, epochs=2)
     # bench.py's MIND-small-scale rows, an N(0, 1) table made on the card as
     # benchmarks/train_bench.py's main_epoch makes it.
     emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
     ct = mind_behaviors(np.random.default_rng(SEED), MIND_TRAIN_ROWS)
     cv = mind_behaviors(np.random.default_rng(SEED + 1), MIND_VAL_ROWS)
     full_width_epochs("MIND-small scale", ct, cv, emb, emb, epochs=1)
+    return learnable
 
 
 
@@ -1298,45 +1385,55 @@ def mind_behaviors(rng: np.random.Generator, num_rows: int) -> CompiledBehaviors
     )
 
 
-def full_width_epochs(label: str, ct, cv, emb_t, emb_v, epochs: int) -> None:
+def full_width_epochs(
+    label: str, ct, cv, emb_t, emb_v, epochs: int, compute: str = "float32", part: str = "7c"
+) -> tuple:
     """TowerTrainer at full width (device_metrics), margin, batch 2048: per
     epoch the wall time of its steps and pairs/s end to end (bench's
     main_epoch measure: sampling, host batch building, steps), the steps by
     T (the attention's launches in the epoch), the eval of both splits and
     the metrics. Checks: the loss is finite, the metrics lie in [0, 1], and
-    every step launched the attention kernel once."""
+    every step launched the attention kernel once. The tower computes in
+    ``compute``. Returns each epoch's figures, the trainer and the launches
+    by (shape, type) over the epochs' steps."""
     pos = np.bincount(ct.imp_row[ct.labels_flat == 1], minlength=ct.num_rows)
     pairs = int(np.maximum(pos, ct.imp_lens - pos).sum())  # the margin sampler's pairs an epoch
     tokens = np.minimum(ct.hist_lens, HISTORY_BUCKETS[-1])
     log(
-        f"  7c {label}: {ct.num_rows:,} train rows ({int(tokens.sum()):,} history tokens, {tokens.mean():.1f} "
+        f"  {part} {label}: {ct.num_rows:,} train rows ({int(tokens.sum()):,} history tokens, {tokens.mean():.1f} "
         f"a row; {pairs:,} pairs an epoch), {cv.num_rows:,} val rows"
     )
     state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig()))
     trainer = TowerTrainer(
-        full_tower(state, "cuda"), ct, emb_t, compiled_val=cv, news_emb_val=emb_v,
+        full_tower(state, "cuda", compute), ct, emb_t, compiled_val=cv, news_emb_val=emb_v,
         cfg=TrainConfig(batch_size=TRAIN_B, num_epochs=epochs, seed=0), device_metrics=True,
     )
+    figures, shapes = [], {k: collections.Counter() for k in KERNELS}
+    dtype = getattr(torch, compute)
     for epoch in range(1, epochs + 1):
         zero_launches()
         t0 = time.perf_counter()
         loss = trainer.train_one_epoch()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        for k, v in KERNELS.items():
+            shapes[k].update({(sh, dtype): n for sh, n in v["wrapper"].shapes.items()})
         by_t = collections.Counter()
         for (_, _, length, _, _), n in latent_attention.shapes.items():
             by_t[length] += n
         train_scores, val_scores = trainer.evaluate()
         t2 = time.perf_counter()
         log(
-            f"  7c {label} epoch {epoch}: {t1 - t0:.2f}s, {pairs / (t1 - t0):,.0f} pairs/s end to end, "
+            f"  {part} {label} epoch {epoch}: {t1 - t0:.2f}s, {pairs / (t1 - t0):,.0f} pairs/s end to end, "
             f"{sum(by_t.values())} steps by T {dict(sorted(by_t.items()))}, loss {loss:.5f}; "
             f"eval of both splits {t2 - t1:.2f}s; val {val_scores}"
         )
         values = [train_scores[k] for k in METRIC_KEYS] + [val_scores[k] for k in METRIC_KEYS]
         steps = -(-pairs // TRAIN_B)
         if not (np.isfinite(loss) and all(0.0 <= v <= 1.0 for v in values) and sum(by_t.values()) == steps):
-            raise AssertionError(f"7c {label} epoch {epoch}: loss {loss}, metrics {values}, {by_t} for {steps} steps")
+            raise AssertionError(f"{part} {label} epoch {epoch}: loss {loss}, metrics {values}, {by_t} for {steps} steps")
+        figures.append(dict(epoch=epoch, seconds=t1 - t0, pairs_per_s=pairs / (t1 - t0), loss=loss, val_auc=val_scores["auc"]))
+    return figures, trainer, shapes
 
 
 def train_phase(gen, card: str) -> dict:
@@ -1349,7 +1446,7 @@ def train_phase(gen, card: str) -> dict:
     record = train_step_phase(state, emb, card)
     del emb
     torch.cuda.empty_cache()
-    trainer_phase()
+    record["learnable"] = trainer_phase()
     return record
 
 
@@ -1621,13 +1718,16 @@ def padded_check_phase(states: dict, emb: torch.Tensor) -> None:
                                  f"zero leaves {zero_norms}, bit-identical {same}")
 
 
-def padded_step_phase(states: dict, emb: torch.Tensor) -> dict:
-    """8c.2: 10 timed padded margin steps per tower at B=512 (TrainConfig's
-    batch; no dedup, the worst case), dropout on, each step a new batch of
-    flat_inputs's histories padded to its own bucket, after a warm-up step,
-    the loss fetched every step: ms/step, pairs/s, the peak memory, the
-    device time by part, host syncs a step. The latent tower's launches are
-    counted from 0 over its timed steps."""
+def padded_step_phase(states: dict, emb: torch.Tensor, runs=None, part: str = "8c.2") -> dict:
+    """8c.2 (14c with other ``runs``): 10 timed padded margin steps per
+    (tower, compute type) of ``runs`` (default every tower in float32) at
+    B=512 (TrainConfig's batch; no dedup, the worst case), dropout on, each
+    step a new batch of flat_inputs's histories padded to its own bucket,
+    after a warm-up step, the loss fetched every step: ms/step, pairs/s, the
+    peak memory against the memory model (``tower_activation_bytes`` at the
+    widest step x ``TRAIN_MULTIPLIER``), the device time by part, host syncs
+    a step. Returns each run's figures, launches and launches by shape, the
+    launches counted from 0 over its timed steps."""
     rng = np.random.default_rng(SEED + 84)
     widths, batches = [], []
     for _ in range(1 + TRAIN_STEPS):
@@ -1637,44 +1737,32 @@ def padded_step_phase(states: dict, emb: torch.Tensor) -> dict:
         batches.append(on(b, "cuda"))
     by_l = dict(sorted(collections.Counter(widths[1:]).items()))
     margin = TrainConfig().margin
-    record = {}
-    for kind in PADDED_KINDS:
-        tower = padded_tower(kind, states[kind], "cuda")
+    out = {}
+    for kind, compute in runs or [(k, "float32") for k in PADDED_KINDS]:
+        tower = padded_tower(kind, states[kind], "cuda", compute)
         opt = make_optimizer(TrainConfig(), tower.parameters())
         drops = torch.Generator(device="cuda").manual_seed(SEED)
 
         def step(b):
             return float(apply_step(opt, padded_margin_loss(tower, emb, b, margin, drops)))
 
-        warm = [step(batches[0])]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        zero_launches()
-        t0 = time.perf_counter()
-        losses = [step(b) for b in batches[1:]]
-        dt = (time.perf_counter() - t0) / TRAIN_STEPS
-        if kind == "latent":
-            record = dict(
-                launches=kernel_launches(),
-                shapes={k: collections.Counter({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
-                        for k, v in KERNELS.items()},
-            )
-        peak = torch.cuda.max_memory_allocated() - base
-        split = step_split(opt, lambda: padded_margin_loss(tower, emb, batches[-1], margin, drops), f"8c.2 {kind}")
+        r = timed_steps(step, batches, 1, getattr(torch, compute))
+        label = f"{part} {kind}" + ("" if compute == "float32" else f" {compute}")
+        split = step_split(opt, lambda: padded_margin_loss(tower, emb, batches[-1], margin, drops), label)
         syncs = count_syncs(lambda: step(batches[-1]))
-        part_line(
-            "8c.2", tower=kind, B=PADDED_B, steps_by_L=by_l, ms_per_step=dt * 1e3, pairs_per_s=PADDED_B / dt,
-            peak_gb=peak / 1e9, device_ms_by_part=split, host_syncs_per_step=syncs,
-            loss_first=warm[0], loss_last=losses[-1],
-        )
-        if not (np.isfinite(warm + losses).all() and syncs == 1):
-            raise AssertionError(f"8c.2 {kind}: losses {warm + losses}, {syncs} host syncs a step")
+        model = tower_activation_bytes(TowerConfig(kind=kind, compute_dtype=compute), PADDED_B, max(widths))
+        figures = dict(ms_per_step=r["ms"], pairs_per_s=PADDED_B * 1e3 / r["ms"], peak_gb=r["peak_gb"],
+                       memory_model_gb=model * TRAIN_MULTIPLIER / 1e9, device_ms_by_part=split)
+        part_line(part, tower=kind, compute=compute, B=PADDED_B, steps_by_L=by_l, **figures,
+                  host_syncs_per_step=syncs, loss_first=r["losses"][0], loss_last=r["losses"][-1])
+        if not (np.isfinite(r["losses"]).all() and syncs == 1):
+            raise AssertionError(f"{label}: losses {r['losses']}, {syncs} host syncs a step")
+        if kind == "latent" and min(r["launches"].values()) < TRAIN_STEPS:
+            raise AssertionError(f"{label}: the latent steps launched {r['launches']}")
+        out[(kind, compute)] = dict(figures, launches=r["launches"], shapes=r["shapes"])
         del tower, opt
         torch.cuda.empty_cache()
-    if min(record["launches"].values()) < TRAIN_STEPS:
-        raise AssertionError(f"8c.2: the latent steps launched {record['launches']}")
-    return record
+    return out
 
 
 def compare_histories(part: str, label: str, card: list, cpu: list) -> None:
@@ -1876,7 +1964,7 @@ def padded_phase(gen, work_dir: Path, requests: list) -> dict:
     timed("8d", joint_phase)
     timed("8e", padded_serve_phase, states, work_dir, requests)
     log(json.dumps({"part": "8 wall seconds", **seconds}))
-    return dict(eval=evals, train=steps)
+    return dict(eval=evals, train=steps[("latent", "float32")], steps=steps, states=states)
 
 
 # ---------------------------------------------------------------------------
@@ -1914,8 +2002,9 @@ def e2e_state() -> dict:
     return e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(SEED + 9), DIM, 1, E2E_TOWER))
 
 
-def e2e_model(state: dict, device, dropout: bool = True) -> torch.nn.ModuleDict:
-    model = torch.nn.ModuleDict({"token_encoder": TokenAttentionPool(DIM, 1), "tower": build_tower(E2E_TOWER)})
+def e2e_model(state: dict, device, dropout: bool = True, compute: str = "float32") -> torch.nn.ModuleDict:
+    tower = build_tower(dataclasses.replace(E2E_TOWER, compute_dtype=compute))
+    model = torch.nn.ModuleDict({"token_encoder": TokenAttentionPool(DIM, 1), "tower": tower})
     model.load_state_dict(state)
     if not dropout:
         for layer in model["token_encoder"].encoder.layer:
@@ -1923,12 +2012,12 @@ def e2e_model(state: dict, device, dropout: bool = True) -> torch.nn.ModuleDict:
     return model.to(device)
 
 
-def e2e_batch(store: TokenStore, rng: np.random.Generator, m: int, b: int, k: int = 0) -> dict:
+def e2e_batch(store: TokenStore, rng: np.random.Generator, m: int, b: int, k: int = 0, streamed: bool = True) -> dict:
     """e2e_bench.py's batch content: m distinct news (sorted), histories of
     E2E_L indices into them at half density (slot 0 always live), one pair
     per history, a positive and a negative (k > 0: k negatives) each. The
     streamed form holds the [m, T, D] block, the gathered one the [m, T]
-    index grid into the flat states."""
+    index grid into the flat states (built only where ``streamed``)."""
     uniq = np.sort(rng.choice(store.num_items, size=m, replace=False))
     hist_idx = rng.integers(0, m, (b, E2E_L)).astype(np.int32)
     hist_mask = (rng.random((b, E2E_L)) < 0.5).astype(np.float32)
@@ -1936,10 +2025,13 @@ def e2e_batch(store: TokenStore, rng: np.random.Generator, m: int, b: int, k: in
     neg = rng.integers(0, m, (b, k) if k else b).astype(np.int32)
     tail = (hist_idx, hist_mask, np.arange(b, dtype=np.int32), rng.integers(0, m, b).astype(np.int32), neg,
             np.ones(b, np.float32))
-    states, mask = store.gather_padded(uniq, max_len=E2E_T)
-    states = np.pad(states, ((0, 0), (0, E2E_T - states.shape[1]), (0, 0)))
-    mask = np.pad(mask, ((0, 0), (0, E2E_T - mask.shape[1])))
-    return dict(streamed=(states, mask) + tail, gathered=store.padded_index_batch(uniq, E2E_T, max_len=E2E_T) + tail)
+    out = dict(gathered=store.padded_index_batch(uniq, E2E_T, max_len=E2E_T) + tail)
+    if streamed:
+        states, mask = store.gather_padded(uniq, max_len=E2E_T)
+        states = np.pad(states, ((0, 0), (0, E2E_T - states.shape[1]), (0, 0)))
+        mask = np.pad(mask, ((0, 0), (0, E2E_T - mask.shape[1])))
+        out["streamed"] = (states, mask) + tail
+    return out
 
 
 def e2e_loss(model, batch, loss: str, flat_states=None, generator=None):
@@ -2048,11 +2140,15 @@ def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
         states = args[0] if flat is None else gathered_token_states(flat, args[0], args[1])
         return model["token_encoder"](states, args[1], generator=gen)
 
-    news, enc = device_ms_by_kernel(encode)
-    encoded = torch.nn.ModuleDict({"token_encoder": _Fixed(news), "tower": model["tower"]})
-    value, fwd = device_ms_by_kernel(lambda: e2e_loss(encoded, args, loss, None, gen))
-    _, bwd = device_ms_by_kernel(value.backward)
-    _, optim = device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))
+    def run():
+        news, enc, c1 = device_ms_by_kernel(encode)
+        encoded = torch.nn.ModuleDict({"token_encoder": _Fixed(news), "tower": model["tower"]})
+        value, fwd, c2 = device_ms_by_kernel(lambda: e2e_loss(encoded, args, loss, None, gen))
+        return [(news, enc, c1), (value, fwd, c2), device_ms_by_kernel(value.backward),
+                device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))]
+
+    parts, tries = profiled_parts(run)
+    (_, enc, _), (_, fwd, _), (_, bwd, _), (_, optim, _) = parts
 
     split = {
         "token encoder forward": sum(enc.values()),
@@ -2067,7 +2163,8 @@ def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
     log(
         f"  {label}: one step's device time by part (ms): "
         + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
-        + f"; total {split['total']:.2f}"
+        + f"; total {split['total']:.2f}; profiler's cover of each part's span "
+        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries)"
     )
     for name, times in (("encoder forward", enc), ("tower forward", fwd)):
         for key, ms in sorted(times.items(), key=lambda kv: -kv[1])[:4]:
@@ -2087,69 +2184,70 @@ class _Fixed(torch.nn.Module):
         return self.out
 
 
-def e2e_steps_phase(store: TokenStore, dev_states: torch.Tensor, state: dict, card: str) -> dict:
-    """9c: e2e_bench.py's batch (M=2048, T=64, B=1024, L=64) at full width,
-    float32, dropout on, margin and InfoNCE (K=5), each on the resident
-    store and on the streamed block: 3 warm-up and 10 timed steps with the
-    batch copied to the card from pinned memory without blocking and the
-    loss fetched every step; ms/step, pairs/s, bytes to the card a step, the
-    peak memory, the device time by part, host syncs a step, and the host's
-    time to build the streamed block (gather_padded, then pinning). Launch
-    counts are set to 0 just before each run's timed steps and read just
-    after; their sum and the shapes are returned."""
+def e2e_steps_phase(
+    store: TokenStore, dev_states: torch.Tensor, state: dict, card: str, compute: str = "float32",
+    routes: tuple = ("resident", "streamed"), part: str = "9c",
+) -> dict:
+    """9c (14d in bfloat16 on the resident store): e2e_bench.py's batch
+    (M=2048, T=64, B=1024, L=64) at full width, the tower in ``compute``
+    (the token encoder float32), dropout on, margin and InfoNCE (K=5), each
+    on ``routes`` (the resident store, the streamed block): 3 warm-up and 10
+    timed steps with the batch copied to the card from pinned memory without
+    blocking and the loss fetched every step; ms/step, pairs/s, bytes to the
+    card a step, the peak memory, the device time by part, host syncs a
+    step, and the host's time to build the streamed block (gather_padded,
+    then pinning). Launch counts are set to 0 just before each run's timed
+    steps and read just after; their sum, the shapes and each run's figures
+    are returned."""
     rng = np.random.default_rng(SEED + 92)
-    batches = {"margin": e2e_batch(store, rng, E2E_M, E2E_B), "infonce": e2e_batch(store, rng, E2E_M, E2E_B, TRAIN_K)}
-    uniq = np.sort(rng.choice(store.num_items, size=E2E_M, replace=False))
-    t0 = time.perf_counter()
-    block, _ = store.gather_padded(uniq, max_len=E2E_T)
-    gather_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    torch.from_numpy(block).pin_memory()
-    pin_ms = (time.perf_counter() - t0) * 1e3
-    del block
-    launches = collections.Counter()
-    shapes = {k: collections.Counter() for k in KERNELS}
+    streamed = "streamed" in routes
+    batches = {"margin": e2e_batch(store, rng, E2E_M, E2E_B, streamed=streamed),
+               "infonce": e2e_batch(store, rng, E2E_M, E2E_B, TRAIN_K, streamed=streamed)}
+    host_ms = {}
+    if streamed:
+        uniq = np.sort(rng.choice(store.num_items, size=E2E_M, replace=False))
+        t0 = time.perf_counter()
+        block, _ = store.gather_padded(uniq, max_len=E2E_T)
+        host_ms["gather_padded"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        torch.from_numpy(block).pin_memory()
+        host_ms["pin_memory"] = (time.perf_counter() - t0) * 1e3
+        del block
+    launches, shapes, figures = collections.Counter(), {}, {}
     for loss, b in batches.items():
-        for route in ("resident", "streamed"):
+        for route in routes:
             host = tuple(torch.from_numpy(a).pin_memory() for a in b["gathered" if route == "resident" else "streamed"])
             h2d = sum(t.numel() * t.element_size() for t in host)
             flat = dev_states if route == "resident" else None
-            model = e2e_model(state, "cuda")
+            model = e2e_model(state, "cuda", compute=compute)
             opt = make_optimizer(TrainConfig(), model.parameters())
             gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-            def step():
+            def step(_=None):
                 args = tuple(t.to("cuda", non_blocking=True) for t in host)
                 return float(apply_step(opt, e2e_loss(model, args, loss, flat, gen)))
 
-            warm = [step() for _ in range(3)]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            zero_launches()
-            t0 = time.perf_counter()
-            losses = [step() for _ in range(TRAIN_STEPS)]
-            dt = (time.perf_counter() - t0) / TRAIN_STEPS
-            launches.update(kernel_launches())
-            for k, v in KERNELS.items():
-                shapes[k].update({(s, torch.float32): n for s, n in v["wrapper"].shapes.items()})
-            peak = torch.cuda.max_memory_allocated() - base
+            r = timed_steps(step, [None] * (3 + TRAIN_STEPS), 3, getattr(torch, compute))
+            launches.update(r["launches"])
+            shapes = add_shapes(shapes, r["shapes"])
             args = tuple(t.to("cuda", non_blocking=True) for t in host)
-            split = e2e_step_split(model, opt, args, loss, flat, gen, f"9c {loss} {route}")
+            split = e2e_step_split(model, opt, args, loss, flat, gen, f"{part} {loss} {route}")
             syncs = count_syncs(step)
+            figures[(loss, route)] = dict(ms_per_step=r["ms"], pairs_per_s=E2E_B * 1e3 / r["ms"], peak_gb=r["peak_gb"],
+                                          device_ms_by_part=split)
             part_line(
-                "9c", loss=loss, route=route, M=E2E_M, T=E2E_T, B=E2E_B, L=E2E_L, ms_per_step=dt * 1e3,
-                pairs_per_s=E2E_B / dt, h2d_bytes_per_step=h2d, peak_gb_above_store_and_weights=peak / 1e9,
-                device_ms_by_part=split, host_syncs_per_step=syncs, loss_first=warm[0], loss_last=losses[-1],
-                streamed_block_host_ms={"gather_padded": gather_ms, "pin_memory": pin_ms}, card=card,
+                part, loss=loss, route=route, compute=compute, M=E2E_M, T=E2E_T, B=E2E_B, L=E2E_L,
+                ms_per_step=r["ms"], pairs_per_s=E2E_B * 1e3 / r["ms"], h2d_bytes_per_step=h2d,
+                peak_gb_above_store_and_weights=r["peak_gb"], device_ms_by_part=split, host_syncs_per_step=syncs,
+                loss_first=r["losses"][0], loss_last=r["losses"][-1], streamed_block_host_ms=host_ms, card=card,
             )
-            if not np.isfinite(warm + losses).all():
-                raise AssertionError(f"9c {loss} {route}: losses {warm + losses}")
+            if not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"{part} {loss} {route}: losses {r['losses']}")
             del model, opt, args, host
             torch.cuda.empty_cache()
-    if min(launches.values()) < 4 * TRAIN_STEPS:
-        raise AssertionError(f"9c: the timed steps launched {dict(launches)}")
-    return dict(launches=dict(launches), shapes=shapes)
+    if min(launches.values()) < 2 * len(routes) * TRAIN_STEPS:
+        raise AssertionError(f"{part}: the timed steps launched {dict(launches)}")
+    return dict(launches=dict(launches), shapes=shapes, figures=figures)
 
 
 def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> np.ndarray:
@@ -2274,6 +2372,8 @@ def e2e_phase(gen, card: str) -> dict:
     store, dev_states = timed("9a", e2e_store_phase, gen)
     timed("9b", e2e_check_phase, store, dev_states, state)
     steps = timed("9c", e2e_steps_phase, store, dev_states, state, card)
+    # Phase 14d runs here, while the store is resident on the card.
+    mixed = timed("14d", mixed_e2e_part, store, dev_states, state, card, steps["figures"])
     materialized = timed("9d", e2e_materialize_phase, store, dev_states, state)
     del dev_states
     torch.cuda.empty_cache()
@@ -2283,7 +2383,8 @@ def e2e_phase(gen, card: str) -> dict:
         launches=dict(collections.Counter(steps["launches"]) + collections.Counter(counts["train"]["launches"])),
         shapes={k: steps["shapes"][k] + counts["train"]["shapes"][k] for k in KERNELS},
     )
-    return dict(train=train, eval=counts["eval"], store_state=store_state, materialized=materialized)
+    return dict(train=train, eval=counts["eval"], store_state=store_state, materialized=materialized, mixed=mixed,
+                mixed_seconds=seconds["14d"])
 
 
 # ---------------------------------------------------------------------------
@@ -3028,8 +3129,12 @@ ALLREDUCE_BYTES = 64 * 2**20
 # limit: on mesh (1, 2) both ranks run the whole batch on the one card, twice
 # one rank's work, and one rank runs it again as the reference. At 1,000 rows
 # that is 33.4 + 16.3 s of an 849 s smoke (H100 80GB HBM3, 700.00 W); the
-# work is linear in rows, so 5,000 would add about 200 s (PERF.md §6).
-MESH_ROWS = 1_000
+# work is linear in rows, so 5,000 would add about 200 s (PERF.md §6). Cut
+# to 250 when phase 14 came (PERF.md §4, reduced); 13b's run_config4 runs
+# the same rows.
+MESH_ROWS = 250
+# 12b's timed steps a route: TRAIN_STEPS (10) until phase 14 came.
+MESH_TIMED_STEPS = 3
 MESH_TRAIN = dict(num_epochs=1, batch_size=256)
 # 12b/12c: a data-parallel step against one rank's at the same weights (the
 # CPU tests' tolerances); 12d: the sharded eval against phase 6's; 12e:
@@ -3116,8 +3221,8 @@ def mesh_table() -> torch.Tensor:
 def mesh_steps_part(mesh21, mesh12) -> dict:
     """12b: mesh (2, 1), the flat step at 7b's global batch (B = 2,048,
     T = 65,536), margin and InfoNCE: 5 steps checked against one rank, then
-    3 warm-up and 10 timed; the padded step at B = 512 on 8c.2's batches:
-    5 checked, 10 timed. 12c: mesh (1, 2), the row-sharded table: its shard
+    3 warm-up and 3 timed; the padded step at B = 512 on 8c.2's batches:
+    5 checked, 3 timed. 12c: mesh (1, 2), the row-sharded table: its shard
     and the sharded gather against the plain gather, and 5 flat margin
     steps checked."""
     from news_recommendation_project_v2_torch.parallel import (
@@ -3143,13 +3248,13 @@ def mesh_steps_part(mesh21, mesh12) -> dict:
             lambda mesh, m: make_sharded_flat_tower_train_step(mesh, m, margin, infonce),
             lambda m, table, bb: loss_fn(m, table, bb, **LOSSES[name][2]), b, table21, emb, steps=5,
         )
-        timed = mesh_timed_steps(mesh21, r["step"], r["opt"], table21, [b] * (3 + TRAIN_STEPS), warm=3)
+        timed = mesh_timed_steps(mesh21, r["step"], r["opt"], table21, [b] * (3 + MESH_TIMED_STEPS), warm=3)
         out[f"12b flat {name}"] = dict(T=T, live_tokens=total, loss_err=r["loss_err"], grad_err=r["grad_err"],
                                         digest=r["digest"], **timed)
         del r
         torch.cuda.empty_cache()
     prng = np.random.default_rng(SEED + 84)
-    padded = [padded_from_flat(flat, n)[1] for _, n, flat in (flat_inputs(PADDED_B, prng) for _ in range(1 + TRAIN_STEPS))]
+    padded = [padded_from_flat(flat, n)[1] for _, n, flat in (flat_inputs(PADDED_B, prng) for _ in range(1 + MESH_TIMED_STEPS))]
     r = mesh_check_steps(
         mesh21, lambda: padded_tower("latent", state, "cuda"),
         lambda mesh, m: make_sharded_tower_train_step(mesh, m, margin),
@@ -3426,8 +3531,12 @@ def mesh_phase(work_dir: Path, flat: dict, flat_emb: torch.Tensor, strings: tupl
 # 13a: data-parallel e2e steps at 9c's batch, each route checked against one
 # rank for MESH2_CHECK_STEPS steps, then MESH2_TIMED_STEPS timed. On mesh
 # (2, 1) the sharded store's gather all_reduces both data ranks' [M, T, D]
-# float32 blocks (1 GB) through gloo's host copies, about 1-2 s a step.
-MESH2_CHECK_STEPS, MESH2_TIMED_STEPS = 2, 3
+# float32 blocks (1 GB) through gloo's host copies, about 1-5 s a step.
+# 2 and 3 until phase 14 came (PERF.md §4, reduced). The materialize runs
+# over the store's first MESH2_MATERIALIZE_NEWS news (all 65,238 until
+# then), the trainer over MESH2_ROWS of 9e's 256 rows.
+MESH2_CHECK_STEPS, MESH2_TIMED_STEPS = 1, 1
+MESH2_MATERIALIZE_NEWS, MESH2_ROWS = 16_384, 128
 MESH2_ROUTES = ("streamed", "resident", "sharded")
 # 13a's EndToEndTrainer: 9e's rows at batch 256, not run_config2's 32: at 32
 # the epoch's 280 steps would each exchange 33 M gradients through gloo
@@ -3532,15 +3641,17 @@ def mesh2_steps(mesh, route: str, store: TokenStore, batch: dict, rec: LaunchRec
 
 
 def mesh2_materialize(mesh, store: TokenStore, want_path: str, rec: LaunchRecord) -> list:
-    """13a: materialize_from_token_store_mesh over the whole store at 9d's
-    settings, from the store resident on both ranks and from the
-    ShardedStore: news/s and the largest difference from phase 9d's resident
-    result."""
+    """13a: materialize_from_token_store_mesh over the store's first
+    MESH2_MATERIALIZE_NEWS news at 9d's settings, from the store resident on
+    both ranks and from the ShardedStore: news/s and the largest difference
+    from phase 9d's resident result for those news."""
     from news_recommendation_project_v2_torch.ops.encode import materialize_from_token_store_mesh
     from news_recommendation_project_v2_torch.parallel import shard_token_store_states
 
     enc = e2e_model(e2e_state(), "cuda")["token_encoder"]
-    want = np.load(want_path)
+    n = MESH2_MATERIALIZE_NEWS
+    store = TokenStore(states=store.states[: store.offsets[n]], offsets=store.offsets[: n + 1])
+    want = np.load(want_path)[:n]
     out = []
     for route in ("resident", "sharded"):
         states = shard_token_store_states(mesh, store.states) if route == "sharded" else _upload_states(
@@ -3559,11 +3670,11 @@ def mesh2_materialize(mesh, store: TokenStore, want_path: str, rec: LaunchRecord
 
 
 def mesh2_trainer(mesh, store: TokenStore, rec: LaunchRecord) -> dict:
-    """13a: EndToEndTrainer(mesh=) on 9e's rows at run_config2's modules,
-    weights and settings (batch MESH2_TRAIN's), dropout off, one epoch and
+    """13a: EndToEndTrainer(mesh=) on MESH2_ROWS rows drawn as 9e draws its
+    rows, at run_config2's modules, weights and settings (batch MESH2_TRAIN's), dropout off, one epoch and
     its fused eval, against the same trainer on one rank (rank 0)."""
     cfg = TrainConfig(**MESH2_TRAIN)
-    compiled = mind_behaviors(np.random.default_rng(SEED + 93), E2E_ROWS).with_history_view()
+    compiled = mind_behaviors(np.random.default_rng(SEED + 93), MESH2_ROWS).with_history_view()
 
     def run(m):
         model = e2e_model(e2e_state_dict_from_jax(random_e2e_params(np.random.default_rng(cfg.seed), DIM, 1, E2E_TOWER)),
@@ -3860,7 +3971,7 @@ def mesh2_phase(work_dir: Path, e2e: dict, requests: list) -> dict:
     metric_gap = max(abs(g["train"][k] - w["train"][k]) for k in METRIC_KEYS)
     loss_gap = abs(g["loss"] - w["loss"]) / abs(w["loss"])
     same = got["digest"] == other["13a trainer"]["digest"]
-    part_line("13a EndToEndTrainer(mesh=)", mesh=[2, 1], rows=E2E_ROWS, **MESH2_TRAIN, seconds=got["seconds"],
+    part_line("13a EndToEndTrainer(mesh=)", mesh=[2, 1], rows=MESH2_ROWS, **MESH2_TRAIN, seconds=got["seconds"],
               one_rank_seconds=ref["seconds"], device_store=got["device_store"], store_sharded=got["store_sharded"],
               loss=g["loss"], one_rank_loss=w["loss"], metrics=g["train"], one_rank=w["train"],
               metric_gap=metric_gap, loss_gap=loss_gap, ranks_bit_identical=same)
@@ -3903,6 +4014,276 @@ def mesh2_phase(work_dir: Path, e2e: dict, requests: list) -> dict:
     if min(launches.values()) == 0:
         raise AssertionError(f"13: a kernel never launched on the mesh path: {launches}")
     return dict(launches=launches, shapes=shapes)
+
+# ---------------------------------------------------------------------------
+# Phase 14: mixed precision (bfloat16 and float16 compute) on the train paths
+# ---------------------------------------------------------------------------
+
+MIXED = "bfloat16"  # the compute type of 14b-14e
+# A Function's output and gradients on the card against the CPU's, in a
+# 16-bit type: what is rounded to the type may round one unit apart.
+UNIT16 = {torch.bfloat16: 2**-8, torch.float16: 2**-11}
+MIXED_FN_ROWS = 256  # the CPU's share of 14a: its 16-bit GEMMs are slow
+# 14b's gradient check at a reduced batch, with
+# tests/test_torch_mixed_precision.py's criteria and the CPU's own float32
+# and bfloat16 gradients as the yardstick (no JAX on the card's machine).
+MIXED_CHECK_B = 16
+MIXED_LOSS_TOL = 1e-3
+# 14f: float16 scores on the card against the CPU's float16 ranker.
+MIXED_SERVE_TOL = 3e-2
+
+
+def geglu_backward_gemm_ms(c: int, dtype) -> float:
+    """Time (ms, CUDA events, back to back) of ``geglu_backward``'s five
+    products alone at C rows, D = 1,024, F = 4,096, operands in ``dtype``
+    (the recomputed [h | g], dW_out, du, dx, dW_in): the GEGLU backward's
+    part of a step's backward GEMMs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d, f = DIM, 4 * DIM
+    x, w_in, w_out, dy, u, d_hg = (
+        torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        for shape in ((c, d), (2 * f, d), (d, f), (c, d), (c, f), (c, 2 * f))
+    )
+
+    def products():
+        return F.linear(x, w_in), dy.T @ u, dy @ w_out, d_hg @ w_in, d_hg.T @ x
+
+    return cuda_ms(products, 3)
+
+
+def mixed_kernels_part(gen) -> None:
+    """14a: both kernels in float16 against their plain versions at phase
+    3's shapes and at the train paths' (the flat step's [1, 8, 65,536, 512]
+    and C = 65,536; the padded step's [512, 8, 256, 512] and C = 131,072;
+    the e2e step's [1,024, 8, 64, 256] at 16 latents), with their times and
+    bounds; then each Function in bfloat16 and float16 at 256 rows (the
+    attention [1, 8, 256, 512], the GEGLU at D = 1,024): its output and
+    every gradient on the card (the kernel forward, the attention's float32
+    backward, the GEGLU's backward in the 16-bit type) against the same
+    Function on the CPU, within a norm-relative unit of the type."""
+    cases = [
+        ("latent_attention", (b, 8, l, 64, 512))
+        for b, l in ((1, 16), (8, 16), (2, 256), (4, 256), (2, 600), (4, 600), (8, 600))
+    ]
+    cases += [("geglu", (c, DIM, 4 * DIM)) for c in (37, 4800)] + [("geglu", (37, 1536, 4 * 1536))]
+    cases += [("latent_attention", s) for s in ((1, 8, 65536, 64, 512), (512, 8, 256, 64, 512), (1024, 8, 64, 16, 256))]
+    cases += [("geglu", (c, DIM, 4 * DIM)) for c in (65536, 131072)]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for name, shape in cases:
+            measured(name, shape, torch.float16, gen)
+    log(f"  14a: {len(cases)} float16 shapes measured in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    gaps, launched = {}, {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for name, shape in (("latent_attention", (1, 8, MIXED_FN_ROWS, 64, 512)), ("geglu", (MIXED_FN_ROWS, DIM, 4 * DIM))):
+            fn, args = KERNELS[name]["wrapper"], KERNELS[name]["inputs"](shape, dtype, gen)
+            results = []
+            for inputs in (args, tuple(a.cpu() for a in args)):
+                leaves = tuple(a.clone().requires_grad_() for a in inputs)
+                before = fn.launches
+                out = fn(*leaves)
+                grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED)).to(out.dtype)
+                grads = torch.autograd.grad(out, leaves, grad.to(out.device))
+                results.append([out.detach().cpu(), *(g.cpu() for g in grads)])
+                launched.setdefault(f"{name} {str(dtype)[6:]}", fn.launches - before)
+            key = f"{name} {str(dtype)[6:]}"
+            gaps[key] = max(norm_rel(a, b) for a, b in zip(*results))
+            if not (gaps[key] <= UNIT16[dtype] and launched[key] == 1 and all(torch.isfinite(a).all() for a in results[0])):
+                raise AssertionError(f"14a {key}: card against CPU {gaps[key]} (tol {UNIT16[dtype]}), launches {launched[key]}")
+    part_line("14a Functions, card against CPU", rows=MIXED_FN_ROWS, worst_norm_rel=gaps,
+              tol={str(k)[6:]: v for k, v in UNIT16.items()}, kernel_launches_under_autograd=launched,
+              seconds=time.perf_counter() - t0)
+
+
+def mixed_grad_check(state: dict, emb: torch.Tensor) -> None:
+    """14b's check: one flat step at B = 16 (T = 1,024), full width, margin
+    and InfoNCE: the bfloat16 loss on the card within 1e-3 of the CPU's, and
+    every leaf's gradient g with the CPU's float32 (g32) and bfloat16 (gc)
+    gradients: |g - g32| <= 1.5 |gc - g32| + 5e-3 |g32| and |g - gc| <= 0.15
+    |gc| (norms)."""
+    rng = np.random.default_rng(SEED + 14)
+    T, total, batch = flat_inputs(MIXED_CHECK_B, rng)
+    emb_cpu = emb.cpu()
+    for name, b in (("margin", batch), ("infonce", with_negatives(batch, rng))):
+        loss_fn, _, kw = LOSSES[name]
+        runs = {}
+        for label, dev, compute, table in (("card", "cuda", MIXED, emb), ("cpu", "cpu", MIXED, emb_cpu),
+                                           ("cpu32", "cpu", "float32", emb_cpu)):
+            tower = full_tower(state, dev, compute)
+            loss = loss_fn(tower, table, on(b, dev), **kw)
+            loss.backward()
+            runs[label] = loss.item(), {n: p.grad.detach().cpu().double() for n, p in tower.named_parameters()}
+            del tower, loss
+        (loss_card, g), (loss_cpu, gc), (_, g32) = runs["card"], runs["cpu"], runs["cpu32"]
+        ratio = max(
+            ((g[n] - g32[n]).norm() - 5e-3 * g32[n].norm()).item() / max((gc[n] - g32[n]).norm().item(), 1e-30)
+            for n in g32
+        )
+        rel = max(((g[n] - gc[n]).norm() / gc[n].norm()).item() for n in g32)
+        part_line("14b gradients", loss=name, B=MIXED_CHECK_B, T=T, live_tokens=total, compute=MIXED,
+                  loss_card=loss_card, loss_cpu=loss_cpu, worst_excess_over_cpu_error=ratio, worst_norm_rel_to_cpu=rel,
+                  tol=dict(loss=MIXED_LOSS_TOL, excess=1.5, norm_rel=0.15))
+        if not (abs(loss_card - loss_cpu) <= MIXED_LOSS_TOL and ratio <= 1.5 and rel <= 0.15):
+            raise AssertionError(f"14b {name}: the card's bfloat16 step against the CPU's: loss {loss_card} / "
+                                 f"{loss_cpu}, excess {ratio}, norm-relative {rel}")
+
+
+def mixed_flat_part(card: str, f32: dict) -> dict:
+    """14b: 7b (``train_step_phase``) in bfloat16: its figures beside 7b's
+    float32 ones of this run, the peak memory against the memory model
+    (``flat_token_bytes`` x T x ``TRAIN_MULTIPLIER``) and the GEGLU
+    backward's products timed alone in both types; then the gradient
+    check."""
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(SEED), TowerConfig()))
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    rec = train_step_phase(state, emb, card, MIXED, "14b")
+    T = rec["T"]
+    model_gb = flat_token_bytes(TowerConfig(compute_dtype=MIXED)) * T * TRAIN_MULTIPLIER / 1e9
+    gemms = {str(dt)[6:]: geglu_backward_gemm_ms(T, dt) for dt in (torch.float32, torch.bfloat16)}
+    for name, fig in rec["figures"].items():
+        ref = f32[name]
+        part_line(
+            "14b", loss=name, B=TRAIN_B, T=T, live_tokens=rec["live_tokens"], compute=MIXED, **fig,
+            float32_ms_per_step=ref["ms_per_step"], float32_pairs_per_s=ref["pairs_per_s"],
+            speedup=ref["ms_per_step"] / fig["ms_per_step"], float32_peak_gb=ref["peak_gb"], memory_model_gb=model_gb,
+            float32_device_ms_by_part=ref["device_ms_by_part"], geglu_backward_products_ms=gemms,
+            geglu_backward_share=gemms["bfloat16"] / fig["device_ms_by_part"]["total"],
+            float32_geglu_backward_share=gemms["float32"] / ref["device_ms_by_part"]["total"], card=card,
+        )
+    mixed_grad_check(state, emb)
+    return rec
+
+
+def mixed_padded_part(states: dict, f32: dict) -> dict:
+    """14c: 8c.2 (``padded_step_phase``) for every tower in bfloat16 and the
+    latent tower in float16, each beside 8c.2's float32 figures of this
+    run. Returns the latent tower's runs by compute type."""
+    emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+    out = padded_step_phase(states, emb, [(k, MIXED) for k in PADDED_KINDS] + [("latent", "float16")], "14c")
+    for (kind, compute), fig in out.items():
+        ref = f32[(kind, "float32")]
+        part_line("14c against float32", tower=kind, compute=compute, ms_per_step=fig["ms_per_step"],
+                  float32_ms_per_step=ref["ms_per_step"], speedup=ref["ms_per_step"] / fig["ms_per_step"],
+                  pairs_per_s=fig["pairs_per_s"], float32_pairs_per_s=ref["pairs_per_s"], peak_gb=fig["peak_gb"],
+                  float32_peak_gb=ref["peak_gb"], memory_model_gb=fig["memory_model_gb"],
+                  float32_device_ms_by_part=ref["device_ms_by_part"])
+    return {compute: out[("latent", compute)] for compute in (MIXED, "float16")}
+
+
+def mixed_e2e_part(store: TokenStore, dev_states: torch.Tensor, state: dict, card: str, f32: dict) -> dict:
+    """14d (run in phase 9, while the store is resident): 9c
+    (``e2e_steps_phase``) on the resident store with the tower in bfloat16
+    (``TokenAttentionPool`` float32, as in the JAX package), beside 9c's
+    float32 resident figures."""
+    rec = e2e_steps_phase(store, dev_states, state, card, MIXED, ("resident",), "14d")
+    for (loss, route), fig in rec["figures"].items():
+        ref = f32[(loss, route)]
+        part_line("14d against float32", loss=loss, route=route, compute=MIXED, ms_per_step=fig["ms_per_step"],
+                  float32_ms_per_step=ref["ms_per_step"], speedup=ref["ms_per_step"] / fig["ms_per_step"],
+                  pairs_per_s=fig["pairs_per_s"], float32_pairs_per_s=ref["pairs_per_s"], peak_gb=fig["peak_gb"],
+                  float32_peak_gb=ref["peak_gb"], float32_device_ms_by_part=ref["device_ms_by_part"])
+    return rec
+
+
+def mixed_trainer_part(f32: list) -> dict:
+    """14e: TowerTrainer at full width on 7c's learnable fixture (20,000
+    train and 5,000 val rows, batch 2,048, margin, device metrics) with the
+    tower in bfloat16, 2 epochs: pairs/s and the val AUC beside 7c's float32
+    epochs of this run; the loss falls and the parameters stay float32."""
+    ct, cv, emb_t, emb_v = learnable_split(25_000, 20_000, DIM, seed=7)
+    figures, trainer, shapes = full_width_epochs("learnable fixture", ct, cv, emb_t, emb_v, 2, MIXED, "14e")
+    params32 = all(p.dtype == torch.float32 for p in trainer.tower.parameters())
+    falls = figures[-1]["loss"] < figures[0]["loss"]
+    part_line("14e", compute=MIXED, epochs=figures, float32_epochs=f32, parameters_float32=params32, loss_falls=falls)
+    if not (params32 and falls):
+        raise AssertionError(f"14e: parameters float32 {params32}, losses {[f['loss'] for f in figures]}")
+    launches = {k: sum(c.values()) for k, c in shapes.items()}
+    return dict(launches=launches, shapes=shapes)
+
+
+def order_agrees(got: list, want: list, slack: float) -> bool:
+    """The card's ranking holds the CPU's candidates in the CPU's order
+    but where two CPU scores lie within ``slack`` of each other."""
+    score = dict(want)
+    ids = [c for c, _ in got]
+    return sorted(ids) == sorted(score) and all(
+        score[b] <= score[a] + slack for i, a in enumerate(ids) for b in ids[i + 1:]
+    )
+
+
+def mixed_serve_part(work_dir: Path, requests: list) -> dict:
+    """14f: ``build_ranker`` over phase 4's dump and tower with the latent
+    tower in float16, a ``rank_batch`` of phase 4's 64 requests (launch
+    counts set to 0 just before it and read just after) and requests/s of
+    three more; the first 4 against the same ranker on the CPU: the same
+    candidates in the CPU's order (but between candidates whose CPU scores
+    lie within twice the largest card-CPU score difference of each other)
+    and scores within a norm-relative 3e-2."""
+    cfg = TowerConfig(kind="latent", compute_dtype="float16")
+    ranker = build_ranker(work_dir / "emb", "MINDsmall_dev", work_dir / "tower.pt", cfg, device="cuda")
+    zero_launches()
+    got = ranker.rank_batch(requests)
+    torch.cuda.synchronize()
+    launches, shapes = kernel_launches(), typed_shapes(torch.float16)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ranker.rank_batch(requests)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    want = build_ranker(work_dir / "emb", "MINDsmall_dev", work_dir / "tower.pt", cfg, device="cpu").rank_batch(requests[:4])
+    rels, exact, agree = [], 0, 0
+    for (_, cands), g, w in zip(requests, got, want):
+        check_ranked(g, cands)
+        a, b = dict(g), dict(w)
+        diff = np.array([a[c] - b[c] for c in cands])
+        ref = np.array([b[c] for c in cands])
+        rels.append(float(np.linalg.norm(diff) / np.linalg.norm(ref)))
+        exact += [c for c, _ in g] == [c for c, _ in w]
+        agree += order_agrees(g, w, 2 * float(np.abs(diff).max()))
+    part_line("14f", compute="float16", requests=len(requests), requests_per_s=[N_REQUESTS / t for t in times],
+              launches=launches, score_norm_rel=rels, tol=MIXED_SERVE_TOL, ids_in_cpu_order=exact,
+              ids_in_cpu_order_up_to_ties=agree, compared=len(want))
+    if not (max(rels) <= MIXED_SERVE_TOL and agree == len(want) and min(launches.values()) > 0):
+        raise AssertionError(f"14f: float16 serving against the CPU: {rels}, {agree} of {len(want)}, {launches}")
+    return dict(launches=launches, shapes=shapes)
+
+
+def mixed_phase(gen, card: str, work_dir: Path, requests: list, train: dict, padded: dict, e2e_mixed: tuple) -> dict:
+    """Phase 14 (14a-14f; 14d ran in phase 9); one JSON line a part. Returns
+    the launches and shapes of the bfloat16 paths (14b-14e) and of the
+    float16 ones (14c's latent step, 14f)."""
+    mixed_e2e, e2e_seconds = e2e_mixed
+    seconds = {"14d": e2e_seconds}
+
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return out
+
+    resolve_device("cuda")
+    timed("14a", mixed_kernels_part, gen)
+    torch.cuda.empty_cache()
+    flat = timed("14b", mixed_flat_part, card, train["figures"])
+    torch.cuda.empty_cache()
+    steps = timed("14c", mixed_padded_part, padded["states"], padded["steps"])
+    torch.cuda.empty_cache()
+    epochs = timed("14e", mixed_trainer_part, train["learnable"])
+    torch.cuda.empty_cache()
+    served = timed("14f", mixed_serve_part, work_dir, requests)
+    log(json.dumps({"part": "14 wall seconds", **seconds, "phase": sum(seconds.values())}))
+    paths = {}
+    for dtype, parts in (("bfloat16", (flat, steps["bfloat16"], mixed_e2e, epochs)), ("float16", (steps["float16"], served))):
+        launches = {k: sum(p["launches"][k] for p in parts) for k in KERNELS}
+        shapes = {}
+        for p in parts:
+            shapes = add_shapes(shapes, p["shapes"])
+        if min(launches.values()) == 0:
+            raise AssertionError(f"14: a kernel never launched on the {dtype} paths: {launches}")
+        paths[dtype] = dict(launches=launches, shapes=shapes)
+    return paths
 
 
 def main() -> int:
@@ -3984,6 +4365,7 @@ def main() -> int:
         "phase 9 the end-to-end token-level path (config[2]) at full width, float32 (TF32 off) " + since(t_start)
     )
     e2e = e2e_phase(gen, card)
+    e2e_mixed = (e2e.pop("mixed"), e2e.pop("mixed_seconds"))
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape the e2e steps and run_config2's eval launched them at:")
     records["e2e_train"] = (main_path_phase(e2e["train"]["shapes"], gen, path="e2e train"), e2e["train"]["launches"])
@@ -4001,6 +4383,16 @@ def main() -> int:
     log("  the kernels vs their plain versions at every shape nrtorch-train launched them at:")
     records["pipeline"] = (main_path_phase(piped["shapes"], gen, path="pipeline"), piped["launches"])
 
+    # Phase 14 runs before the mesh phases: the later in the run, the more
+    # of a short window's kernels the profiler drops (the step splits), most
+    # after the mesh phases' process groups.
+    log("phase 14 mixed precision: bfloat16 and float16 compute on the train paths and serving " + since(t_start))
+    mixed = mixed_phase(gen, card, work_dir, serve["requests"], train, padded, e2e_mixed)
+    torch.cuda.empty_cache()
+    for dtype, rec in mixed.items():
+        log(f"  the kernels vs their plain versions at every shape the {dtype} paths launched them at:")
+        records[f"train_{dtype}"] = (main_path_phase(rec["shapes"], gen, path=f"{dtype} paths"), rec["launches"])
+
     log("phase 12 the mesh: two ranks on the card over gloo, NCCL's world of one, full width " + since(t_start))
     meshed = mesh_phase(work_dir, runs, flat_emb, piped["strings"])
     torch.cuda.empty_cache()
@@ -4013,6 +4405,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("  the kernels vs their plain versions at every shape the phase 13 mesh path launched them at:")
     records["mesh2"] = (main_path_phase(meshed2["shapes"], gen, path="mesh2"), meshed2["launches"])
+
 
     kernels = [
         {

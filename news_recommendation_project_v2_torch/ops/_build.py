@@ -131,11 +131,11 @@ def on_cpu(tensors) -> bool:
 
 
 def validate(name: str, tensors) -> None:
-    """What the kernels take: tensors on one CUDA device, all float32 or all
-    bfloat16, contiguous, and no autograd recording. The wrappers reach a
-    kernel only through their ``torch.autograd.Function``, whose forward runs
-    with grad mode off; the refusal guards direct calls of a kernel, which
-    has no backward of its own."""
+    """What the kernels take: tensors on one CUDA device, all float32, all
+    bfloat16 or all float16, contiguous, and no autograd recording. The
+    wrappers reach a kernel only through their ``torch.autograd.Function``,
+    whose forward runs with grad mode off; the refusal guards direct calls
+    of a kernel, which has no backward of its own."""
     import torch
 
     index, dtype = tensors[0].get_device(), tensors[0].dtype
@@ -144,11 +144,11 @@ def validate(name: str, tensors) -> None:
             f"{name}: inputs must all lie on one CUDA device (or all on the "
             f"CPU), got {[str(t.device) for t in tensors]}"
         )
-    if dtype not in (torch.float32, torch.bfloat16) or any(
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16) or any(
         t.dtype != dtype for t in tensors
     ):
         raise TypeError(
-            f"{name}: inputs must all be float32 or all bfloat16, got "
+            f"{name}: inputs must all be float32, all bfloat16 or all float16, got "
             f"{[str(t.dtype) for t in tensors]}"
         )
     if not all(t.is_contiguous() for t in tensors):

@@ -1,15 +1,17 @@
 // Helpers shared by the port's kernels: element loads and stores in float32
-// for the two element types the kernels take (float, bfloat16), and the
-// error-string export every library carries for its ctypes wrapper.
+// for the three element types the kernels take (float, bfloat16, float16),
+// and the error-string export every library carries for its ctypes wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #define NR_EXPORT extern "C" __attribute__((visibility("default")))
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -18,6 +20,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as torch's .to(float16)
 }
 
 // Round a float32 value to T's precision and back.

@@ -3,7 +3,8 @@
 //
 // Replaces: news_recommendation_project_v2_tpu/ops/pallas_geglu.py:29,
 // `_geglu_kernel` (launched by `fused_geglu`; oracle `reference_geglu`). Same
-// function: x [C, D] for any D >= 1; float32 products, bias and gate; the
+// function: x [C, D] for any D >= 1, in float32, bfloat16 or float16 (the
+// Pallas kernel takes any float type); float32 products, bias and gate; the
 // gated product rounded to x's type before W_out, as the flax module rounds
 // it; output float32 [C, D]. Weights come in nn.Linear layout: W_in [2F, D],
 // W_out [D, F]. Both products are then "TN": x and W_in are contiguous along
@@ -33,7 +34,8 @@
 //     device memory: C*F*sizeof(T) bytes written and read once more (8 MB at
 //     C=512 float32, inside the 50 MB L2). The wrapper walks C in row chunks
 //     so u never exceeds 64 MB; with no full-row accumulator, D is unlimited.
-//   * Tensor cores. bf16: mma.m16n8k16 with fragments from ldmatrix. float32:
+//   * Tensor cores. bf16 and f16: mma.m16n8k16 with fragments from ldmatrix
+//     (f16 takes bf16's tiles, fragments and plans). float32:
 //     3xTF32 on mma.m16n8k8: each operand splits into big = tf32(a) and
 //     small = tf32(a - big), and small*big + big*small + big*big accumulate
 //     in float32, small terms first: float32-accurate products (plain TF32
@@ -90,7 +92,7 @@ struct Shape {
 };
 // float32 holds a per-stage partial beside its accumulator (mma_stage), so
 // its Large tile is 128 x 64 with 4 warps and 3 blocks per SM; bf16 keeps
-// 128 x 128 with 8 warps and 2 blocks. Either way a warp owns a 64 x 32
+// 128 x 128 with 8 warps and 2 blocks, and so does f16. Either way a warp owns a 64 x 32
 // tile. Small serves few rows: more, smaller blocks spread the weight reads.
 template <typename T>
 using Large = typename std::conditional<std::is_same<T, float>::value, Shape<128, 64, 64, 32, 3>,
@@ -205,7 +207,7 @@ __device__ __forceinline__ void mma_stage(float (&acc)[S::MT][S::NT][4], const u
 #pragma unroll
       for (int i = 0; i < S::MT; ++i)
 #pragma unroll
-        for (int j = 0; j < S::NT; ++j) mma_bf16(part[i][j], a[i], b[j]);
+        for (int j = 0; j < S::NT; ++j) mma_k16<T>(part[i][j], a[i], b[j]);
     }
   }
 #pragma unroll
@@ -417,4 +419,12 @@ NR_EXPORT int geglu_bf16(const void* x, const void* w_in, const void* b_in, cons
                          int device, void* stream) {
   return launch<__nv_bfloat16>(x, w_in, b_in, w_out, b_out, y, u, partial, C, D, F, chunk_rows, ldu,
                                tile_a, tile_b, splits, split_k, device, stream);
+}
+
+NR_EXPORT int geglu_f16(const void* x, const void* w_in, const void* b_in, const void* w_out,
+                        const void* b_out, void* y, void* u, void* partial, int C, int D, int F,
+                        int chunk_rows, int ldu, int tile_a, int tile_b, int splits, int split_k,
+                        int device, void* stream) {
+  return launch<__half>(x, w_in, b_in, w_out, b_out, y, u, partial, C, D, F, chunk_rows, ldu, tile_a,
+                        tile_b, splits, split_k, device, stream);
 }

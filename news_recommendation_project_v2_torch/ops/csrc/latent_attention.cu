@@ -4,8 +4,9 @@
 // Replaces: news_recommendation_project_v2_tpu/ops/pallas_attention.py,
 // `_attn_kernel` (launched by `_fused_forward`, exposed as
 // `fused_latent_attention`). Same function: q [B, H, L, dh]; k, v [H, N, dh],
-// shared by every batch row; float32 logits, softmax and products; the output
-// in q's type. No mask: pad tokens are zero rows that are dropped at the pool.
+// shared by every batch row, in float32, bfloat16 or float16 (the Pallas
+// kernel takes any float type); float32 logits, softmax and products; the
+// output in q's type. No mask: pad tokens are zero rows that are dropped at the pool.
 // Any N <= kMaxN and dh <= kMaxDh, ragged edges included. Nothing in a block
 // is sized by dh: q, k and V stream through the ring, so dh only sets the
 // number of stages, and element offsets are 64-bit.
@@ -27,8 +28,8 @@
 //   * Logits [BM, N] = Q K^T on the tensor cores, a TN product over dh: q
 //     rows and k rows stream through a 4-stage cp.async ring, 64 bytes of dh
 //     per row per stage, as in geglu.cu. float32 runs 3xTF32 on
-//     mma.m16n8k8 (small*big + big*small + big*big); bfloat16 runs
-//     mma.m16n8k16 with ldmatrix, whose products are exact in float32. The
+//     mma.m16n8k8 (small*big + big*small + big*big); bfloat16 and float16
+//     run mma.m16n8k16 with ldmatrix, whose products are exact in float32. The
 //     tensor cores' own sums round toward zero, so they sum one stage into a
 //     fresh partial that FADD adds to the accumulator. Logits are scaled and
 //     kept in shared memory, N latents 64 at a time.
@@ -37,7 +38,7 @@
 //   * O = P V on the tensor cores, P kept in float32: V's [N, slice] columns
 //     stream through the same ring in 16- or 32-latent stages, and the B
 //     fragments are read by hand from a padded stride (no bank conflicts).
-//     float32 runs 3xTF32. bfloat16 V is exact in TF32, so P V takes two
+//     float32 runs 3xTF32. bfloat16 and float16 V are exact in TF32, so P V takes two
 //     TF32 products, P split into big and small parts; P is never rounded
 //     to bfloat16 (the Pallas kernel computes probs @ v in float32).
 //   * o leaves through shared memory: each warp stages 8 rows of its tile and
@@ -241,7 +242,7 @@ __device__ __forceinline__ void logits_stage(float (&acc)[S::MT][S::NT][4], cons
 #pragma unroll
       for (int i = 0; i < S::MT; ++i)
 #pragma unroll
-        for (int j = 0; j < S::NT; ++j) mma_bf16(part[i][j], a[i], b[j]);
+        for (int j = 0; j < S::NT; ++j) mma_k16<T>(part[i][j], a[i], b[j]);
     }
   }
 #pragma unroll
@@ -254,17 +255,23 @@ __device__ __forceinline__ void logits_stage(float (&acc)[S::MT][S::NT][4], cons
 
 // A V element as a TF32 operand: float32 is split in two; bfloat16's 8
 // significant bits already fit TF32's 11, so its bits are the operand.
+// float16's 11 significant bits fit TF32 exactly too, but its exponent and
+// mantissa lie elsewhere: converted to float32, the value is its big part
+// alone.
 __device__ __forceinline__ void v_operand(float x, unsigned& big, unsigned& small) {
   split_tf32(x, big, small);
 }
 __device__ __forceinline__ void v_operand(__nv_bfloat16 x, unsigned& big, unsigned&) {
   big = static_cast<unsigned>(__bfloat16_as_ushort(x)) << 16;
 }
+__device__ __forceinline__ void v_operand(__half x, unsigned& big, unsigned&) {
+  big = __float_as_uint(__half2float(x));
+}
 
 // P.V of one stage (kDepthV latents from column kp of P) into the warp's
 // accumulators: rows wm.., columns 64*wk.. of the stage. A = P, float32 in
 // shared memory, split big + small; B = the staged V rows. float32 V takes
-// three TF32 products, bfloat16 V two (its small part is zero).
+// three TF32 products, bfloat16 and float16 V two (the small part is zero).
 template <typename T, class S>
 __device__ __forceinline__ void pv_stage(float (&acc)[S::MT][S::NT][4], const float* p_s, int ps,
                                          int kp, const unsigned char* st, int wm, int wk) {
@@ -322,7 +329,7 @@ template <typename T>
 __device__ __forceinline__ void store_rows(T* __restrict__ o, const float* staged,
                                            const long long* row_at, int c, int c_end, bool vec) {
   constexpr int E = kChunk / sizeof(T);        // elements a lane stores
-  constexpr int kLanesPerRow = kTileN / E;     // 16 (float) or 8 (bfloat16)
+  constexpr int kLanesPerRow = kTileN / E;     // 16 (float) or 8 (16-bit types)
   constexpr int kRowsPerPass = 32 / kLanesPerRow;
   const int lane = threadIdx.x & 31;
   const int col = (lane % kLanesPerRow) * E;
@@ -336,6 +343,12 @@ __device__ __forceinline__ void store_rows(T* __restrict__ o, const float* stage
     if (vec && c + col + E <= c_end) {
       if constexpr (std::is_same<T, float>::value) {
         *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      } else if constexpr (std::is_same<T, __half>::value) {
+        const float4 a = *reinterpret_cast<const float4*>(src);
+        const float4 b = *reinterpret_cast<const float4*>(src + 4);
+        alignas(16) __half2 packed[4] = {__floats2half2_rn(a.x, a.y), __floats2half2_rn(a.z, a.w),
+                                         __floats2half2_rn(b.x, b.y), __floats2half2_rn(b.z, b.w)};
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
       } else {
         const float4 a = *reinterpret_cast<const float4*>(src);
         const float4 b = *reinterpret_cast<const float4*>(src + 4);
@@ -588,14 +601,23 @@ NR_EXPORT int latent_attention_f32(const void* q, const void* k, const void* v, 
   return launch<float>(q, k, v, o, B, H, L, N, dh, rows, slices, slice_cols, device, stream);
 }
 
-// Shared memory of a block of `rows` rows at N latents (-1: no such shape),
-// for ops/latent_attention.py's planner to be checked against.
-NR_EXPORT int latent_attention_smem(int rows, int N, int bf16) {
+// Shared memory of a block of `rows` rows at N latents for elements of
+// `element_bytes` (4: float32; 2: bfloat16 or float16, laid out alike), or
+// -1 where no such shape or size exists, for ops/latent_attention.py's
+// planner to be checked against.
+template <class S>
+int smem_of(int N, int element_bytes) {
+  return element_bytes == 4 ? smem_bytes<float, S>(N)
+         : element_bytes == 2 ? smem_bytes<__half, S>(N)
+                              : -1;
+}
+
+NR_EXPORT int latent_attention_smem(int rows, int N, int element_bytes) {
   switch (rows) {
-    case Large::BM: return bf16 ? smem_bytes<__nv_bfloat16, Large>(N) : smem_bytes<float, Large>(N);
-    case Medium::BM: return bf16 ? smem_bytes<__nv_bfloat16, Medium>(N) : smem_bytes<float, Medium>(N);
-    case Pair::BM: return bf16 ? smem_bytes<__nv_bfloat16, Pair>(N) : smem_bytes<float, Pair>(N);
-    case Small::BM: return bf16 ? smem_bytes<__nv_bfloat16, Small>(N) : smem_bytes<float, Small>(N);
+    case Large::BM: return smem_of<Large>(N, element_bytes);
+    case Medium::BM: return smem_of<Medium>(N, element_bytes);
+    case Pair::BM: return smem_of<Pair>(N, element_bytes);
+    case Small::BM: return smem_of<Small>(N, element_bytes);
     default: return -1;
   }
 }
@@ -605,4 +627,10 @@ NR_EXPORT int latent_attention_bf16(const void* q, const void* k, const void* v,
                                     int slice_cols, int device, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, H, L, N, dh, rows, slices, slice_cols, device,
                                stream);
+}
+
+NR_EXPORT int latent_attention_f16(const void* q, const void* k, const void* v, void* o, int B,
+                                   int H, int L, int N, int dh, int rows, int slices,
+                                   int slice_cols, int device, void* stream) {
+  return launch<__half>(q, k, v, o, B, H, L, N, dh, rows, slices, slice_cols, device, stream);
 }

@@ -1,6 +1,12 @@
 // Tensor-core and copy helpers shared by the port's kernels: cp.async into
-// shared memory, the 3xTF32 split, mma.sync for TF32 and bf16, and ldmatrix.
+// shared memory, the 3xTF32 split, mma.sync for TF32, bf16 and f16, and
+// ldmatrix.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -37,6 +43,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// f16 takes bf16's fragment layout (m16n8k16, the same ldmatrix loads);
+// its products are exact in float32 too.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The m16n8k16 product of 16-bit T (bf16 or f16) fragments, float32 sums.
+template <typename T>
+__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(d, a, b);
+  } else {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "16-bit operands are bf16 or f16");
+    mma_bf16(d, a, b);
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,

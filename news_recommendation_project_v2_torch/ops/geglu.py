@@ -4,11 +4,15 @@
 
 x is [C, D]; the weights are in ``nn.Linear`` layout (W_in [2F, D], b_in [2F],
 W_out [D, F], b_out [D]), i.e. the transposes of the JAX ``fused_geglu``'s
-kernels. Returns float32 [C, D]. Any D >= 1 and F >= 1.
+kernels, all float32, bfloat16 or float16. Returns float32 [C, D]. Any
+D >= 1 and F >= 1.
 
 The call goes through ``GegluFunction``: the kernel forward, and a backward
 in plain ops. The TPU kernel is forward-only and the JAX
 package trains through the XLA feed-forward, whose gradient this is.
+The two backwards differ in precision as the JAX package's do: this one
+multiplies in x's type, as flax's ``Dense`` layers do, while the attention's
+stays float32, as the JAX ``_bwd`` does (``ops/latent_attention.py``).
 """
 
 from __future__ import annotations
@@ -23,13 +27,17 @@ import torch.nn.functional as F
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_SYMBOLS = {torch.float32: "geglu_f32", torch.bfloat16: "geglu_bf16"}
-_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_SYMBOLS = {torch.float32: "geglu_f32", torch.bfloat16: "geglu_bf16", torch.float16: "geglu_f16"}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 # Block tiles (rows, columns) of csrc/geglu.cu per type, by the index the
 # kernel takes: Large, then Small. In pass A a tile's columns are half h and
-# half g.
-TILES = {torch.float32: ((128, 64), (64, 32)), torch.bfloat16: ((128, 128), (64, 32))}
+# half g. float16 takes bfloat16's tiles.
+TILES = {
+    torch.float32: ((128, 64), (64, 32)),
+    torch.bfloat16: ((128, 128), (64, 32)),
+    torch.float16: ((128, 128), (64, 32)),
+}
 STAGE_BYTES = 64  # K depth of one pipeline stage, in bytes of a tile row
 SCRATCH_LIMIT = 64 * 2**20  # u plus pass B's partials, per row chunk
 
@@ -154,30 +162,36 @@ def _forward(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
 
 
 def geglu_backward(x, w_in, b_in, w_out, b_out, grad):
-    """The gradients (dx, dW_in, db_in, dW_out, db_out) of the plain
-    version, in float32: ``[h | g]`` is recomputed (a [C, 2F] block, 2 GB at
-    the training step's C = 65,536 and D = 1024, freed here), the tanh-GELU
-    gate differentiated, then both linears."""
+    """The gradients (dx, dW_in, db_in, dW_out, db_out), each in its
+    parameter's type. ``[h | g]`` is recomputed (a [C, 2F] block, 2 GB in
+    float32 at the training step's C = 65,536 and D = 1024, freed here), the
+    tanh-GELU gate differentiated, then both linears. The five products take
+    their operands in x's type (float32 sums, as the flax ``Dense`` backward
+    of the JAX package's FFN runs in its compute type); the gate's
+    derivative and the bias sums stay float32. Float32 inputs give float32
+    products throughout."""
     f = w_out.shape[-1]
-    x32, w_in32, w_out32, dy = x.float(), w_in.float(), w_out.float(), grad.float()
-    hg = F.linear(x32, w_in32, b_in.float())
+    cdt = x.dtype
+    w_in_c, w_out_c, dy = w_in.to(cdt), w_out.to(cdt), grad.to(cdt)
+    hg = F.linear(x, w_in_c, b_in.to(cdt)).float()
     h, g = hg[:, :f], hg[:, f:]
     gate = F.gelu(g, approximate="tanh")
-    u = (h * gate).to(x.dtype).float()  # the forward's rounding, straight through
+    u = (h * gate).to(cdt)  # the forward's rounding, straight through
     d_w_out = dy.T @ u
     del u
-    du = dy @ w_out32
+    du = (dy @ w_out_c).float()
     d_hg = torch.empty_like(hg)
     torch.mul(du, gate, out=d_hg[:, :f])
     del gate
     d_hg[:, f:] = torch.ops.aten.gelu_backward(du.mul_(h), g, approximate="tanh")
     del hg, h, g, du
-    dx = d_hg @ w_in32
-    d_w_in = d_hg.T @ x32
     d_b_in = d_hg.sum(0)
+    d_hg = d_hg.to(cdt)
+    dx = d_hg @ w_in_c
+    d_w_in = d_hg.T @ x
     return (
-        dx.to(x.dtype), d_w_in.to(w_in.dtype), d_b_in.to(b_in.dtype),
-        d_w_out.to(w_out.dtype), dy.sum(0).to(b_out.dtype),
+        dx, d_w_in.to(w_in.dtype), d_b_in.to(b_in.dtype),
+        d_w_out.to(w_out.dtype), grad.float().sum(0).to(b_out.dtype),
     )
 
 

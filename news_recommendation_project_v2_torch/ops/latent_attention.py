@@ -4,8 +4,8 @@ PyTorch version.
 
 Layouts as in the JAX package's ``fused_latent_attention``: q [B, H, L, dh]
 history queries; k, v [H, N, dh] latent keys and values shared by every batch
-row. Returns [B, H, L, dh] in q's type. Any N <= 1024 and dh <= 4096
-(NV-Embed's pooling head: N = 512, dh = 4096).
+row; all float32, bfloat16 or float16. Returns [B, H, L, dh] in q's type.
+Any N <= 1024 and dh <= 4096 (NV-Embed's pooling head: N = 512, dh = 4096).
 
 The call goes through ``LatentAttentionFunction``: the kernel forward, and the JAX package's plain backward (``pallas_attention.py::_bwd``;
 the TPU kernel has no backward kernel either).
@@ -23,8 +23,12 @@ import torch
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_SYMBOLS = {torch.float32: "latent_attention_f32", torch.bfloat16: "latent_attention_bf16"}
-_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_SYMBOLS = {
+    torch.float32: "latent_attention_f32",
+    torch.bfloat16: "latent_attention_bf16",
+    torch.float16: "latent_attention_f16",
+}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}  # float16 plans as bfloat16
 
 # csrc/latent_attention.cu's block shapes by their rows (Large, Medium,
 # Pair, Small): the warps that split a logits stage's dh and a P.V stage's
@@ -164,9 +168,9 @@ def _launch(q, k, v, out, rows: int, slices: int, slice_cols: int) -> None:
 def kernel_smem(rows: int, n: int, dtype: torch.dtype) -> int:
     """Shared memory of a block of ``rows`` rows as the CUDA source lays it
     out (-1: no such block shape), to hold ``attention_smem`` to it on the
-    card."""
+    card. The source lays a block out by its element size alone."""
     fn = _build.function("latent_attention", "latent_attention_smem", [ctypes.c_int] * 3)
-    return fn(rows, n, int(dtype == torch.bfloat16))
+    return fn(rows, n, _ELEMENT_BYTES[dtype])
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

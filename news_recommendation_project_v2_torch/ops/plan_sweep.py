@@ -6,8 +6,9 @@ count, beside the plan that ``plan_attention`` picks, on one NVIDIA GPU.
 With ``encoder`` it sweeps NV-Embed's pooling head (N = 512, dh = 4,096) at
 the batches of news an encode gives it, instead of the user tower's shapes.
 
-For each shape (B, H, L, N, dh) and type it prints the library call's time
-(``scaled_dot_product_attention``, a yardstick), the planner's plan and its
+For each shape (B, H, L, N, dh) and type (float32, bfloat16, float16) it
+prints the library call's time (``scaled_dot_product_attention``, a
+yardstick), the planner's plan and its
 time, and the fastest plans with their largest difference from the plain
 version. Times are device times: ten launches captured in one CUDA graph and
 replayed (two at the flat eval's [1, 8, 131072, 512], where only one slice
@@ -39,6 +40,9 @@ SHAPES = [
     (1, 8, 16), (1, 8, 64), (1, 8, 128), (1, 8, 256), (8, 8, 64), (2, 8, 256), (4, 8, 256),
     (2, 8, 600), (4, 8, 300), (4, 8, 600), (8, 8, 600),
 ]
+
+# float16 takes bfloat16's plans; both are swept.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # (B, H, L) at NV-Embed's pooling head, N=512, dh=4,096: one news of 16
 # tokens, then batches of news of 32 and 64 tokens.
@@ -90,11 +94,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         if sys.argv[1:] == ["encoder"]:
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in DTYPES:
                 for b, h, l in ENCODER_SHAPES:
                     print(sweep((b, h, l, 512, 4096), dtype, gen), flush=True)
             return 0
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for b, h, l in SHAPES:
                 print(sweep((b, h, l, 64, 512), dtype, gen), flush=True)
             print(sweep((2, 3, 5, 70, 100), dtype, gen), flush=True)

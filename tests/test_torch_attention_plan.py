@@ -42,7 +42,7 @@ SHAPES = [  # (B, H, L, N, dh)
     (128, 8, 32, 512, 4096),
     (2, 3, 5, 70, 4000),
 ]
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 def _ceil(a, b):

@@ -85,13 +85,22 @@ def _attention_args(shape, dtype, device):
     )
 
 
+# One unit of the 16-bit types, relative: bfloat16 keeps 8 significant
+# bits, float16 11.
+UNIT = {torch.bfloat16: 2**-8, torch.float16: 2**-11}
+
+
 def _attention_tol(want, dtype):
     """Both sum in float32 (the kernel's products as 3xTF32, float32-accurate);
-    a bfloat16 output may round one unit apart."""
-    return 1e-5 if dtype == torch.float32 else 2**-8 * want.float().abs().max().item()
+    a bfloat16 output may round one unit apart (2^-8 of the largest), a
+    float16 output one unit of the largest one's binade (2^-10 of it)."""
+    top = want.float().abs().max().item()
+    if dtype == torch.float16:
+        return torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
+    return 1e-5 if dtype == torch.float32 else 2**-8 * top
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
     "shape",
     [
@@ -137,7 +146,7 @@ def _launch_attention(q, k, v, rows, slices, slice_cols):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_attention_planner_shared_memory_matches_the_kernel(cuda, dtype):
     """The planner's ``attention_smem`` is the CUDA source's own layout for
     every block shape and N, so the planner never picks a shape the launcher
@@ -148,7 +157,7 @@ def test_attention_planner_shared_memory_matches_the_kernel(cuda, dtype):
     assert kernel_smem(48, 64, dtype) == -1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("slice_cols", [16, 48, 128])
 def test_attention_kernel_every_block_shape(cuda, dtype, rows, slice_cols):
@@ -169,7 +178,7 @@ def test_attention_kernel_refuses_a_bad_plan(cuda):
             _launch_attention(q, k, v, rows, slices, slice_cols)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_attention_kernel_is_deterministic(cuda, dtype):
     """Slices write disjoint columns, with no atomics: the same inputs give
     the same bits on two launches, split (a single request) or not."""
@@ -197,6 +206,9 @@ def test_attention_wrapper_raises_past_the_limits(cuda):
         latent_attention(q, k, v)
 
 
+GEGLU_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 2.5e-4}
+
+
 def _geglu_args(shape, dtype, device):
     c, d, f = shape
     gen = torch.Generator(device=device).manual_seed(0)
@@ -210,7 +222,7 @@ def _geglu_args(shape, dtype, device):
     return tuple(a.to(dtype) for a in args)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
     "shape",
     [(37, 1024, 4096), (16, 1024, 4096), (512, 1024, 4096), (37, 1536, 6144), (300, 96, 130)],
@@ -220,18 +232,18 @@ def test_geglu_kernel_matches_plain(cuda, dtype, shape):
     """float32 runs as 3xTF32, whose products are float32-accurate, summed in
     another order over up to 6,144 + 1,536 terms: 1e-4. In bfloat16 the
     gated product may round one bfloat16 unit apart from the plain
-    version's: 1e-3. (300, 96, 130) has F not a multiple of 4, so W_out's
+    version's: 1e-3; a float16 one unit of 2^-11, a quarter of that:
+    2.5e-4. (300, 96, 130) has F not a multiple of 4, so W_out's
     rows are not 16-byte aligned and take the kernel's masked loads."""
     args = _geglu_args(shape, dtype, cuda)
     before = geglu.launches, geglu.shapes[shape]
     got = geglu(*args)
     torch.cuda.synchronize()
     assert (geglu.launches, geglu.shapes[shape]) == (before[0] + 1, before[1] + 1)
-    tol = 1e-4 if dtype == torch.float32 else 1e-3
-    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=tol)
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=GEGLU_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (5, 100, 36), (130, 200, 520)])
 def test_geglu_kernel_takes_ragged_edges(cuda, dtype, shape):
     """One row and one column; a D that ends inside a pipeline stage, whose
@@ -240,11 +252,10 @@ def test_geglu_kernel_takes_ragged_edges(cuda, dtype, shape):
     args = _geglu_args(shape, dtype, cuda)
     got = geglu(*args)
     torch.cuda.synchronize()
-    tol = 1e-4 if dtype == torch.float32 else 1e-3
-    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=tol)
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=GEGLU_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_geglu_kernel_is_deterministic(cuda, dtype):
     """Split F sums are added in a fixed order, with no atomics: the same
     inputs give the same bits on two launches (C=37 splits pass B 8 ways)."""
@@ -319,6 +330,34 @@ def test_geglu_function_gradients_match_plain_autograd(cuda, rows):
     want = torch.autograd.grad(reference_geglu(*args), args, grad)
     for g, w in zip(got, want):
         assert _norm_rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["latent_attention", "geglu"])
+def test_functions_in_16_bits_match_the_cpu(cuda, name, dtype):
+    """Mixed-precision training's Functions at full width and 1,000 rows
+    ([1, 8, 1000, 512] against 64 latents; C = 1,000, D = 1,024, F =
+    4,096): the output and every gradient on the card (the kernel forward;
+    the attention's float32 backward, the GEGLU's backward with its products
+    in the 16-bit type) against the same Function on the CPU (the plain
+    forward, the same backward) from the same inputs. Results that are
+    rounded to the 16-bit type may round one unit apart where the two
+    devices sum in other orders: a norm-relative one unit (2^-8, 2^-11)."""
+    if name == "latent_attention":
+        fn, args = latent_attention, _attention_args((1, 8, 1000, 64, 512), dtype, cuda)
+    else:
+        fn, args = geglu, _geglu_args((1000, 1024, 4096), dtype, cuda)
+    results = []
+    for inputs in (args, tuple(a.cpu() for a in args)):
+        leaves = tuple(a.clone().requires_grad_() for a in inputs)
+        before = fn.launches
+        out = fn(*leaves)
+        grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(out.dtype)
+        results.append([out.detach().cpu(), *(g.cpu() for g in torch.autograd.grad(out, leaves, grad.to(out.device)))])
+        assert fn.launches == before + (inputs[0].is_cuda)
+    for got, want in zip(*results):
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert _norm_rel(got, want) <= UNIT[dtype]
 
 
 SMALL_TOWER = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)

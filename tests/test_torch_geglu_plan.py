@@ -34,7 +34,7 @@ SHAPES = [
     (131072, 1024, 4096),
     (37, 1536, 6144),
 ]
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 def _ceil(a, b):
