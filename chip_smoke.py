@@ -55,7 +55,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               forward, and two runs of 5 steps from one state giving the
               same parameter bits. 7b: bench.py's worst-case batch (B=2048,
               T = 65,536; flat_inputs copied here), margin and InfoNCE (K=5):
-              3 warm-up and 10 timed steps with the loss fetched every step,
+              3 warm-up and 5 timed steps with the loss fetched every step,
               ms/step, pairs/s, the peak memory, the device time by part (the
               kernels' forward, cuBLAS forward, the plain backward, the
               optimizer), a profiled step and its host syncs (want 1), with
@@ -89,7 +89,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               ReLU sign flips masked out, zero-gradient leaves under 1e-6 in
               norm; dropout off), two 5-step runs with dropout on
               bit-identical.
-              8c.2: 10 timed margin steps per tower at B=512, flat_inputs's
+              8c.2: 5 timed margin steps per tower at B=512, flat_inputs's
               histories padded to each batch's bucket: ms/step, pairs/s,
               peak memory, device time by part, one host sync a step (the
               latent tower's launches counted). 8c.3: TowerTrainer(
@@ -117,15 +117,16 @@ Phases, one line or a few each, exit code non-zero on any failure:
               steps on the resident store and on the streamed block give the
               same bits, and so do two resident runs. 9c: e2e_bench.py's
               batch (M=2048, T=64, B=1024, L=64), margin and InfoNCE (K=5),
-              each on the resident store and streamed: 3 warm-up and 10 timed
+              each on the resident store and streamed: 3 warm-up and 5 timed
               steps, the loss fetched every step; ms/step, pairs/s, bytes to
               the card a step, peak memory, the device time by part, host
               syncs a step. 9d: materialize_from_token_store over the whole
-              store on both routes: news/s, the batch the memory model picks,
-              the routes within 1e-6. 9e: configs.run_config2 at dim=1024 with
-              its published defaults (batch 32, one epoch) on 256 of
-              build_workload's rows over the store's news: pairs/s, the steps
-              by M, T and L, the materialize time, the fused eval's
+              store resident and over its first 16,384 news streamed: news/s,
+              the batch the memory model picks, the routes within 1e-6. 9e:
+              configs.run_config2 at dim=1024 with its published defaults
+              (batch 32, one epoch) on 256 of build_workload's rows over the
+              store's news: pairs/s, the steps by M, T and L, the
+              materialize time, the fused eval's
               impressions/s and metrics (finite, in [0, 1]). Then each kernel
               against its plain version at every shape the timed steps, 9e's
               epoch and 9e's eval launched it at.
@@ -136,16 +137,17 @@ Phases, one line or a few each, exit code non-zero on any failure:
               mixed lengths, the card against the CPU (float32 norm-relative
               1e-4; the card in bfloat16 within 3e-2; unit norms), and the
               bucketed encode against the fixed-width one on the card. 10b:
-              encode_query_and_passage over 65,238 MIND-like title news
+              encode_query_and_passage over 32,768 MIND-like title news
               (15-35 tokens) at max_length 128, buckets and the memory
               model's batch, bfloat16: the host's tokenisation apart, the
               passage and query encodes timed apart (news/s, real tokens/s),
               padded tokens a real one, one profiled bucket's busy share, the
               peak memory against encoder_activation_bytes. 10c:
-              build_token_store of the passages in float16 into a directory
-              (news/s, GB written), 32 rows about the bucket edge against
-              hidden_states, then run_config2 for one epoch on that store,
-              as 9e; the directory is deleted. 10d: NV-Embed's published
+              build_token_store of the first 16,384 passages in float16 into
+              a directory (news/s, GB written; 4,096 in RAM and to disk
+              apart), 32 rows about the bucket edge against hidden_states,
+              then run_config2 for one epoch on that store, as 9e; the
+              directory is deleted. 10d: NV-Embed's published
               widths (Mistral-7B backbone cut to 2 of 32 layers, printed as
               reduced; the head of 512 latents and 8 heads x 4,096 whole):
               8 news card against CPU as 10a, then 4,096 news through
@@ -155,11 +157,12 @@ Phases, one line or a few each, exit code non-zero on any failure:
  11. pipeline: the user's path from MIND's raw TSVs through the CLIs'
               main(argv), in a temporary directory deleted afterwards, one
               JSON line a part. 11a: raw TSVs of MINDsmall_train and
-              MINDsmall_dev (65,238 news with 10b's titles; 50,000 and 20,000
+              MINDsmall_dev (16,384 news with 10b's titles; 16,384 and 8,192
               rows by build_workload's rule, reduced from MIND-small's
-              156,965 / 73,152), nrtorch-ingest on each, load_dataset and the
-              compile timed. 11b: nrtorch-save-emb of both splits (e5-large,
-              bfloat16, the memory model's batch): news/s, the dump's size,
+              65,238 news and 156,965 / 73,152 rows), nrtorch-ingest on
+              each, load_dataset and the compile timed. 11b:
+              nrtorch-save-emb of both splits (e5-large, bfloat16, the
+              memory model's batch): news/s, the dump's size,
               unit norms. 11c: nrtorch-train --tower latent at D = 1,024,
               one epoch each, batch 512, with every launch count set to 0
               just before and read just after: each step's host seconds, the
@@ -169,7 +172,7 @@ Phases, one line or a few each, exit code non-zero on any failure:
               the best checkpoint against FlatEvalPlan + DeviceMetricsPlan
               from it (1e-5), and nrtorch-serve --ckpt in its own process
               answering a POST /rank. 11e: LoadEmbedding -> Classification
-              -> Attention on 512 train and 256 dev rows, full width, on the
+              -> Attention on 128 train and 64 dev rows, full width, on the
               card and on the CPU (metrics and weights, norm-relative 1e-4).
               11f: nrtorch-reproduce --synthetic --with-e2e with e5-large on
               write_synthetic_mind's fixture (three finite CONFIG_ROWs),
@@ -191,29 +194,29 @@ Phases, one line or a few each, exit code non-zero on any failure:
               ShardedFlatEvalPlan + ShardedMetricsPlan over phase 6's
               workload and table: the metrics within 1e-6 of phase 6's
               float32 ones, impressions/s, each rank's token share. 12e:
-              configs.run_config3 on mesh (1, 2) over 500 of
+              configs.run_config3 on mesh (1, 2) over 128 of
               build_workload's rows (reduced), one epoch, with the launch
               counts set to 0 just before and read just after on each rank,
               against TowerTrainer without a mesh (metrics 1e-5, loss
               relative 1e-4); then nrtorch-train --mesh 2,1 under torchrun
               on write_synthetic_mind's fixture at --dim 1024 against the
-              same command on one rank (dev metrics 1e-5). 12f: 11a's 50,000
+              same command on one rank (dev metrics 1e-5). 12f: 11a's 16,384
               train rows compiled by the native extension and by numpy,
               equal, both timed. Then each kernel against its plain version
               at every shape run_config3 launched it at on the ranks.
  13. mesh2:   multi-GPU part 2 on two gloo ranks sharing the card (NCCL
               refuses two ranks on one GPU), full width, float32 unless
               named, one JSON line a part. 13a: phase 9's store rebuilt on
-              each rank from 9a's generator state; 9c's batch (M = 2,048,
-              T = 64, B = 1,024, L = 64, margin) on meshes (2, 1) and
+              each rank from 9a's generator state; half of 9c's batch (M =
+              1,024, T = 64, B = 512, L = 64, margin) on meshes (2, 1) and
               (1, 2) from the streamed block, the store replicated on each
               rank and the ShardedStore (3.01 GB a rank): 1 step each
               against one rank's loss (1e-6) and gradient (norm-relative
               1e-5), 1 timed (ms a step, pairs/s, the bytes a step's
               sharded gather moves), the ranks' weights equal to the bit;
               materialize_from_token_store_mesh over the store's first
-              16,384 news, replicated and sharded, against 9d within 1e-5
-              (news/s); EndToEndTrainer(mesh=) on 128 rows drawn as 9e's
+              8,192 news, replicated and sharded, against 9d within 1e-5
+              (news/s); EndToEndTrainer(mesh=) on 64 rows drawn as 9e's
               (batch 256, dropout off,
               one epoch and its fused eval) against one rank. 13b:
               make_sharded_encode_fn with e5-large (bfloat16) over 8,192 of
@@ -237,25 +240,33 @@ Phases, one line or a few each, exit code non-zero on any failure:
               float32), one JSON line a part. 14a: both kernels in float16
               against their plain versions at phase 3's shapes and at the
               train paths' (timed as in phase 3), and each Function in
-              bfloat16 and float16 at 256 rows, output and gradients on the
+              bfloat16 and float16 at 64 rows, output and gradients on the
               card against the CPU (a norm-relative unit of the type). 14b:
-              7b's batch in bfloat16, margin and InfoNCE, 10 timed steps
+              7b's batch in bfloat16, margin and InfoNCE, 5 timed steps
               (ms, pairs/s, peak memory against the memory model, device
               time by part, the GEGLU backward's GEMMs timed alone) beside
-              7b's float32 figures; at B = 16 the card's bfloat16 gradients
-              against the CPU's float32 and bfloat16 ones with
-              tests/test_torch_mixed_precision.py's criteria. 14c: 8c.2's
-              padded steps for the three towers in bfloat16 and the latent
-              tower in float16, beside 8c.2's. 14d (run inside phase 9,
-              while the store is resident): 9c's resident steps in bfloat16
-              beside 9c's. 14e: TowerTrainer on 7c's learnable fixture in
-              bfloat16, 2 epochs, beside 7c's (the loss falls, parameters
-              stay float32). 14f: build_ranker with a float16 latent tower
-              over phase 4's dump and requests, 4 against the CPU's float16
-              ranker (scores norm-relative 3e-2, the CPU's order up to
-              near-ties). Then each kernel against its plain version at
-              every shape the bfloat16 paths (14b-14e) and the float16 ones
-              (14c's latent step, 14f) launched it at.
+              7b's float32 figures (each split's optimizer part on CUDA
+              events); the card's gradients, bfloat16 at B = 16 and float16
+              at B = 4 (the tokens trimmed to the live ones: the CPU of the
+              card's host multiplies float16 slowly), against the CPU's
+              float32 ones and its own in the same type with
+              tests/test_torch_mixed_precision.py's criteria (loss
+              1e-3; every leaf |g - g32| <= 1.5 |g_cpu - g32| + 5e-3 |g32|
+              and |g - g_cpu| <= 0.15 |g_cpu|, norms). 14c: 8c.2's padded
+              steps for the three towers in bfloat16 and the latent tower in
+              float16, beside 8c.2's; the latent step's gradients (32
+              clicks), bfloat16 at 8c.1's B = 64 and float16 at B = 4, held
+              as 14b's. 14d (run inside phase 9, while the store is
+              resident): 9c's resident steps in bfloat16 beside 9c's; the
+              resident step's gradients at M = 64, B = 16, L = 64, margin
+              and InfoNCE, held as 14b's. 14e: TowerTrainer on 7c's learnable
+              fixture in bfloat16, 2 epochs, beside 7c's (the loss falls,
+              parameters stay float32). 14f: build_ranker with a float16 latent
+              tower over phase 4's dump and requests, 4 against the CPU's
+              float16 ranker (scores norm-relative 3e-2, the CPU's order up to
+              near-ties). Then each kernel against its plain version at every
+              shape the bfloat16 paths (14b-14e) and the float16 ones (14c's
+              latent step, 14f) launched it at.
 The line before the last holds the kernels' record as JSON, one entry per
 kernel and path ("path": "serve" from phase 5, "flat_eval" from phase 6,
 "train" from phase 7, "padded_eval" and "padded_train" from phase 8,
@@ -1030,9 +1041,9 @@ def flat_eval_phase(gen) -> tuple[dict, torch.Tensor]:
 # Phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-# Timed steps of 7b, 8c.2, 9c and 12b: 20 until PR 11, cut to 10 by the
-# smoke's 1,200 s limit once phase 13 came (PERF.md §4, reduced).
-TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 10
+# Timed steps of 7b, 8c.2 and 9c (and 14b-14d), reduced for the smoke's
+# time (PERF.md §4 lists the cuts).
+TRAIN_B, TRAIN_K, TRAIN_STEPS = 2048, 5, 5
 # 7c's epoch at MIND-small's scale runs on half of bench.py's rows (its
 # train rows drawn as build_workload draws them), to keep the smoke's time.
 MIND_TRAIN_ROWS, MIND_VAL_ROWS = FLAT_ROWS // 2, 5_000
@@ -1188,6 +1199,19 @@ def device_ms_by_kernel(fn) -> tuple[object, dict, float]:
     return out, times, sum(times.values()) / max(start.elapsed_time(end), 1e-6)
 
 
+def event_ms(fn) -> float:
+    """``fn()``'s span (ms) on CUDA events, synchronized before and after:
+    a split's optimizer part, whose short kernels the profiler has dropped
+    late in a long run (it read 0 there)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def profiled_parts(run) -> tuple[list, int]:
     """``run()``'s list of (result, times, cover) per part, taken again while
     a part's cover is below PROFILE_COVER, up to PROFILE_TRIES times; and
@@ -1205,30 +1229,35 @@ def step_split(opt, loss_call, label: str) -> dict:
     kernels, its cuBLAS GEMMs and the rest of it; the plain backward's GEMMs
     (cuBLAS: the linears, the GEGLU recompute, the attention's einsums) and
     the rest of it (GELU, softmax, reductions, copies); the optimizer (clip
-    and AdamW). Taken again where the profiler dropped a part's kernels."""
+    and AdamW) on CUDA events. Taken again where the profiler dropped a
+    part's kernels."""
+    optimizer_ms = []
 
     def run():
         loss, fwd, c1 = device_ms_by_kernel(loss_call)
-        return [(loss, fwd, c1), device_ms_by_kernel(loss.backward),
-                device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))]
+        parts = [(loss, fwd, c1), device_ms_by_kernel(loss.backward)]
+        optimizer_ms.append(event_ms(lambda: (opt.step(), opt.zero_grad(set_to_none=True))))
+        return parts
 
     parts, tries = profiled_parts(run)
-    (_, fwd, _), (_, bwd, _), (_, optim, _) = parts
+    (_, fwd, _), (_, bwd, _) = parts
     split = {
         "forward kernels": part(fwd, ours),
         "forward cuBLAS": part(fwd, cublas),
         "forward rest": part(fwd, lambda k: not ours(k) and not cublas(k)),
         "backward GEMMs": part(bwd, cublas),
         "backward rest": part(bwd, lambda k: not cublas(k)),
-        "optimizer": sum(optim.values()),
+        "optimizer": optimizer_ms[-1],
     }
     split["total"] = sum(split.values())
+    if not split["optimizer"] > 0:
+        raise AssertionError(f"{label}: the optimizer's part read {split['optimizer']} ms")
     top = sorted(bwd.items(), key=lambda kv: -kv[1])[:6]
     log(
         f"  {label}: one step's device time by part (ms): "
         + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
-        + f"; total {split['total']:.2f}; profiler's cover of each part's span "
-        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries)"
+        + f"; total {split['total']:.2f}; profiler's cover of the profiled parts' spans "
+        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries; the optimizer on CUDA events)"
     )
     for key, ms in top:
         log(f"    backward {ms:9.3f} ms  {key[:100]}")
@@ -1257,7 +1286,7 @@ def timed_steps(step, inputs: list, warm: int, dtype) -> dict:
 def train_step_phase(state: dict, emb: torch.Tensor, card: str, compute: str = "float32", part: str = "7b") -> dict:
     """7b (14b in bfloat16): full width, the tower in ``compute``,
     bench.py's worst-case batch (B=2048, T = 65,536), margin and InfoNCE
-    (K=5): 3 warm-up steps, then 10 timed steps with the loss fetched every
+    (K=5): 3 warm-up steps, then 5 timed steps with the loss fetched every
     step (as bench.py's bench_train_flat does), the peak memory, the device
     time by part, a profiled step, host syncs a step. Launch counts are set
     to 0 just before the timed steps and read just after. Returns the
@@ -1365,14 +1394,14 @@ def trainer_phase() -> list:
 
 
 
-def mind_behaviors(rng: np.random.Generator, num_rows: int) -> CompiledBehaviors:
+def mind_behaviors(rng: np.random.Generator, num_rows: int, num_news: int = NUM_NEWS) -> CompiledBehaviors:
     """build_workload's rows as a trainer's CompiledBehaviors over a table
-    of NUM_NEWS news: every row has history, and every impression holds
+    of ``num_news`` news: every row has history, and every impression holds
     both classes."""
-    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, NUM_NEWS)
+    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, num_news)
     rows = np.arange(num_rows, dtype=np.int32)
     return CompiledBehaviors(
-        news_ids=np.arange(NUM_NEWS).astype(str),
+        news_ids=np.arange(num_news).astype(str),
         imp_rev=cand_rev,
         imp_row=np.repeat(rows, imp_lens),
         imp_lens=imp_lens,
@@ -1719,7 +1748,7 @@ def padded_check_phase(states: dict, emb: torch.Tensor) -> None:
 
 
 def padded_step_phase(states: dict, emb: torch.Tensor, runs=None, part: str = "8c.2") -> dict:
-    """8c.2 (14c with other ``runs``): 10 timed padded margin steps per
+    """8c.2 (14c with other ``runs``): 5 timed padded margin steps per
     (tower, compute type) of ``runs`` (default every tower in float32) at
     B=512 (TrainConfig's batch; no dedup, the worst case), dropout on, each
     step a new batch of flat_inputs's histories padded to its own bucket,
@@ -1980,6 +2009,7 @@ E2E_CHECK_M, E2E_CHECK_B = 256, 64
 # run_config2's tower at dim=1024: 16 latents, 8 heads x 256, GEGLU 4,096.
 E2E_TOWER = TowerConfig(kind="latent", reduced_dim=DIM, num_latents=min(16, DIM), latent_dim_head=max(8, DIM // 4))
 E2E_STEPS = 5
+E2E_STREAMED_NEWS = 16_384  # 9d's streamed route: its first news (reduced for the smoke's time, PERF.md §4)
 # 9e's rows: build_workload's draws over the store's news (about 35 margin
 # pairs a row, so about one row a step of 32 pairs).
 E2E_ROWS = 256
@@ -2135,7 +2165,10 @@ def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
     """One e2e step's device time by part, each under the profiler with a
     synchronize after it: the token encoder's forward (with the gather from
     the resident store); the rest of the forward (the tower: our kernels,
-    cuBLAS, the rest); the whole backward (GEMMs, the rest); the optimizer."""
+    cuBLAS, the rest); the whole backward (GEMMs, the rest); the optimizer
+    on CUDA events."""
+    optimizer_ms = []
+
     def encode():
         states = args[0] if flat is None else gathered_token_states(flat, args[0], args[1])
         return model["token_encoder"](states, args[1], generator=gen)
@@ -2144,11 +2177,12 @@ def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
         news, enc, c1 = device_ms_by_kernel(encode)
         encoded = torch.nn.ModuleDict({"token_encoder": _Fixed(news), "tower": model["tower"]})
         value, fwd, c2 = device_ms_by_kernel(lambda: e2e_loss(encoded, args, loss, None, gen))
-        return [(news, enc, c1), (value, fwd, c2), device_ms_by_kernel(value.backward),
-                device_ms_by_kernel(lambda: (opt.step(), opt.zero_grad(set_to_none=True)))]
+        parts = [(news, enc, c1), (value, fwd, c2), device_ms_by_kernel(value.backward)]
+        optimizer_ms.append(event_ms(lambda: (opt.step(), opt.zero_grad(set_to_none=True))))
+        return parts
 
     parts, tries = profiled_parts(run)
-    (_, enc, _), (_, fwd, _), (_, bwd, _), (_, optim, _) = parts
+    (_, enc, _), (_, fwd, _), (_, bwd, _) = parts
 
     split = {
         "token encoder forward": sum(enc.values()),
@@ -2157,14 +2191,16 @@ def e2e_step_split(model, opt, args, loss: str, flat, gen, label: str) -> dict:
         "tower forward rest": part(fwd, lambda k: not ours(k) and not cublas(k)),
         "backward GEMMs": part(bwd, cublas),
         "backward rest": part(bwd, lambda k: not cublas(k)),
-        "optimizer": sum(optim.values()),
+        "optimizer": optimizer_ms[-1],
     }
     split["total"] = sum(split.values())
+    if not split["optimizer"] > 0:
+        raise AssertionError(f"{label}: the optimizer's part read {split['optimizer']} ms")
     log(
         f"  {label}: one step's device time by part (ms): "
         + ", ".join(f"{k} {v:.2f} ({v / split['total']:.1%})" for k, v in split.items() if k != "total")
-        + f"; total {split['total']:.2f}; profiler's cover of each part's span "
-        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries)"
+        + f"; total {split['total']:.2f}; profiler's cover of the profiled parts' spans "
+        + ", ".join(f"{c:.0%}" for _, _, c in parts) + f" ({tries} tries; the optimizer on CUDA events)"
     )
     for name, times in (("encoder forward", enc), ("tower forward", fwd)):
         for key, ms in sorted(times.items(), key=lambda kv: -kv[1])[:4]:
@@ -2251,23 +2287,28 @@ def e2e_steps_phase(
 
 
 def e2e_materialize_phase(store: TokenStore, dev_states: torch.Tensor, state: dict) -> np.ndarray:
-    """9d: materialize_from_token_store over the whole store at full width,
-    on the resident route and the streamed one, the batch from the memory
-    model (batch_size=None) and max_token_len 64 (run_config2's): news/s, the
-    batch picked; the two routes within 1e-6 of each other, all finite."""
+    """9d: materialize_from_token_store at full width on the resident route
+    over the whole store and on the streamed one over its first
+    E2E_STREAMED_NEWS news, the batch from the memory model
+    (batch_size=None) and max_token_len 64 (run_config2's): news/s, the
+    batch picked; the two routes within 1e-6 of each other on the news
+    both ran, all finite."""
     enc = e2e_model(state, "cuda")["token_encoder"]
     batch = min(1024, estimate_token_attention_batch(DIM, E2E_T, device="cuda"))
+    n = E2E_STREAMED_NEWS
+    head = TokenStore(states=store.states[: store.offsets[n]], offsets=store.offsets[: n + 1])
     out = {}
-    for route, flat in (("resident", dev_states), ("streamed", None)):
+    for route, part_store, flat in (("resident", store, dev_states), ("streamed", head, None)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out[route] = materialize_from_token_store(enc, store, batch_size=None, max_token_len=E2E_T, dev_states=flat)
+        out[route] = materialize_from_token_store(enc, part_store, batch_size=None, max_token_len=E2E_T,
+                                                  dev_states=flat)
         seconds = time.perf_counter() - t0
-        part_line("9d", route=route, news=store.num_items, batch=batch, seconds=seconds,
-                  news_per_s=store.num_items / seconds)
-    diff = float(np.abs(out["resident"] - out["streamed"]).max())
+        part_line("9d", route=route, news=part_store.num_items, batch=batch, seconds=seconds,
+                  news_per_s=part_store.num_items / seconds)
+    diff = float(np.abs(out["resident"][:n] - out["streamed"]).max())
     finite = bool(np.isfinite(out["resident"]).all())
-    part_line("9d", shape=list(out["resident"].shape), routes_max_diff=diff, tol=1e-6, finite=finite)
+    part_line("9d", shape=list(out["resident"].shape), routes_max_diff=diff, compared_news=n, tol=1e-6, finite=finite)
     if not (out["resident"].shape == (store.num_items, DIM) and diff <= 1e-6 and finite):
         raise AssertionError(f"9d: routes differ by {diff}, finite {finite}")
     return out["resident"]
@@ -2320,7 +2361,7 @@ def e2e_config2_phase(store: TokenStore, part: str = "9e") -> dict:
         counts["eval"] = _snapshot()
         return out
 
-    compiled = mind_behaviors(np.random.default_rng(SEED + 93), E2E_ROWS)
+    compiled = mind_behaviors(np.random.default_rng(SEED + 93), E2E_ROWS, store.num_items)
     fused_eval = configs_module._fused_eval_metrics
     configs_module.EndToEndTrainer, configs_module._fused_eval_metrics = Timed, fused
     try:
@@ -2409,7 +2450,10 @@ NV_EMBED_HF = {
     "latent_attention_config": {"num_latents_value": 512, "num_cross_heads": 8, "cross_dim_head": 4096, "latent_dim": 4096},
 }
 NV_LAYERS, NV_NEWS, NV_BATCH = 2, 4096, 128
-STORE_SUBSET = 8_192  # 10c's news built in RAM and to disk, to split a build's time
+# 10b's corpus and 10c's store (its first STORE_NEWS passages), reduced for
+# the smoke's time (PERF.md §4 lists each cut).
+ENC_NEWS, STORE_NEWS = 32_768, 16_384
+STORE_SUBSET = 4_096  # 10c's news built in RAM and to disk, to split a build's time
 
 
 class TimedTokenizer:
@@ -2706,9 +2750,9 @@ def encoder_phase(work_dir: Path) -> dict:
 
     resolve_device("cuda")
     enc, tok = timed("10a", encoder_e5_phase)
-    texts = news_texts(NUM_NEWS, SEED + 12)
+    texts = news_texts(ENC_NEWS, SEED + 12)
     ids, mask = timed("10b", corpus_phase, enc, tok, texts)
-    timed("10c", token_store_phase, enc, ids, mask, work_dir)
+    timed("10c", token_store_phase, enc, ids[:STORE_NEWS], mask[:STORE_NEWS], work_dir)
     del enc
     counts = timed("10d", nv_embed_phase, texts)
     log(json.dumps({"part": "10 wall seconds", **seconds}))
@@ -2719,11 +2763,12 @@ def encoder_phase(work_dir: Path) -> dict:
 # Phase 11: the pipeline and the CLIs, from MIND's raw TSVs
 # ---------------------------------------------------------------------------
 
-# 11a's rows: bench.py's build_workload count for train, and 20,000 for dev;
-# reduced from MIND-small's 156,965 / 73,152 behaviors rows.
-PIPE_ROWS = {"MINDsmall_train": 50_000, "MINDsmall_dev": 20_000}
+# 11a's news and rows, reduced from MIND-small's 65,238 news and 156,965 /
+# 73,152 behaviors rows for the smoke's time (PERF.md §4 lists each cut).
+PIPE_NEWS = 16_384
+PIPE_ROWS = {"MINDsmall_train": 16_384, "MINDsmall_dev": 8_192}
 PIPE_ENTITIES = 20_000  # entity vectors a split
-CHECK_ROWS = {"MINDsmall_train": 512, "MINDsmall_dev": 256}  # 11e's sample of each split
+CHECK_ROWS = {"MINDsmall_train": 128, "MINDsmall_dev": 64}  # 11e's sample of each split
 PIPE_CATEGORIES = ("news", "sports", "finance", "lifestyle", "travel", "video", "foodanddrink", "weather")
 # 11d: the eval CLI against the flat eval computed directly (the same scores;
 # host float64 metrics against the device's float32 ones); 11e: the card
@@ -2734,7 +2779,7 @@ EVAL_CLI_TOL, PIPE_CPU_TOL = 1e-5, 1e-4
 
 
 def write_raw_mind(root: Path, name: str, num_rows: int, seed: int) -> dict:
-    """Raw MIND TSVs of ``name`` under ``root/raw/<name>/``: 65,238 news
+    """Raw MIND TSVs of ``name`` under ``root/raw/<name>/``: PIPE_NEWS news
     whose titles follow 10b's rule (12-32 words; news_text is then 10b's
     text), nine in ten with an abstract, seven in ten with 1-3 title
     entities; PIPE_ENTITIES entity vectors; ``num_rows`` behaviors rows with
@@ -2743,9 +2788,9 @@ def write_raw_mind(root: Path, name: str, num_rows: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     raw = root / "raw" / name
     raw.mkdir(parents=True, exist_ok=True)
-    ids = np.array([f"N{i}" for i in range(NUM_NEWS)])
-    titles = [t[len("Title: "):] for t in news_texts(NUM_NEWS, seed)]
-    n_ents = np.where(rng.random(NUM_NEWS) < 0.7, rng.integers(1, 4, NUM_NEWS), 0)
+    ids = np.array([f"N{i}" for i in range(PIPE_NEWS)])
+    titles = [t[len("Title: "):] for t in news_texts(PIPE_NEWS, seed)]
+    n_ents = np.where(rng.random(PIPE_NEWS) < 0.7, rng.integers(1, 4, PIPE_NEWS), 0)
     ent_rows = rng.integers(0, PIPE_ENTITIES, int(n_ents.sum()))
     ent_ends = np.cumsum(n_ents)
     with open(raw / "news.tsv", "w") as f:
@@ -2758,7 +2803,7 @@ def write_raw_mind(root: Path, name: str, num_rows: int, seed: int) -> dict:
     with open(raw / "entity_embedding.vec", "w") as f:
         for q, row in enumerate(vecs):
             f.write(f"Q{q}\t" + "\t".join(f"{v:.6f}" for v in row) + "\t\n")
-    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, NUM_NEWS)
+    hist_lens, imp_lens, hist_rev, cand_rev, _, labels = build_workload(rng, num_rows, PIPE_NEWS)
     hist_tok = ids[hist_rev].tolist()
     imp_tok = np.char.add(ids[cand_rev], np.where(labels > 0, "-1", "-0")).tolist()
     h_end, i_end = np.cumsum(hist_lens), np.cumsum(imp_lens)
@@ -2807,9 +2852,9 @@ def pipeline_ingest_phase(data_dir: Path) -> tuple[list, list]:
         ctx = TransformDataComponent().transform(ctx)
         t4 = time.perf_counter()
         part_line(
-            "11a", split=name, news=NUM_NEWS, entities=PIPE_ENTITIES, **counts, compiled_news=len(ctx["compiled"].news_ids),
+            "11a", split=name, news=PIPE_NEWS, entities=PIPE_ENTITIES, **counts, compiled_news=len(ctx["compiled"].news_ids),
             write_s=t1 - t0, ingest_s=t2 - t1, load_dataset_s=t3 - t2, compile_s=t4 - t3,
-            reduced=f"{rows} of MIND-small's {156_965 if 'train' in name else 73_152} rows",
+            reduced=f"{PIPE_NEWS} of 65,238 news, {rows} of MIND-small's {156_965 if 'train' in name else 73_152} rows",
         )
         if "train" in name:
             strings = (behaviors["Impressions"].tolist(), behaviors["History"].tolist())
@@ -3131,10 +3176,10 @@ ALLREDUCE_BYTES = 64 * 2**20
 # that is 33.4 + 16.3 s of an 849 s smoke (H100 80GB HBM3, 700.00 W); the
 # work is linear in rows, so 5,000 would add about 200 s (PERF.md §6). Cut
 # to 250 when phase 14 came (PERF.md §4, reduced); 13b's run_config4 runs
-# the same rows.
-MESH_ROWS = 250
-# 12b's timed steps a route: TRAIN_STEPS (10) until phase 14 came.
-MESH_TIMED_STEPS = 3
+# the same rows. Cut further to 128 for the smoke's time.
+MESH_ROWS = 128
+MESH_TIMED_STEPS = 3  # 12b's timed steps a route
+MESH_EVAL_REPEATS = 2  # 12d's timed runs of the sharded eval
 MESH_TRAIN = dict(num_epochs=1, batch_size=256)
 # 12b/12c: a data-parallel step against one rank's at the same weights (the
 # CPU tests' tolerances); 12d: the sharded eval against phase 6's; 12e:
@@ -3302,7 +3347,7 @@ def mesh_eval_part(mesh, emb_path: str) -> dict:
     mplan = ShardedMetricsPlan(fplan, imp_lens, labels, hist_slots=np.arange(len(cand_rev), dtype=np.int64))
     first = fplan.metrics(tower, emb, mplan)
     seconds = []
-    for _ in range(3):
+    for _ in range(MESH_EVAL_REPEATS):
         mesh.barrier()
         t0 = time.perf_counter()
         got = fplan.metrics(tower, emb, mplan)
@@ -3429,7 +3474,7 @@ def mesh_cli_part(work_dir: Path) -> dict:
 
 
 def mesh_native_part(strings: tuple[list, list]) -> dict:
-    """12f: 11a's 50,000 train rows compiled by the native extension alone
+    """12f: 11a's train rows compiled by the native extension alone
     (compile_native raises where compile_behaviors would fall back to numpy)
     and by numpy; the arrays must be equal."""
     impressions, history = strings
@@ -3528,15 +3573,16 @@ def mesh_phase(work_dir: Path, flat: dict, flat_emb: torch.Tensor, strings: tupl
 # Phase 13: multi-GPU part 2 on two ranks that share the card
 # ---------------------------------------------------------------------------
 
-# 13a: data-parallel e2e steps at 9c's batch, each route checked against one
-# rank for MESH2_CHECK_STEPS steps, then MESH2_TIMED_STEPS timed. On mesh
-# (2, 1) the sharded store's gather all_reduces both data ranks' [M, T, D]
-# float32 blocks (1 GB) through gloo's host copies, about 1-5 s a step.
-# 2 and 3 until phase 14 came (PERF.md §4, reduced). The materialize runs
-# over the store's first MESH2_MATERIALIZE_NEWS news (all 65,238 until
-# then), the trainer over MESH2_ROWS of 9e's 256 rows.
+# 13a: data-parallel e2e steps at half of 9c's global batch (MESH2_M,
+# MESH2_B), each route checked against one rank for MESH2_CHECK_STEPS steps,
+# then MESH2_TIMED_STEPS timed. On mesh (2, 1) the sharded store's gather
+# all_reduces both data ranks' [M, T, D] float32 blocks (0.5 GB at this
+# batch) through gloo's host copies. The materialize runs over the store's
+# first MESH2_MATERIALIZE_NEWS news, the trainer over MESH2_ROWS of 9e's
+# rows. Each is reduced for the smoke's time (PERF.md §4 lists the cuts).
 MESH2_CHECK_STEPS, MESH2_TIMED_STEPS = 1, 1
-MESH2_MATERIALIZE_NEWS, MESH2_ROWS = 16_384, 128
+MESH2_M, MESH2_B = E2E_M // 2, E2E_B // 2
+MESH2_MATERIALIZE_NEWS, MESH2_ROWS = 8_192, 64
 MESH2_ROUTES = ("streamed", "resident", "sharded")
 # 13a's EndToEndTrainer: 9e's rows at batch 256, not run_config2's 32: at 32
 # the epoch's 280 steps would each exchange 33 M gradients through gloo
@@ -3580,9 +3626,10 @@ class LaunchRecord:
 
 def mesh2_steps(mesh, route: str, store: TokenStore, batch: dict, rec: LaunchRecord) -> dict:
     """One route of 13a on ``mesh``: MESH2_CHECK_STEPS data-parallel steps of
-    9c's global batch, each against one rank's loss and gradient at the same
-    weights (rank 0), then MESH2_TIMED_STEPS timed (ms a step, pairs/s),
-    the weights' digest, and the bytes a step's store gather moves."""
+    the global ``batch`` (half of 9c's), each against one rank's loss and
+    gradient at the same weights (rank 0), then MESH2_TIMED_STEPS timed (ms
+    a step, pairs/s), the weights' digest, and the bytes a step's store
+    gather moves."""
     from news_recommendation_project_v2_torch.parallel import (
         make_sharded_e2e_train_step,
         make_sharded_e2e_train_step_gathered,
@@ -3626,9 +3673,9 @@ def mesh2_steps(mesh, route: str, store: TokenStore, batch: dict, rec: LaunchRec
     t0 = time.perf_counter()
     losses = rec.counted(lambda: [float(step(opt, states, None, local)) for _ in range(MESH2_TIMED_STEPS)])
     dt = (time.perf_counter() - t0) / MESH2_TIMED_STEPS
-    out = dict(mesh=list(mesh.shape.values()), route=route, M=E2E_M, T=E2E_T, B=E2E_B, L=E2E_L,
+    out = dict(mesh=list(mesh.shape.values()), route=route, M=MESH2_M, T=E2E_T, B=MESH2_B, L=E2E_L,
                local_M=int(local[2].shape[0]), loss_err=loss_err, grad_err=grad_err, ms_per_step=dt * 1e3,
-               pairs_per_s=E2E_B / dt, finite=bool(np.isfinite(losses).all()), digest=param_digest(model))
+               pairs_per_s=MESH2_B / dt, finite=bool(np.isfinite(losses).all()), digest=param_digest(model))
     if route != "streamed":
         out.update(store_gb_per_rank=states.local.numel() * states.local.element_size() / 1e9 if route == "sharded"
                    else states.numel() * states.element_size() / 1e9, upload_seconds=upload_s)
@@ -3891,7 +3938,7 @@ def mesh2_rank(work_dir: str, store_state: torch.Tensor, want_9d: str, requests:
     gen = torch.Generator(device="cuda")
     gen.set_state(store_state)
     store = timed("13a store", e2e_store, gen)  # phase 9's store: its rule from 9a's generator state
-    batch = e2e_batch(store, np.random.default_rng(SEED + 131), E2E_M, E2E_B)
+    batch = e2e_batch(store, np.random.default_rng(SEED + 131), MESH2_M, MESH2_B)
     out["13a steps"] = timed("13a steps", lambda: [mesh2_steps(m, route, store, batch, rec)
                                                   for m in (mesh21, mesh12) for route in MESH2_ROUTES])
     del batch
@@ -4023,12 +4070,18 @@ MIXED = "bfloat16"  # the compute type of 14b-14e
 # A Function's output and gradients on the card against the CPU's, in a
 # 16-bit type: what is rounded to the type may round one unit apart.
 UNIT16 = {torch.bfloat16: 2**-8, torch.float16: 2**-11}
-MIXED_FN_ROWS = 256  # the CPU's share of 14a: its 16-bit GEMMs are slow
+MIXED_FN_ROWS = 64  # the CPU's share of 14a: its 16-bit GEMMs are slow
 # 14b's gradient check at a reduced batch, with
 # tests/test_torch_mixed_precision.py's criteria and the CPU's own float32
 # and bfloat16 gradients as the yardstick (no JAX on the card's machine).
 MIXED_CHECK_B = 16
+MIXED_CHECK_M = 64  # 14d's check: the news of its batch (the CPU runs the float32 token encoder over them)
 MIXED_LOSS_TOL = 1e-3
+# The float16 checks' batch. The card's host has no fast float16 GEMM: there
+# the CPU's float16 step ran at about 0.13 s a token row (0.85 GFLOP/s; 14b's
+# B = 16, T = 1,024 check took 130 s a loss, 14c's B = 64 one 270 s, in PR
+# 15's chip run 2), against a fraction of a second in bfloat16.
+MIXED_F16_CHECK_B = 4
 # 14f: float16 scores on the card against the CPU's float16 ranker.
 MIXED_SERVE_TOL = 3e-2
 
@@ -4096,37 +4149,107 @@ def mixed_kernels_part(gen) -> None:
               seconds=time.perf_counter() - t0)
 
 
+def held_to_cpu(part: str, runs: dict, **fields) -> None:
+    """A 16-bit step on the card held to the same step on the CPU, with
+    tests/test_torch_mixed_precision.py's criteria and the CPU's float32
+    gradients as the yardstick (no JAX on the card's machine). ``runs``
+    maps "card", "cpu" (both in the 16-bit type) and "cpu32" to (loss,
+    {leaf: float64 gradient}): the card's loss within MIXED_LOSS_TOL of the
+    CPU's, and every leaf's gradient g, with the CPU's float32 (g32) and
+    16-bit (gc) ones, |g - g32| <= 1.5 |gc - g32| + 5e-3 |g32| and
+    |g - gc| <= 0.15 |gc| (norms). One JSON line; raises on a miss."""
+    (loss_card, g), (loss_cpu, gc), (_, g32) = runs["card"], runs["cpu"], runs["cpu32"]
+    excess = {
+        n: ((g[n] - g32[n]).norm() - 5e-3 * g32[n].norm()).item() / max((gc[n] - g32[n]).norm().item(), 1e-30)
+        for n in g32
+    }
+    rel = {n: ((g[n] - gc[n]).norm() / gc[n].norm()).item() for n in g32}
+    worst_excess, worst_rel = max(excess, key=excess.get), max(rel, key=rel.get)
+    part_line(part, **fields, leaves=len(g32), loss_card=loss_card, loss_cpu=loss_cpu,
+              worst_excess_over_cpu_error=excess[worst_excess], worst_excess_leaf=worst_excess,
+              worst_norm_rel_to_cpu=rel[worst_rel], worst_norm_rel_leaf=worst_rel,
+              tol=dict(loss=MIXED_LOSS_TOL, excess=1.5, norm_rel=0.15))
+    if not (abs(loss_card - loss_cpu) <= MIXED_LOSS_TOL and all(v <= 1.5 for v in excess.values())
+            and all(v <= 0.15 for v in rel.values()) and set(g) == set(gc) == set(g32)):
+        raise AssertionError(f"{part} {fields}: the card's step against the CPU's: loss {loss_card} / {loss_cpu}, "
+                             f"excess {excess[worst_excess]} ({worst_excess}), norm-relative {rel[worst_rel]} "
+                             f"({worst_rel})")
+
+
+def grads_by_device(make_model, loss_of, computes) -> dict:
+    """One step's loss and float64 gradients ({leaf: tensor} on the host),
+    dropout off, for each of ``computes``: {compute: {"card": ..., "cpu":
+    ..., "cpu32": ...}}, the step on the card and on the CPU in that type
+    and on the CPU in float32 (taken once)."""
+
+    def run(dev: str, compute: str) -> tuple:
+        model = make_model(dev, compute)
+        loss = loss_of(model, dev)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.grad is not None}
+
+    cpu32 = run("cpu", "float32")
+    return {c: {"card": run("cuda", c), "cpu": run("cpu", c), "cpu32": cpu32} for c in computes}
+
+
+def trimmed_tokens(batch: tuple, total: int, multiple: int = 64) -> tuple[int, tuple]:
+    """A flat batch's token arrays cut to its ``total`` live tokens rounded
+    up to ``multiple`` (the pad tokens past them belong to the pad row, which
+    the pool drops): the same step over fewer token rows."""
+    T = -(-total // multiple) * multiple
+    return T, (batch[0][:T], batch[1][:T]) + batch[2:]
+
+
 def mixed_grad_check(state: dict, emb: torch.Tensor) -> None:
-    """14b's check: one flat step at B = 16 (T = 1,024), full width, margin
-    and InfoNCE: the bfloat16 loss on the card within 1e-3 of the CPU's, and
-    every leaf's gradient g with the CPU's float32 (g32) and bfloat16 (gc)
-    gradients: |g - g32| <= 1.5 |gc - g32| + 5e-3 |g32| and |g - gc| <= 0.15
-    |gc| (norms)."""
-    rng = np.random.default_rng(SEED + 14)
-    T, total, batch = flat_inputs(MIXED_CHECK_B, rng)
-    emb_cpu = emb.cpu()
-    for name, b in (("margin", batch), ("infonce", with_negatives(batch, rng))):
-        loss_fn, _, kw = LOSSES[name]
-        runs = {}
-        for label, dev, compute, table in (("card", "cuda", MIXED, emb), ("cpu", "cpu", MIXED, emb_cpu),
-                                           ("cpu32", "cpu", "float32", emb_cpu)):
-            tower = full_tower(state, dev, compute)
-            loss = loss_fn(tower, table, on(b, dev), **kw)
-            loss.backward()
-            runs[label] = loss.item(), {n: p.grad.detach().cpu().double() for n, p in tower.named_parameters()}
-            del tower, loss
-        (loss_card, g), (loss_cpu, gc), (_, g32) = runs["card"], runs["cpu"], runs["cpu32"]
-        ratio = max(
-            ((g[n] - g32[n]).norm() - 5e-3 * g32[n].norm()).item() / max((gc[n] - g32[n]).norm().item(), 1e-30)
-            for n in g32
-        )
-        rel = max(((g[n] - gc[n]).norm() / gc[n].norm()).item() for n in g32)
-        part_line("14b gradients", loss=name, B=MIXED_CHECK_B, T=T, live_tokens=total, compute=MIXED,
-                  loss_card=loss_card, loss_cpu=loss_cpu, worst_excess_over_cpu_error=ratio, worst_norm_rel_to_cpu=rel,
-                  tol=dict(loss=MIXED_LOSS_TOL, excess=1.5, norm_rel=0.15))
-        if not (abs(loss_card - loss_cpu) <= MIXED_LOSS_TOL and ratio <= 1.5 and rel <= 0.15):
-            raise AssertionError(f"14b {name}: the card's bfloat16 step against the CPU's: loss {loss_card} / "
-                                 f"{loss_cpu}, excess {ratio}, norm-relative {rel}")
+    """14b's check: one flat step at full width, margin and InfoNCE, held to
+    the CPU (``held_to_cpu``): in bfloat16 at B = 16 (T = 1,024), in
+    float16 at MIXED_F16_CHECK_B with the tokens trimmed to the live ones
+    (``trimmed_tokens``)."""
+    tables = {"cuda": emb, "cpu": emb.cpu()}
+    for compute, B, seed in ((MIXED, MIXED_CHECK_B, SEED + 14), ("float16", MIXED_F16_CHECK_B, SEED + 15)):
+        rng = np.random.default_rng(seed)
+        T, total, batch = flat_inputs(B, rng)
+        if compute == "float16":
+            T, batch = trimmed_tokens(batch, total)
+        for name, b in (("margin", batch), ("infonce", with_negatives(batch, rng))):
+            loss_fn, _, kw = LOSSES[name]
+            runs = grads_by_device(lambda dev, dt: full_tower(state, dev, dt),
+                                   lambda tower, dev: loss_fn(tower, tables[dev], on(b, dev), **kw), (compute,))
+            held_to_cpu("14b gradients", runs[compute], loss=name, B=B, T=T, live_tokens=total, compute=compute)
+
+
+def mixed_padded_grad_check(state: dict, emb: torch.Tensor) -> None:
+    """14c's check: 8c.2's padded margin step of the latent tower (the tower
+    that runs the kernels), histories end-aligned into 32 clicks, dropout
+    off, held to the CPU (``held_to_cpu``): in bfloat16 at 8c.1's batch (B =
+    64), in float16 at MIXED_F16_CHECK_B."""
+    tables = {"cuda": emb, "cpu": emb.cpu()}
+    margin = TrainConfig().margin
+    for compute, B in ((MIXED, CHECK_B), ("float16", MIXED_F16_CHECK_B)):
+        rng = np.random.default_rng(SEED + 83)
+        _, total, flat = flat_inputs(B, rng)
+        L, batch = padded_from_flat(flat, total, CHECK_L)
+        runs = grads_by_device(lambda dev, dt: padded_tower("latent", state, dev, dt, dropout_rate=0.0),
+                               lambda tower, dev: padded_margin_loss(tower, tables[dev], on(batch, dev), margin),
+                               (compute,))
+        held_to_cpu("14c gradients", runs[compute], tower="latent", B=B, L=L, live_tokens=total, compute=compute)
+
+
+def mixed_e2e_grad_check(store: TokenStore, dev_states: torch.Tensor, state: dict) -> None:
+    """14d's check, in phase 9 while the store is resident: 9c's resident
+    e2e step (the gather from the store on the card, ``TokenAttentionPool``
+    float32, the tower in bfloat16) at a reduced batch (M = 64 news, B = 16
+    histories of L = 64), dropout off, margin and InfoNCE, held to the
+    CPU (``held_to_cpu``; the CPU gathers from the host's copy of the
+    store)."""
+    rng = np.random.default_rng(SEED + 93)
+    flat = {"cuda": dev_states, "cpu": torch.from_numpy(store.states)}
+    for loss, negatives in (("margin", 0), ("infonce", TRAIN_K)):
+        b = e2e_batch(store, rng, MIXED_CHECK_M, MIXED_CHECK_B, negatives, streamed=False)["gathered"]
+        runs = grads_by_device(lambda dev, dt: e2e_model(state, dev, dropout=False, compute=dt),
+                               lambda model, dev: e2e_loss(model, on(b, dev), loss, flat[dev]), (MIXED,))
+        held_to_cpu("14d gradients", runs[MIXED], loss=loss, route="resident", M=MIXED_CHECK_M, T=E2E_T,
+                    B=MIXED_CHECK_B, L=E2E_L, compute=MIXED)
 
 
 def mixed_flat_part(card: str, f32: dict) -> dict:
@@ -4158,7 +4281,8 @@ def mixed_flat_part(card: str, f32: dict) -> dict:
 def mixed_padded_part(states: dict, f32: dict) -> dict:
     """14c: 8c.2 (``padded_step_phase``) for every tower in bfloat16 and the
     latent tower in float16, each beside 8c.2's float32 figures of this
-    run. Returns the latent tower's runs by compute type."""
+    run; then the latent step's gradient check in both types. Returns the
+    latent tower's runs by compute type."""
     emb = torch.randn((NUM_NEWS, DIM), device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
     out = padded_step_phase(states, emb, [(k, MIXED) for k in PADDED_KINDS] + [("latent", "float16")], "14c")
     for (kind, compute), fig in out.items():
@@ -4168,6 +4292,7 @@ def mixed_padded_part(states: dict, f32: dict) -> dict:
                   pairs_per_s=fig["pairs_per_s"], float32_pairs_per_s=ref["pairs_per_s"], peak_gb=fig["peak_gb"],
                   float32_peak_gb=ref["peak_gb"], memory_model_gb=fig["memory_model_gb"],
                   float32_device_ms_by_part=ref["device_ms_by_part"])
+    mixed_padded_grad_check(states["latent"], emb)
     return {compute: out[("latent", compute)] for compute in (MIXED, "float16")}
 
 
@@ -4175,7 +4300,7 @@ def mixed_e2e_part(store: TokenStore, dev_states: torch.Tensor, state: dict, car
     """14d (run in phase 9, while the store is resident): 9c
     (``e2e_steps_phase``) on the resident store with the tower in bfloat16
     (``TokenAttentionPool`` float32, as in the JAX package), beside 9c's
-    float32 resident figures."""
+    float32 resident figures; then the step's gradient check."""
     rec = e2e_steps_phase(store, dev_states, state, card, MIXED, ("resident",), "14d")
     for (loss, route), fig in rec["figures"].items():
         ref = f32[(loss, route)]
@@ -4183,6 +4308,7 @@ def mixed_e2e_part(store: TokenStore, dev_states: torch.Tensor, state: dict, car
                   float32_ms_per_step=ref["ms_per_step"], speedup=ref["ms_per_step"] / fig["ms_per_step"],
                   pairs_per_s=fig["pairs_per_s"], float32_pairs_per_s=ref["pairs_per_s"], peak_gb=fig["peak_gb"],
                   float32_peak_gb=ref["peak_gb"], float32_device_ms_by_part=ref["device_ms_by_part"])
+    mixed_e2e_grad_check(store, dev_states, state)
     return rec
 
 

@@ -190,7 +190,6 @@ def main(argv=None):
     mesh = None
     if args.mesh:
         from ..config import MeshConfig
-        from ..parallel import build_mesh
 
         try:
             data_size, model_size = (int(x) for x in args.mesh.split(","))
@@ -198,10 +197,24 @@ def main(argv=None):
             parser.error("--mesh wants DATA,MODEL integers, e.g. 1,2")
         if data_size < 1 or model_size < 1:
             parser.error("--mesh wants positive sizes")
-        mesh = build_mesh(
-            MeshConfig(data_size=data_size, model_size=model_size), backend=args.dist_backend, device=args.device
-        )
+        mesh_config = MeshConfig(data_size=data_size, model_size=model_size)
+    try:
+        if args.mesh:
+            from ..parallel import build_mesh
 
+            mesh = build_mesh(mesh_config, backend=args.dist_backend, device=args.device)
+        _serve(args, mesh)
+    finally:
+        # Every rank leaves _serve after close()'s hand-shake (the followers'
+        # follow() joins it), so no rank tears the groups down while
+        # another is still inside the last broadcast.
+        if args.mesh and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _serve(args, mesh) -> None:
+    """Every rank builds the ranker; rank 0 (or the one process) serves and
+    then closes it, the other ranks follow until that close."""
     ranker = build_ranker(
         args.emb_dir,
         args.dataset,
@@ -246,5 +259,3 @@ def _front_end(ranker: Ranker, args, mesh) -> None:
 
 if __name__ == "__main__":
     main()
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()

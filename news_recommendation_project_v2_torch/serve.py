@@ -103,7 +103,7 @@ class Ranker:
             self._news_norm = torch.linalg.norm(self.news_emb.local, dim=-1).clamp_min(EPS)  # this shard's rows
             self._lock = threading.Lock()
             self._closed = False
-            self._beat: Optional[threading.Event] = None
+            self._beat: Optional[tuple[threading.Event, threading.Thread]] = None
             nccl = dist.is_initialized() and dist.get_backend() == "nccl"
             self._comm_device = self.news_emb.local.device if nccl else torch.device("cpu")
         self.row_of = {str(n): i for i, n in enumerate(news_ids)}
@@ -229,38 +229,53 @@ class Ranker:
 
     def follow(self) -> int:
         """A rank other than 0: serve rank 0's broadcast calls until its
-        ``close()``; returns the number of calls served."""
+        ``close()``, whose hand-shake it joins; returns the number of calls
+        served."""
         if self.mesh is None or self.mesh.rank == 0:
             raise ValueError("follow() runs on the ranks of a serving mesh other than 0")
         served = 0
         while True:
             op, k, arrays = self._receive()
             if op == _STOP:
+                self.mesh.barrier()
                 return served
             if op != _NOOP:
                 self._run(op, arrays, k)
                 served += 1
 
     def close(self) -> None:
-        """Rank 0: stop ``keep_alive`` and release the followers (their
-        ``follow()`` returns); a closed ranker refuses calls."""
+        """Rank 0: stop ``keep_alive`` and wait for its thread to end, then
+        release the followers (their ``follow()`` returns); a closed ranker
+        refuses calls.
+
+        ``_STOP`` is the last call rank 0 sends, and a barrier of every rank
+        ends the exchange: ``close`` and ``follow`` return only once each
+        rank has received it. A rank that tears its process groups down
+        while another is still inside the last broadcast (the root's part of
+        a broadcast ends before the others' do) can abort at exit, as rank 0
+        of ``nrtorch-serve --mesh`` did under load."""
         if self.mesh is not None and self.mesh.rank == 0:
             if self._beat is not None:
-                self._beat.set()
+                done, thread = self._beat
+                done.set()
+                thread.join()
             self._call(_STOP)
+            self.mesh.barrier()
 
     def keep_alive(self, interval: float) -> threading.Event:
         """Rank 0: a daemon thread sends the followers an empty call every
         ``interval`` seconds (under the process group's timeout), so that an
         idle server's followers keep waiting; ``close`` (or setting the
-        returned event) stops it."""
-        done = self._beat = threading.Event()
+        returned event) stops it, and ``close`` joins it."""
+        done = threading.Event()
 
         def beat():
             while not done.wait(interval):
                 self._call(_NOOP)
 
-        threading.Thread(target=beat, daemon=True, name="ranker-keep-alive").start()
+        thread = threading.Thread(target=beat, daemon=True, name="ranker-keep-alive")
+        self._beat = done, thread
+        thread.start()
         return done
 
     # -- host side -----------------------------------------------------------

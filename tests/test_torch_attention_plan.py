@@ -26,6 +26,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     latent_attention,
     plan_attention,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMS = 132  # an H100 SXM
 SHAPES = [  # (B, H, L, N, dh)

@@ -38,6 +38,7 @@ from news_recommendation_project_v2_torch.ops.encode import load_embeddings
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 from news_recommendation_project_v2_torch.pipeline import TransformDataComponent
 from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SPLITS = ("MINDsmall_train", "MINDsmall_dev")
 METRICS = ("auc", "mrr", "ndcg5", "ndcg10")

@@ -12,6 +12,7 @@ from news_recommendation_project_v2_torch.models.convert import (
     latent_state_dict_from_jax,
     random_latent_params,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMALL = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
 

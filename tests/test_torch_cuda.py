@@ -11,6 +11,7 @@ it without the conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -63,6 +64,7 @@ from news_recommendation_project_v2_torch.train.step import (
     padded_margin_loss,
 )
 from news_recommendation_project_v2_torch.train.trainer import EndToEndTrainer, TowerTrainer, make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 pytestmark = pytest.mark.cuda
 
@@ -363,20 +365,21 @@ def test_functions_in_16_bits_match_the_cpu(cuda, name, dtype):
 SMALL_TOWER = TowerConfig(reduced_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
 
 
-def _train_batch(rng, b=48, k=5, news=300):
-    """A flat batch as TowerTrainer builds one: deduped rows' tokens padded to
-    1,024 (pad row b), pad pairs, -1 negatives."""
-    lens = rng.integers(1, 40, 30)
+def _train_batch(rng, b=48, k=5, news=300, users=30, pairs=40, tokens=1024):
+    """A flat batch as TowerTrainer builds one: ``users`` deduped rows'
+    tokens padded to ``tokens`` (pad row b), ``pairs`` pairs padded to b,
+    -1 negatives."""
+    lens = rng.integers(1, 40, users)
     total = int(lens.sum())
-    tok_rows = np.full(1024, b, np.int32)
-    tok_rows[:total] = np.repeat(np.arange(30), lens)
+    tok_rows = np.full(tokens, b, np.int32)
+    tok_rows[:total] = np.repeat(np.arange(users), lens)
     neg = rng.integers(0, news, (b, k)).astype(np.int32)
     neg[rng.random((b, k)) < 0.2] = -1
     return (
-        rng.integers(0, news, 1024).astype(np.int32), tok_rows, np.pad(lens, (0, b - 30)).astype(np.float32),
-        np.pad(rng.integers(0, 30, 40), (0, b - 40)).astype(np.int32),
-        np.pad(rng.integers(0, news, 40), (0, b - 40)).astype(np.int32), neg,
-        np.pad(np.ones(40, np.float32), (0, b - 40)),
+        rng.integers(0, news, tokens).astype(np.int32), tok_rows, np.pad(lens, (0, b - users)).astype(np.float32),
+        np.pad(rng.integers(0, users, pairs), (0, b - pairs)).astype(np.int32),
+        np.pad(rng.integers(0, news, pairs), (0, b - pairs)).astype(np.int32), neg,
+        np.pad(np.ones(pairs, np.float32), (0, b - pairs)),
     )
 
 
@@ -599,21 +602,21 @@ def _padded_tower(kind, device, cfg=None):
     return tower.to(device)
 
 
-def _padded_batch(rng, b=48, u=30, l=64, k=5, news=300):
+def _padded_batch(rng, b=48, u=30, l=64, k=5, news=300, pairs=None):
     """A padded batch as TowerTrainer._epoch_batches builds one: u deduped
-    histories end-aligned into [b, l] (rows past u all pad), pad pairs, -1
-    negatives."""
+    histories end-aligned into [b, l] (rows past u all pad), ``pairs`` real
+    pairs (b - 8 by default) and pad pairs, -1 negatives."""
     lens = rng.integers(1, l + 1, u)
     mask = np.zeros((b, l), np.float32)
     mask[:u] = np.arange(l)[None] < lens[:, None]
     idx = (rng.integers(0, news, (b, l)) * mask).astype(np.int32)
     neg = rng.integers(0, news, (b, k)).astype(np.int32)
     neg[rng.random((b, k)) < 0.2] = -1
-    real = b - 8
+    real = b - 8 if pairs is None else pairs
     return (
-        idx, mask, np.pad(rng.integers(0, u, real), (0, 8)).astype(np.int32),
-        np.pad(rng.integers(0, news, real), (0, 8)).astype(np.int32), neg,
-        np.pad(np.ones(real, np.float32), (0, 8)),
+        idx, mask, np.pad(rng.integers(0, u, real), (0, b - real)).astype(np.int32),
+        np.pad(rng.integers(0, news, real), (0, b - real)).astype(np.int32), neg,
+        np.pad(np.ones(real, np.float32), (0, b - real)),
     )
 
 
@@ -647,6 +650,42 @@ def test_latent_padded_forward_and_step_match_cpu(cuda, cfg):
     assert abs(out["card"][1] - out["cpu"][1]) <= 1e-5
     for name, g in out["cpu"][2].items():
         assert _norm_rel(out["card"][2][name], g) <= 1e-4, name
+
+
+@pytest.mark.parametrize("step, compute", [("flat", "float16"), ("padded", "bfloat16")])
+def test_16_bit_steps_match_the_cpu(cuda, step, compute):
+    """A full-width latent tower's margin step in a 16-bit type at B = 8
+    (the flat step over its tokens, the padded one over [8, 32] histories):
+    the card's loss within 1e-3 of the CPU's in the same type, and every
+    leaf's gradient g, with the CPU's float32 (g32) and 16-bit (gc) ones,
+    |g - g32| <= 1.5 |gc - g32| + 5e-3 |g32| and |g - gc| <= 0.15 |gc|
+    (norms): tests/test_torch_mixed_precision.py's criteria, with the CPU's
+    gradients in place of the JAX package's."""
+    rng = np.random.default_rng(14)
+    cfg = TowerConfig()
+    state = latent_state_dict_from_jax(random_latent_params(rng, cfg))
+    emb = (rng.standard_normal((300, cfg.reduced_dim)) * 0.5).astype(np.float32)
+    if step == "flat":
+        batch = _train_batch(rng, b=8, users=8, pairs=8, tokens=512)
+        batch = batch[:5] + (batch[5][:, 0].clip(0),) + batch[6:]
+        loss_fn = flat_margin_loss
+    else:
+        batch = _padded_batch(rng, b=8, u=8, l=32, pairs=8)
+        batch = batch[:4] + (batch[4][:, 0].clip(0),) + batch[5:]
+        loss_fn = padded_margin_loss
+    runs = {}
+    for key, dev, dtype in (("card", cuda, compute), ("cpu", "cpu", compute), ("cpu32", "cpu", "float32")):
+        tower = _flat_tower(dataclasses.replace(cfg, compute_dtype=dtype), state, dev)
+        table = torch.from_numpy(emb).to(dev)
+        loss = loss_fn(tower, table, tuple(torch.from_numpy(a).to(dev) for a in batch), 2.0)
+        loss.backward()
+        runs[key] = loss.item(), {n: p.grad.double().cpu() for n, p in tower.named_parameters()}
+    (loss_card, g), (loss_cpu, gc), (_, g32) = runs["card"], runs["cpu"], runs["cpu32"]
+    assert abs(loss_card - loss_cpu) <= 1e-3
+    assert set(g) == set(gc) == set(g32)
+    for n in g32:
+        assert (g[n] - g32[n]).norm() <= 1.5 * (gc[n] - g32[n]).norm() + 5e-3 * g32[n].norm(), n
+        assert (g[n] - gc[n]).norm() <= 0.15 * gc[n].norm(), n
 
 
 @pytest.mark.parametrize("kind", ["final_attention", "transformer"])

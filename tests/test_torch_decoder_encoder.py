@@ -23,6 +23,7 @@ from news_recommendation_project_v2_torch.models.convert import (
 from news_recommendation_project_v2_torch.models.news_encoder import NewsEncoder, encoder_config_from_hf
 from news_recommendation_project_v2_torch.ops.geglu import geglu
 from news_recommendation_project_v2_torch.ops.latent_attention import latent_attention
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 # A tiny Mistral-shaped backbone: 4 query heads over 2 kv heads (GQA).
 TEXT = dict(

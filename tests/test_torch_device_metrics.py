@@ -16,6 +16,7 @@ from news_recommendation_project_v2_torch.data.grouping import dense_rank_by_seg
 from news_recommendation_project_v2_torch.eval import device_metrics as dm
 from news_recommendation_project_v2_torch.eval import metrics
 from news_recommendation_project_v2_torch.eval.ranker import compose_final_scores, history_candidate_slots
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 KEYS = ("auc", "mrr", "ndcg5", "ndcg10")
 

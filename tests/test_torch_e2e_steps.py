@@ -29,6 +29,7 @@ from news_recommendation_project_v2_torch.models import TokenAttentionPool, buil
 from news_recommendation_project_v2_torch.ops.encode import TokenStore
 from news_recommendation_project_v2_torch.train import step
 from news_recommendation_project_v2_torch.train.trainer import make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D, NEWS, M, REAL, T, B, L, K = 32, 40, 24, 19, 6, 16, 8, 3
 TOWER = dict(kind="latent", reduced_dim=D, embedding_dim=D, num_latents=8, num_heads=2, latent_dim_head=16)

@@ -44,6 +44,7 @@ from news_recommendation_project_v2_torch.ops.encode import TokenStore
 from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
 from news_recommendation_project_v2_torch.train.trainer import EndToEndTrainer
 from news_recommendation_project_v2_torch.utils import memory
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 32
 TOWER = dict(kind="latent", reduced_dim=D, embedding_dim=D, num_latents=8, num_heads=2, latent_dim_head=16)

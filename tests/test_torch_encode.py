@@ -38,6 +38,7 @@ from news_recommendation_project_v2_torch.ops.encode import (
     encode_query_and_passage,
 )
 from news_recommendation_project_v2_torch.utils.memory import encoder_activation_bytes, estimate_encoder_batch
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 TINY = dict(vocab_size=120, hidden_dim=32, num_layers=2, num_heads=4, intermediate_dim=64, max_position=66,
             compute_dtype="float32")

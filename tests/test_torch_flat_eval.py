@@ -30,6 +30,7 @@ from news_recommendation_project_v2_torch.models.convert import (
 )
 from news_recommendation_project_v2_torch.ops import scoring
 from news_recommendation_project_v2_torch.utils import memory
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 SMALL = dict(reduced_dim=32, embedding_dim=32, num_latents=4, num_heads=2, latent_dim_head=8)

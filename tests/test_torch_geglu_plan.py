@@ -24,6 +24,7 @@ from news_recommendation_project_v2_torch.ops.geglu import (
     geglu,
     plan_geglu,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMS, L2 = 132, 50 * 2**20  # an H100 SXM
 SHAPES = [

@@ -22,6 +22,7 @@ from news_recommendation_project_v2_tpu.data.synthetic import write_synthetic_mi
 from news_recommendation_project_v2_torch.config import DataSubset, NewsDataset
 from news_recommendation_project_v2_torch.data import ingest
 from news_recommendation_project_v2_torch.data.synthetic import write_synthetic_mind
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SPLITS = ("MINDsmall_train", "MINDsmall_dev")
 FILES = ("news.tsv", "behaviors.tsv", "entity_embedding.vec")

@@ -20,6 +20,7 @@ from news_recommendation_project_v2_torch.models import average_pool, build_towe
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan
 from news_recommendation_project_v2_torch.serve import Ranker
 from news_recommendation_project_v2_torch.train.trainer import TowerTrainer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "news_recommendation_project_v2_torch"

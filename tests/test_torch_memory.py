@@ -10,6 +10,7 @@ import torch
 from news_recommendation_project_v2_tpu.utils import memory as jax_memory
 from news_recommendation_project_v2_torch.utils import memory
 from news_recommendation_project_v2_torch.utils.profiling import profile_trace, timed
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 
 @pytest.mark.parametrize("budget", [None, 80 * 1024**3, 16 * 1024**3, 1 << 20])

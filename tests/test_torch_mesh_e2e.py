@@ -53,6 +53,7 @@ from news_recommendation_project_v2_tpu.ops.encode import TokenStore as JaxToken
 from news_recommendation_project_v2_tpu.ops.encode import materialize_from_token_store as jax_materialize
 from news_recommendation_project_v2_tpu.train.trainer import EndToEndTrainer as JaxEndToEndTrainer
 from news_recommendation_project_v2_tpu.utils import memory as jax_memory
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = workers.D
 SHAPES = [(2, 1), (1, 2), (2, 2)]

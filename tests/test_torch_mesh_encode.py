@@ -62,6 +62,7 @@ from news_recommendation_project_v2_tpu.models import build_tower as jax_build_t
 from news_recommendation_project_v2_tpu.models.news_encoder import NewsEncoder as JaxNewsEncoder
 from news_recommendation_project_v2_tpu.parallel import build_mesh as jax_build_mesh
 from news_recommendation_project_v2_tpu.parallel.sharding import shard_encoder_params_tp as jax_shard_tp
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = workers.D
 SHAPES = [(2, 1), (1, 2)]

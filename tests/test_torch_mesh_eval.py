@@ -39,6 +39,7 @@ from news_recommendation_project_v2_tpu.data import compile_behaviors as jax_com
 from news_recommendation_project_v2_tpu.models import build_tower as jax_build_tower
 from news_recommendation_project_v2_tpu.parallel import build_mesh as jax_build_mesh
 from news_recommendation_project_v2_tpu.parallel.flat_eval import ShardedFlatEvalPlan as JaxShardedFlatEvalPlan
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = workers.D
 METRICS = ("auc", "mrr", "ndcg5", "ndcg10")

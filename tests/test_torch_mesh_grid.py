@@ -44,6 +44,7 @@ from news_recommendation_project_v2_tpu.models import WeightedSumModel as JaxBle
 from news_recommendation_project_v2_tpu.models import build_tower as jax_build_tower
 from news_recommendation_project_v2_tpu.parallel import build_mesh as jax_build_mesh
 from news_recommendation_project_v2_tpu.train import trainer as jax_trainer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = workers.D
 TRAINERS = ("tower_flat", "tower_padded", "joint", "classification")

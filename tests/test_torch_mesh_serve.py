@@ -43,6 +43,7 @@ from news_recommendation_project_v2_torch.parallel import launch
 from news_recommendation_project_v2_tpu.config import TowerConfig as JaxTowerConfig
 from news_recommendation_project_v2_tpu.models import build_tower as jax_build_tower
 from news_recommendation_project_v2_tpu.serve import Ranker as JaxRanker
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 REPO = Path(__file__).resolve().parents[1]
 D = workers.D
@@ -113,6 +114,24 @@ def test_follower_fails_when_rank_0_is_silent(runs):
     got = runs["ranks"][1]["dead_leader"]
     assert got["error"] == "RuntimeError" and 2.5 <= got["seconds"] < 6.0, got
     assert runs["ranks"][0]["dead_leader"] == dict(leader=True)
+
+
+def test_keep_alive_ends_before_close_returns():
+    """On mesh (1, 2), rank 0 beats every 0.01 s while it answers
+    ``rank_batch`` calls, then closes while the beat thread is inside a
+    beat: the thread has ended when ``close()`` returns, the follower's
+    ``follow()`` returns the number of calls rank 0 sent, the answers equal
+    the single-device ranker's, and both ranks exit 0 (``launch`` raises
+    otherwise)."""
+    leader, follower = launch(workers.keep_alive_worker, 2, backend="gloo", timeout=300)
+    assert leader["thread_ended"]
+    assert leader["sent"]["beats"] >= workers.KEEP_ALIVE_CALLS + 1
+    assert follower["served"] == leader["sent"]["calls"] > 0
+    want = workers.serve_ranker(None).rank_batch(workers.serve_requests()[:4])
+    assert len(leader["answers"]) == workers.KEEP_ALIVE_CALLS
+    for answer in leader["answers"]:
+        for g, w in zip(answer, want):
+            _same(g, w)
 
 
 @pytest.fixture(scope="module")

@@ -63,19 +63,9 @@ from news_recommendation_project_v2_torch.ops.encode import TokenStore
 from news_recommendation_project_v2_torch.ops.geglu import geglu_backward
 from news_recommendation_project_v2_torch.train import step
 from news_recommendation_project_v2_torch.train.trainer import TowerTrainer, make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 DTYPES = ["bfloat16", "float16"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side runs on one thread: its tensors are small, and with
-    the suite's workers sharing the cores a pool of threads each spends
-    more time waiting on the others than computing."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 LOSS_TOL = 1e-3
 ZERO_TOL = 2e-4
 

@@ -31,6 +31,7 @@ from news_recommendation_project_v2_torch.models.news_encoder import (
     NewsEncoder,
     encoder_config_from_hf,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 TINY = dict(vocab_size=97, hidden_dim=32, num_layers=2, num_heads=4, intermediate_dim=64, max_position=20)
 

@@ -25,6 +25,7 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     latent_attention,
     reference_attention,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 B, H, L, N, DH = 3, 2, 16, 8, 32
 C, D, F = 512, 128, 512

@@ -26,6 +26,7 @@ from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.models.convert import random_tower_params, tower_state_dict_from_jax
 from news_recommendation_project_v2_torch.ops import scoring
 from news_recommendation_project_v2_torch.utils import memory
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D, NUM_NEWS, ROWS = 32, 120, 40
 BUCKETS = (4, 8, 16)  # small buckets, so that rows of up to 23 clicks meet every case, the cap included

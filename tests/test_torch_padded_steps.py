@@ -32,6 +32,7 @@ from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.models import build_tower, convert, towers
 from news_recommendation_project_v2_torch.train import step
 from news_recommendation_project_v2_torch.train.trainer import make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D, NUM_NEWS, B, U, L, K = 32, 150, 24, 14, 16, 4
 CFGS = {

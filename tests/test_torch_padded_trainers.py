@@ -30,6 +30,7 @@ from news_recommendation_project_v2_torch.data.synthetic import align_embeddings
 from news_recommendation_project_v2_torch.eval.ranker import compose_final_scores
 from news_recommendation_project_v2_torch.models import build_tower, convert, towers
 from news_recommendation_project_v2_torch.train.trainer import ClassificationTrainer, JointTowerTrainer, TowerTrainer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 64
 CFGS = {

@@ -47,6 +47,7 @@ from test_torch_pipeline_world import (  # noqa: F401  (fixtures)
     tower_params,
     world,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 
 # -- the pipeline kernel ---------------------------------------------------

@@ -48,6 +48,7 @@ from test_torch_pipeline_world import (  # noqa: F401  (fixtures)
     tower_params,
     world,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 
 def test_final_attention_tower_components_match_jax(classified):

@@ -7,6 +7,7 @@ scores and metrics within 1e-5."""
 import pytest
 
 from test_torch_pipeline_world import classified, check_attention_components, world  # noqa: F401  (fixtures)
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 
 @pytest.mark.parametrize("loss", ["margin", "infonce"])

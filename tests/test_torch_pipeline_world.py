@@ -44,6 +44,7 @@ from news_recommendation_project_v2_torch.pipeline import (
     LoadEmbeddingComponent,
     TransformDataComponent,
 )
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 32
 SPLITS = ("MINDsmall_train", "MINDsmall_dev")

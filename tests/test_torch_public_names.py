@@ -27,6 +27,7 @@ from news_recommendation_project_v2_tpu.data.grouping import expand_items as jax
 from news_recommendation_project_v2_tpu.data.grouping import rank_group_preds as jax_rank_group_preds
 from news_recommendation_project_v2_tpu.data.partition import shard_rows as jax_shard_rows
 from news_recommendation_project_v2_tpu.parallel.flat_eval import partition_rows_by_tokens as jax_partition
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 FIELDS = ("imp_rev", "imp_row", "imp_lens", "hist_rev", "hist_row", "hist_lens", "hist_row_index", "labels_flat")
 REPO = Path(__file__).resolve().parents[1]

@@ -35,6 +35,7 @@ from news_recommendation_project_v2_torch.models import build_tower, convert, to
 from news_recommendation_project_v2_torch.ops import scoring
 from news_recommendation_project_v2_torch.ops.encode import load_embeddings, save_embeddings
 from news_recommendation_project_v2_torch.train.trainer import JointTowerTrainer, TowerTrainer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 32
 TOWERS = {

@@ -27,6 +27,7 @@ from news_recommendation_project_v2_torch.models.convert import (
     random_latent_params,
 )
 from news_recommendation_project_v2_torch.serve import Ranker
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D, NUM_NEWS = 32, 700
 CFG = TowerConfig(kind="latent", **tower_kwargs_for_dim(D))

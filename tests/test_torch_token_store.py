@@ -21,6 +21,7 @@ from news_recommendation_project_v2_tpu.ops.encode import materialize_from_token
 from news_recommendation_project_v2_torch.config import bucket_for_open
 from news_recommendation_project_v2_torch.models import TokenAttentionPool, convert
 from news_recommendation_project_v2_torch.ops.encode import TokenStore, materialize_from_token_store
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 16
 

@@ -25,6 +25,7 @@ from news_recommendation_project_v2_tpu.models import pooling as jax_pooling
 from news_recommendation_project_v2_tpu.models import towers as jax_towers
 from news_recommendation_project_v2_torch.config import TowerConfig
 from news_recommendation_project_v2_torch.models import attention, build_tower, convert, pooling, towers
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D, HIDDEN = 64, 128
 CFGS = {

@@ -23,6 +23,7 @@ from news_recommendation_project_v2_torch.data import prefetch, sampling, synthe
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.models import build_tower
 from news_recommendation_project_v2_torch.train.trainer import TowerTrainer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMALL = dict(reduced_dim=32, embedding_dim=32, num_latents=4, num_heads=2, latent_dim_head=8)
 

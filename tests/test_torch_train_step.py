@@ -31,6 +31,7 @@ from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_gegl
 from news_recommendation_project_v2_torch.ops.latent_attention import latent_attention, reference_attention
 from news_recommendation_project_v2_torch.train import losses, step
 from news_recommendation_project_v2_torch.train.trainer import make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMALL = dict(reduced_dim=64, embedding_dim=64, num_latents=8, num_heads=2, latent_dim_head=16)
 NUM_NEWS, B, U, T, K = 200, 48, 30, 1024, 5

@@ -26,6 +26,7 @@ from news_recommendation_project_v2_torch.models.convert import latent_state_dic
 from news_recommendation_project_v2_torch.parallel.mesh import Mesh
 from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
 from news_recommendation_project_v2_torch.train.trainer import PlateauScheduler, TowerTrainer, make_optimizer
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 D = 64
 TOWER = dict(kind="latent", reduced_dim=D, num_latents=8, latent_dim_head=16)

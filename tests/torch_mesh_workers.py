@@ -701,6 +701,61 @@ def dead_leader_check(timeout: float = 3.0) -> dict:
     return dict(error=None, seconds=time.monotonic() - t0)
 
 
+KEEP_ALIVE_INTERVAL = 0.01
+KEEP_ALIVE_CALLS = 3  # rank_batch calls served while the beats fire
+
+
+def keep_alive_worker() -> dict:
+    """``Ranker.keep_alive`` beside served calls on mesh (1, 2): rank 0
+    beats every 0.01 s, answers ``KEEP_ALIVE_CALLS`` ``rank_batch`` calls
+    of 4 requests with beats between them, and closes while the beat thread
+    is inside one beat's tail (after the empty call, before its next wait;
+    a thread the scheduler has not run yet, as under a loaded host). Rank 0
+    returns whether the thread had ended when ``close()`` returned and the
+    count of calls and beats it sent; the follower the count
+    ``follow()`` returned."""
+    import threading
+    import time
+
+    from news_recommendation_project_v2_torch import serve
+
+    torch.set_num_threads(1)
+    mesh = build_mesh(MeshConfig(data_size=1, model_size=2), backend="gloo")
+    table, ids = serve_table()
+    sent = {"calls": 0, "beats": 0}
+    in_tail = threading.Event()
+
+    class Counted(serve.Ranker):
+        def _call(self, op, arrays=(), k=0):
+            out = super()._call(op, arrays, k)
+            if op == serve._NOOP and threading.current_thread().name == "ranker-keep-alive":
+                sent["beats"] += 1
+                in_tail.set()
+                time.sleep(0.5)
+            elif op in (serve._SCORE, serve._RETRIEVE):
+                sent["calls"] += 1
+            return out
+
+    ranker = Counted(tower_from(numpy_params()), table, ids, mesh=mesh, device="cpu")
+    if mesh.rank != 0:
+        return dict(served=ranker.follow())
+    def next_beat_tail():
+        in_tail.clear()
+        if not in_tail.wait(30):
+            raise TimeoutError("no beat within 30 s")
+
+    reqs = serve_requests()[:4]
+    ranker.keep_alive(KEEP_ALIVE_INTERVAL)
+    answers = []
+    for _ in range(KEEP_ALIVE_CALLS):
+        next_beat_tail()
+        answers.append(ranker.rank_batch(reqs))
+    next_beat_tail()
+    ranker.close()
+    beating = [t for t in threading.enumerate() if t.name == "ranker-keep-alive"]
+    return dict(thread_ended=not beating, sent=sent, answers=answers)
+
+
 def serve_worker(shapes: list) -> dict:
     """Mesh serving on each mesh shape of this world, the sharded scoring
     there, then the silent leader."""
