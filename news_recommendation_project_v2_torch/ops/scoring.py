@@ -40,6 +40,7 @@ from ..data.grouping import lengths_to_offsets, truncate_flat_end_aligned
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan, metric_sums
 from ..models.latent_attention import pool_epilogue
+from ..utils import profiling
 from ..utils.memory import estimate_flat_chunk
 
 DEFAULT_FLAT_CHUNK = 64 * 1024
@@ -308,20 +309,27 @@ class _HistoryChunks:
                 tuple(_upload(a, device) for a in (i, r[starts], np.append(starts, len(r))))
             )
         self.lens = _upload(np.asarray(lens_used, dtype=np.float32), device)
+        self.tokens_real = len(rows)
+        self.tokens_computed = len(self.chunks) * chunk_tokens
 
     def user_vectors(self, tower, query_table: torch.Tensor, normalize: bool) -> torch.Tensor:
         """[num_rows, D] float32: the tower per token, chunk by chunk, the
         segment-add, then the tower's own pool epilogue (the mean over
-        ``max(len, 1)`` tokens and, if ``normalize``, the L2 norm)."""
+        ``max(len, 1)`` tokens and, if ``normalize``, the L2 norm). Where it
+        records (``utils.profiling``), a span ``eval.chunk`` each chunk, and
+        the counters ``eval.tokens_real`` and ``eval.tokens_computed``."""
         acc = torch.zeros(
             (self.num_rows + 1, tower.dim), dtype=torch.float32, device=query_table.device
         )
         for idx, rows, offsets in self.chunks:
-            h = tower(query_table[idx][None], None)[0].float()
-            acc.index_add_(0, rows, torch.segment_reduce(h, "sum", offsets=offsets, unsafe=True))
-            # Gone before the next chunk's tower runs: at the eval's chunk
-            # sizes one chunk's states are a gigabyte.
-            del h
+            with profiling.span("eval.chunk"):
+                h = tower(query_table[idx][None], None)[0].float()
+                acc.index_add_(0, rows, torch.segment_reduce(h, "sum", offsets=offsets, unsafe=True))
+                # Gone before the next chunk's tower runs: at the eval's chunk
+                # sizes one chunk's states are a gigabyte.
+                del h
+        profiling.count("eval.tokens_real", self.tokens_real)
+        profiling.count("eval.tokens_computed", self.tokens_computed)
         return pool_epilogue(acc[: self.num_rows], self.lens, normalize)
 
 
@@ -419,7 +427,9 @@ class FlatEvalPlan:
         if not _same_device(metrics_plan.device, self.device):
             raise ValueError(f"the metrics plan lies on {metrics_plan.device}, this plan on {self.device}")
         full = metrics_plan.compose(self._scores(tower, news_emb, query_news_emb, normalize), alpha)
-        return metrics_plan.finalize(metric_sums(full, metrics_plan.grids).tolist())
+        with profiling.span("eval.fetch"):
+            sums = metric_sums(full, metrics_plan.grids).tolist()
+        return metrics_plan.finalize(sums)
 
 
 def score_all_impressions_flat(

@@ -59,6 +59,7 @@ from ..parallel.sharding import (
     shard_news_table,
     shard_token_store_states,
 )
+from ..utils import profiling
 from ..utils.memory import fits_device_token_store
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
 from .step import (
@@ -499,7 +500,22 @@ class TowerTrainer(ResumableTrainer):
         (built on the prefetch thread)."""
         batches = self._epoch_batches_flat() if self.flat_train else self._epoch_batches()
         for batch in batches:
-            yield float(batch[-1].sum()), _pinned(self._shard(batch), self.device)
+            local = self._shard(batch)
+            self._count_tokens(local)
+            yield float(batch[-1].sum()), _pinned(local, self.device)
+
+    def _count_tokens(self, local: tuple) -> None:
+        """Where it records (``utils.profiling``), count a step's real and
+        computed history tokens as its batch is handed over (this rank's
+        share on a mesh): the flat stream's real tokens against its length,
+        or the padded block's mask against its ``B x L``. On the producer
+        thread, so that the loop gives up no GIL to count."""
+        if not profiling.active():
+            return
+        local = local if self._mesh_step is None else local[2:]  # after the shard's rows and scale
+        real, computed = (local[2].sum(), local[0].size) if self.flat_train else (local[1].sum(), local[1].size)
+        profiling.count("train.tokens_real", int(real))
+        profiling.count("train.tokens_computed", int(computed))
 
     def _train_step(self, batch) -> torch.Tensor:
         cfg, tower, news, query = self.cfg, self.tower, self.news_emb_train, self.query_train
@@ -513,19 +529,32 @@ class TowerTrainer(ResumableTrainer):
             return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, self.generator, query))
         return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, self.generator, query))
 
+    @profiling.unit("train.epoch")
     def train_one_epoch(self) -> float:
         """One epoch of steps; returns the pair-weighted mean loss. The loss
         is fetched every ``loss_sync_every`` steps (each fetch waits for the
-        card) and every step's loss is recorded."""
+        card) and every step's loss is recorded.
+
+        Where it records (``utils.profiling``), the spans ``train.wait_batch``
+        (blocked on the prefetch queue), ``train.build_batch`` (the producer
+        thread), ``train.step`` (the copies and the step queued) and
+        ``train.loss_fetch``, and the counters ``train.steps``,
+        ``train.pairs`` and (``_count_tokens``) ``train.tokens_real`` and
+        ``train.tokens_computed``."""
         sync = max(1, self.cfg.loss_sync_every)
         losses, counts = [], []
-        for count, batch in prefetch(self._host_batches()):
-            loss = self._train_step(tuple(t.to(self.device, non_blocking=True) for t in batch))
+        for count, batch in prefetch(self._host_batches(), spans=("train.wait_batch", "train.build_batch")):
+            with profiling.span("train.step"):
+                loss = self._train_step(tuple(t.to(self.device, non_blocking=True) for t in batch))
+            profiling.count("train.steps")
+            profiling.count("train.pairs", int(count))
             losses.append(loss)
             if len(losses) % sync == 0:
-                losses[-1] = float(losses[-1])
+                with profiling.span("train.loss_fetch"):
+                    losses[-1] = float(losses[-1])
             counts.append(count)
-        losses = [float(x) for x in losses]
+        with profiling.span("train.loss_fetch"):
+            losses = [float(x) for x in losses]
         return float(np.dot(losses, counts) / np.sum(counts))
 
     # ------------------------------------------------------------------
@@ -573,6 +602,7 @@ class TowerTrainer(ResumableTrainer):
         full = self._whole(news)
         return full, full if query is news else self._whole(query)
 
+    @profiling.unit("eval.evaluate")
     def evaluate(self) -> tuple[dict, Optional[dict]]:
         train_scores = self._eval_split(self.ct, *self._eval_tables(self.news_emb_train, self.query_train))
         val_scores = (
@@ -640,7 +670,9 @@ class JointTowerTrainer(TowerTrainer):
         for batch in self._epoch_batches():
             pos, neg = batch[3], batch[4]
             extras = (baseline[pos].astype(np.float32), baseline[neg].astype(np.float32))
-            yield float(batch[-1].sum()), _pinned(self._shard(batch + extras), self.device)
+            local = self._shard(batch + extras)
+            self._count_tokens(local)
+            yield float(batch[-1].sum()), _pinned(local, self.device)
 
     def _sharded_step(self):
         return make_sharded_joint_train_step(
@@ -668,6 +700,7 @@ class JointTowerTrainer(TowerTrainer):
         reduced = self.reduce(news)
         return reduced, reduced if query is news else self.reduce(query)
 
+    @profiling.unit("eval.evaluate")
     def evaluate(self) -> tuple[dict, Optional[dict]]:
         alpha = self._alpha()
         train_scores = self._eval_split(
