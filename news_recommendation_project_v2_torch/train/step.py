@@ -12,10 +12,13 @@ tuple ``TowerTrainer._epoch_batches_flat`` yields: ``(tok_idx [T], tok_rows
 pads, pair_mask [B])``; tokens whose row is ``U`` or more are pad.
 
 The padded steps run the tower over the batch's deduped histories padded to
-one bucket, ``[U, L]`` with their mask, as ``TowerTrainer._epoch_batches``
-builds them: ``(hist_idx [U, L], hist_mask [U, L], hist_rev [B], pos_idx,
-neg_idx, pair_mask)``. Dropout, where the tower has it, draws its masks
-from the generator the trainer passes.
+one bucket, ``[U, L]`` with their mask, as ``TowerTrainer._host_batches``
+hands them over (``_epoch_batches`` pads the block to ``[B, L]``, rows
+past U all pad, and the mesh steps take a rank's rows of that): ``(hist_idx
+[U, L], hist_mask [U, L], hist_rev [B], pos_idx, neg_idx, pair_mask)``.
+Dropout, where the tower has it, draws its masks from the generator the
+trainer passes, or from a ``models.layers.BatchDraw`` that draws over a
+batch's ``B`` rows for a block of its first U.
 
 The end-to-end steps (config[2]) learn the news vectors too: a token
 encoder (``models.TokenAttentionPool``) turns the frozen per-token states of
@@ -52,6 +55,7 @@ from typing import Optional
 import torch
 
 from ..models.latent_attention import pool_epilogue
+from ..models.layers import BatchDraw
 from ..ops.encode import gathered_token_states
 from .losses import infonce_loss, margin_ranking_loss
 
@@ -116,7 +120,7 @@ def padded_user_vectors(
     news_emb: torch.Tensor,
     hist_idx: torch.Tensor,
     hist_mask: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator | BatchDraw] = None,
     reduce: Optional[torch.nn.Module] = None,
 ) -> torch.Tensor:
     """[U, D] user vectors of padded histories: ``news_emb[hist_idx]``

@@ -46,6 +46,7 @@ from ..data.sampling import neg_batch_column, sample_epoch_pairs
 from ..device import resolve_device
 from ..eval.device_metrics import DeviceMetricsPlan
 from ..eval.ranker import compose_final_scores, history_candidate_slots
+from ..models.layers import BatchDraw
 from ..ops.encode import TokenStore, materialize_from_token_store, materialize_from_token_store_mesh
 from ..ops.scoring import FlatEvalPlan, _auto_flat_chunk, score_all_impressions
 from ..parallel.sharding import (
@@ -303,6 +304,15 @@ class ResumableTrainer:
         return int(state["epochs_done"])
 
 
+def _real_rows(batch: tuple) -> tuple:
+    """A padded batch with its history block cut to the batch's U deduped
+    rows: its pairs' ``hist_rev`` (pads 0) reads rows [0, U) only, so the
+    block's later rows are all pad that no pair reads. U comes from
+    ``hist_rev``, not from the mask: a real row may have an empty history."""
+    rows = int(batch[2].max()) + 1
+    return (batch[0][:rows], batch[1][:rows], *batch[2:])
+
+
 def _pinned(batch: tuple, device: torch.device) -> tuple:
     """Numpy arrays as CPU tensors, pinned for CUDA so that their copies to
     the card are asynchronous (no host wait)."""
@@ -497,10 +507,14 @@ class TowerTrainer(ResumableTrainer):
 
     def _host_batches(self) -> Iterator[tuple[float, tuple]]:
         """``(pair count, batch)`` per step, the batch as pinned CPU tensors
-        (built on the prefetch thread)."""
+        (built on the prefetch thread). The padded step on one device takes
+        the history block's U real rows (``_real_rows``), not all
+        ``batch_size``; a mesh step takes its rank's share of the whole
+        block."""
         batches = self._epoch_batches_flat() if self.flat_train else self._epoch_batches()
+        trim = not self.flat_train and self._mesh_step is None
         for batch in batches:
-            local = self._shard(batch)
+            local = _real_rows(batch) if trim else self._shard(batch)
             self._count_tokens(local)
             yield float(batch[-1].sum()), _pinned(local, self.device)
 
@@ -508,12 +522,17 @@ class TowerTrainer(ResumableTrainer):
         """Where it records (``utils.profiling``), count a step's real and
         computed history tokens as its batch is handed over (this rank's
         share on a mesh): the flat stream's real tokens against its length,
-        or the padded block's mask against its ``B x L``. On the producer
-        thread, so that the loop gives up no GIL to count."""
+        or the padded block's mask against its ``rows x L``, and the padded
+        block's rows (``train.rows_computed``). On the producer thread, so
+        that the loop gives up no GIL to count."""
         if not profiling.active():
             return
         local = local if self._mesh_step is None else local[2:]  # after the shard's rows and scale
-        real, computed = (local[2].sum(), local[0].size) if self.flat_train else (local[1].sum(), local[1].size)
+        if self.flat_train:
+            real, computed = local[2].sum(), local[0].size
+        else:
+            real, computed = local[1].sum(), local[1].size
+            profiling.count("train.rows_computed", local[1].shape[0])
         profiling.count("train.tokens_real", int(real))
         profiling.count("train.tokens_computed", int(computed))
 
@@ -525,9 +544,11 @@ class TowerTrainer(ResumableTrainer):
             if cfg.loss == "infonce":
                 return flat_infonce_step(tower, self.optimizer, news, batch, query)
             return flat_margin_step(tower, self.optimizer, news, batch, cfg.margin, query)
+        # The block holds the batch's real rows (``_real_rows``); dropout draws over all ``batch_size``.
+        draw = BatchDraw(self.generator, cfg.batch_size)
         if cfg.loss == "infonce":
-            return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, self.generator, query))
-        return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, self.generator, query))
+            return apply_step(self.optimizer, padded_infonce_loss(tower, news, batch, draw, query))
+        return apply_step(self.optimizer, padded_margin_loss(tower, news, batch, cfg.margin, draw, query))
 
     @profiling.unit("train.epoch")
     def train_one_epoch(self) -> float:
@@ -539,8 +560,8 @@ class TowerTrainer(ResumableTrainer):
         (blocked on the prefetch queue), ``train.build_batch`` (the producer
         thread), ``train.step`` (the copies and the step queued) and
         ``train.loss_fetch``, and the counters ``train.steps``,
-        ``train.pairs`` and (``_count_tokens``) ``train.tokens_real`` and
-        ``train.tokens_computed``."""
+        ``train.pairs`` and (``_count_tokens``) ``train.tokens_real``,
+        ``train.tokens_computed`` and, padded, ``train.rows_computed``."""
         sync = max(1, self.cfg.loss_sync_every)
         losses, counts = [], []
         for count, batch in prefetch(self._host_batches(), spans=("train.wait_batch", "train.build_batch")):

@@ -143,14 +143,18 @@ def test_train_counters_equal_the_batches_that_ran(data, route):
     if route == "flat":  # tok_idx, tok_rows (pad row B), ...
         real = sum(int((b[1] < B).sum()) for _, b in seen)
         computed = sum(len(b[0]) for _, b in seen)
-    else:  # hist_idx, hist_mask [B, L], ...
+        rows = {}
+    else:  # hist_idx, hist_mask [U, L] (the batch's deduped rows), ...
         real = sum(int((b[1] > 0).sum()) for _, b in seen)
         computed = sum(b[1].size for _, b in seen)
+        rows = {"train.rows_computed": sum(b[1].shape[0] for _, b in seen)}
+        assert all(b[1].shape[0] == int(b[2].max()) + 1 < B for _, b in seen)
     assert profiling.recorded().counters == {
         "train.steps": len(seen),
         "train.pairs": int(sum(int(b[-1].sum()) for _, b in seen)),
         "train.tokens_real": real,
         "train.tokens_computed": computed,
+        **rows,
     }
     assert computed > real > 0
 
