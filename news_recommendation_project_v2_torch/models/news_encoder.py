@@ -16,9 +16,9 @@ Parameter names are HuggingFace's (``XLMRobertaModel``/``BertModel``,
 ``Qwen2Model``/``MistralModel``/``LlamaModel``; the head under
 ``latent_pool.``), so a checkpoint's state dict loads through
 ``load_state_dict`` once ``models.convert.encoder_state_dict_from_hf`` has
-stripped its task prefixes. Matmuls run in ``compute_dtype``; LayerNorm,
-RMSNorm and the softmaxes compute in float32; hidden states leave in
-float32.
+stripped its task prefixes. Matmuls run in ``compute_dtype``, the pooling
+head's too; LayerNorm, RMSNorm, the softmaxes and the pools compute in
+float32; hidden states leave in float32.
 """
 
 from __future__ import annotations
@@ -217,14 +217,16 @@ class NewsEncoder(nn.Module):
         else:
             raise ValueError(f"unknown encoder arch {cfg.arch!r}")
         if cfg.latent_pool:
-            # NV-Embed's pooling head: the user tower's module, float32, no
-            # normalisation of its own (the encoder's epilogue normalises).
+            # NV-Embed's pooling head: the user tower's module in the
+            # encoder's compute type, no normalisation of its own (the
+            # encoder's epilogue normalises).
             self.latent_pool = LatentAttentionTower(
                 dim=d,
                 num_latents=cfg.latent_pool_num_latents,
                 heads=cfg.latent_pool_heads,
                 dim_head=cfg.latent_pool_dim_head,
                 output_normalize=False,
+                compute_dtype=self.compute_dtype,
             )
         self.to(DTYPES[cfg.param_dtype])
 
@@ -265,15 +267,21 @@ class NewsEncoder(nn.Module):
             hidden = layer(hidden, cos, sin, bias)
         return self.norm(hidden).float()
 
-    def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, token_ids: torch.Tensor, mask: torch.Tensor, pool_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """Pooled vectors [B, D], float32: ``POOLING[config.pooling]`` or the
-        latent-attention head, then (``normalize``) the L2 norm."""
+        latent-attention head, then (``normalize``) the L2 norm. Attention
+        reads ``mask``; the pool reads ``pool_mask`` [B, T] where given (NV-Embed
+        leaves an instruction's tokens out of the mean, though every token
+        attends to them), else ``mask``."""
         cfg = self.config
         hidden = self.hidden_states(token_ids, mask)
+        pool = mask if pool_mask is None else pool_mask
         if cfg.latent_pool:
-            pooled = self.latent_pool(hidden, mask.float())
+            pooled = self.latent_pool(hidden, pool.float())
         else:
-            pooled = POOLING[cfg.pooling](hidden, mask)
+            pooled = POOLING[cfg.pooling](hidden, pool)
         if cfg.normalize:
             pooled = pooled / torch.sqrt((pooled * pooled).sum(-1, keepdim=True) + 1e-12)
         return pooled

@@ -4,8 +4,14 @@ states and the learned news encoder's pass over it.
 - ``encode_corpus`` / ``encode_corpus_bucketed``: a ``NewsEncoder`` over a
   tokenized corpus in batches of a fixed shape (the bucketed form groups the
   rows by token count into length buckets), the [N, D] vectors left on the
-  card; ``encode_query_and_passage``: e5's two tables, passage vectors of
-  the raw text and query vectors of the instruction-prefixed text.
+  card, a pool mask carried with the rows; ``encode_query_and_passage``:
+  the two tables of e5 and NV-Embed, passage vectors of the raw text and
+  query vectors of the instruction-prefixed text (NV-Embed's without the
+  instruction's tokens in the pool). One such call is the unit
+  ``encode.corpus`` of ``utils.profiling``: span ``encode.batch`` (a
+  batch's copies and forward queued), counters ``encode.rows``,
+  ``encode.tokens_real``, ``encode.tokens_computed`` (rows computed x
+  width) and ``encode.pool_tokens``.
 - ``build_token_store``: the encoder's per-token states, mask-trimmed, into
   a ``TokenStore`` in RAM or streamed into a memmapped directory.
 - ``save_embeddings``/``load_embeddings``: ``{dataset}.npy`` [N, D],
@@ -36,6 +42,7 @@ import torch
 
 from ..config import bucket_for_open
 from ..device import resolve_device
+from ..utils import profiling
 from ..utils.inflight import InflightWindow
 from ..utils.memory import estimate_encoder_batch, estimate_token_attention_batch
 
@@ -51,12 +58,14 @@ def _auto_batch(encoder, width: int, device: torch.device) -> int:
     return min(max(1024, 131072 // width), estimate_encoder_batch(encoder.config, length=width, device=device))
 
 
+@profiling.unit("encode.corpus")
 def encode_corpus(
     encoder: torch.nn.Module,
     token_ids: np.ndarray,
     token_mask: np.ndarray,
     batch_size: Optional[int] = 256,
     device=None,
+    pool_mask: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """``encoder`` ([B, T] ids and mask -> [B, D]) over a tokenized corpus
     [N, T] -> the [N, D] float32 vectors on ``device`` (``None``: CUDA;
@@ -65,23 +74,32 @@ def encode_corpus(
     pad, and are dropped; an empty corpus runs one pad batch and gives
     [0, D]. ``batch_size=None`` takes the memory model's batch for the
     encoder's ``config`` (``estimate_encoder_batch``) at T, capped at about
-    131,072 tokens a batch. Each batch's ids go to the card from pinned
-    memory; up to 2 batches stay in flight before the oldest is written into
-    the result."""
+    131,072 tokens a batch. ``pool_mask`` [N, T] goes to the encoder as its
+    third argument, batch by batch (the tokens its pool takes; ``None``: the
+    encoder pools over ``token_mask``). Each batch's arrays go to the card
+    from pinned memory; up to 2 batches stay in flight before the oldest is
+    written into the result."""
     device = resolve_device(device)
     n, width = token_ids.shape
     if batch_size is None:
         batch_size = _auto_batch(encoder, width, device)
     n_pad = max(batch_size, -(-n // batch_size) * batch_size)
-    ids = np.pad(token_ids, ((0, n_pad - n), (0, 0)))
-    mask = np.pad(token_mask, ((0, n_pad - n), (0, 0)))
-    mask[n:, 0] = 1
+    arrays = [token_ids, token_mask] + ([] if pool_mask is None else [pool_mask])
+    arrays = [np.pad(a, ((0, n_pad - n), (0, 0))) for a in arrays]
+    for a in arrays[1:]:
+        a[n:, 0] = 1
+    if profiling.active():
+        profiling.count("encode.rows", n)
+        profiling.count("encode.tokens_real", int(np.asarray(token_mask).sum()))
+        profiling.count("encode.tokens_computed", n_pad * width)
+        profiling.count("encode.pool_tokens", int(np.asarray(token_mask if pool_mask is None else pool_mask).sum()))
     out: Optional[torch.Tensor] = None
     window = InflightWindow(2, lambda item: out[item[0] : item[0] + len(item[1])].copy_(item[1]))
     with torch.no_grad():
         for start in range(0, n_pad, batch_size):
-            batch = _to_device((ids[start : start + batch_size], mask[start : start + batch_size]), device)
-            emb = encoder(*batch).float()
+            with profiling.span("encode.batch"):
+                batch = _to_device(tuple(a[start : start + batch_size] for a in arrays), device)
+                emb = encoder(*batch).float()
             if out is None:
                 out = torch.empty((n_pad, emb.shape[1]), dtype=torch.float32, device=device)
             window.push((start, emb))
@@ -89,6 +107,7 @@ def encode_corpus(
     return out[:n]
 
 
+@profiling.unit("encode.corpus")
 def encode_corpus_bucketed(
     encoder: torch.nn.Module,
     token_ids: np.ndarray,
@@ -96,6 +115,7 @@ def encode_corpus_bucketed(
     buckets: tuple[int, ...] = TOKEN_BUCKETS,
     batch_size: Optional[int] = None,
     device=None,
+    pool_mask: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """``encode_corpus`` by length bucket: each row runs at the narrowest of
     ``buckets`` (and T, always the last) that holds its tokens, so short
@@ -105,11 +125,12 @@ def encode_corpus_bucketed(
     encode up to the order of float sums. A bucket's batch is
     ``batch_size`` or the memory model's at its width (``None``), capped at
     the power of two at or above its row count (at least 8), which bounds
-    the set of batch shapes across calls."""
+    the set of batch shapes across calls. ``pool_mask`` goes with its rows,
+    cut to their bucket."""
     device = resolve_device(device)
     n, width = token_ids.shape
     if n == 0:
-        return encode_corpus(encoder, token_ids, token_mask, batch_size or 8, device)
+        return encode_corpus(encoder, token_ids, token_mask, batch_size or 8, device, pool_mask)
     lengths = np.asarray(token_mask).sum(axis=1).astype(np.int64)
     widths = tuple(sorted({int(b) for b in buckets if 0 < b < width})) + (width,)
     assignment = np.searchsorted(np.asarray(widths), lengths, side="left")
@@ -120,15 +141,29 @@ def encode_corpus_bucketed(
             continue
         bs = batch_size or _auto_batch(encoder, w, device)
         bs = max(8, min(bs, 1 << (len(rows) - 1).bit_length()))
-        emb = encode_corpus(
-            encoder, np.ascontiguousarray(token_ids[rows, :w]), np.ascontiguousarray(token_mask[rows, :w]), bs, device
+        ids, mask, pool = (
+            None if a is None else np.ascontiguousarray(a[rows, :w]) for a in (token_ids, token_mask, pool_mask)
         )
+        emb = encode_corpus(encoder, ids, mask, bs, device, pool)
         if out is None:
             out = torch.zeros((n, emb.shape[1]), dtype=torch.float32, device=device)
         out.index_copy_(0, torch.from_numpy(rows).to(device), emb)
     return out
 
 
+def instruction_pool_mask(tokenize, instruction: str, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """``mask`` of instruction-prefixed rows with each row's instruction out:
+    the leading tokens a row shares with ``instruction`` tokenized alone
+    (its BOS and the instruction's tokens; the closing token of the
+    instruction alone meets the text's first and ends the match, as does a
+    token the text merges with the instruction's last)."""
+    i_ids, i_mask = tokenize([instruction])
+    k = min(int(np.asarray(i_mask)[0].sum()), ids.shape[1])
+    prefix = np.cumprod(ids[:, :k] == np.asarray(i_ids)[0, :k], axis=1).sum(axis=1)
+    return np.where(np.arange(ids.shape[1])[None, :] < prefix[:, None], 0, mask).astype(mask.dtype)
+
+
+@profiling.unit("encode.corpus")
 def encode_query_and_passage(
     encoder: torch.nn.Module,
     tokenize,
@@ -138,19 +173,26 @@ def encode_query_and_passage(
     buckets: Optional[tuple[int, ...]] = None,
     device=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """e5's two tables of ``texts``: ``(query, passage)``, each [N, D] on the
+    """The two tables of ``texts``: ``(query, passage)``, each [N, D] on the
     card. Passage vectors encode the raw text, query vectors
-    ``query_instruction + text``. ``tokenize`` maps a list of texts to
-    (ids, mask) arrays; ``buckets`` runs ``encode_corpus_bucketed``, else
+    ``query_instruction + text``. An encoder with NV-Embed's latent-pool
+    head (``config.latent_pool``) leaves the instruction's tokens out of the
+    query rows' pool (``instruction_pool_mask``), as NV-Embed does; they
+    still reach the other tokens through attention. e5 pools them. Passage
+    rows pool every real token. ``tokenize`` maps a list of texts to (ids,
+    mask) arrays; ``buckets`` runs ``encode_corpus_bucketed``, else
     ``encode_corpus``."""
     ids, mask = tokenize(texts)
     q_ids, q_mask = tokenize([query_instruction + t for t in texts])
+    q_pool = None
+    if getattr(getattr(encoder, "config", None), "latent_pool", False):
+        q_pool = instruction_pool_mask(tokenize, query_instruction, q_ids, q_mask)
     if buckets is not None:
         passage = encode_corpus_bucketed(encoder, ids, mask, buckets, batch_size, device)
-        query = encode_corpus_bucketed(encoder, q_ids, q_mask, buckets, batch_size, device)
+        query = encode_corpus_bucketed(encoder, q_ids, q_mask, buckets, batch_size, device, q_pool)
     else:
         passage = encode_corpus(encoder, ids, mask, batch_size, device)
-        query = encode_corpus(encoder, q_ids, q_mask, batch_size, device)
+        query = encode_corpus(encoder, q_ids, q_mask, batch_size, device, q_pool)
     return query, passage
 
 

@@ -84,12 +84,13 @@ class TransformDataComponent(PipelineComponent):
 
 
 class EmbeddingsComponent(PipelineComponent):
-    """The news texts of ``compiled.news_ids`` through the encoder, as e5's
+    """The news texts of ``compiled.news_ids`` through the encoder, as its
     two tables: ``news_embeddings`` (the passage side, the raw text) and
-    ``query_news_embeddings`` (``query_instruction`` + text), by
-    ``ops.encode.encode_query_and_passage``. ``batch_size=None`` takes the
-    memory model's batch; ``token_buckets`` runs each text at the narrowest
-    bucket that holds it (``None``: the tokenizer's full width)."""
+    ``query_news_embeddings`` (``query_instruction`` + text; NV-Embed pools
+    without the instruction), by ``ops.encode.encode_query_and_passage``.
+    ``batch_size=None`` takes the memory model's batch; ``token_buckets``
+    runs each text at the narrowest bucket that holds it (``None``: the
+    tokenizer's full width)."""
 
     required_keys = {"compiled", "news_text_dict"}
     cacheable = False  # the encoder's weights live outside the context

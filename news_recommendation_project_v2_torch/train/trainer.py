@@ -385,10 +385,7 @@ class TowerTrainer(ResumableTrainer):
         self.cfg = cfg
         self.ct = compiled_train
         self.cv = compiled_val
-        self.news_emb_train = self._table(news_emb_train)
-        self.news_emb_val = self._table(news_emb_val)
-        self.query_train = self.news_emb_train if query_news_emb_train is None else self._table(query_news_emb_train)
-        self.query_val = self.news_emb_val if query_news_emb_val is None else self._table(query_news_emb_val)
+        self.set_tables(news_emb_train, news_emb_val, query_news_emb_train, query_news_emb_val)
         writer = mesh is None or mesh.rank == 0
         self.log_dir = log_dir if writer else None
         self.exp_name = exp_name
@@ -406,6 +403,16 @@ class TowerTrainer(ResumableTrainer):
         self.device_metrics = device_metrics
         self._fused_plans: dict = {}
         self._mesh_step = None if mesh is None else self._sharded_step()
+
+    def set_tables(self, news_emb_train, news_emb_val=None, query_news_emb_train=None, query_news_emb_val=None) -> None:
+        """The splits' tables, as the constructor takes them: a corpus encoded
+        anew takes the old tables' place, rows in the same news order. The
+        eval's plans (index and metric grids, built once per split) read the
+        tables at each call, so they stay."""
+        self.news_emb_train = self._table(news_emb_train)
+        self.news_emb_val = self._table(news_emb_val)
+        self.query_train = self.news_emb_train if query_news_emb_train is None else self._table(query_news_emb_train)
+        self.query_val = self.news_emb_val if query_news_emb_val is None else self._table(query_news_emb_val)
 
     def _trained_model(self) -> torch.nn.Module:
         """The module the optimizer steps and the checkpoint saves: the tower."""

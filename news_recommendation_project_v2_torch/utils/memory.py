@@ -210,13 +210,42 @@ def encoder_activation_bytes(
     """The news encoder's activation envelope over [batch, length] tokens
     (``length`` defaults to ``config.max_length``): one block of its widths
     (``transformer_activation_bytes``) at ``compute_dtype``'s element size
-    unless ``bytes_per_el`` is given. The backbone only: NV-Embed's
-    latent-pool head (float32, heads x dim_head wide a token) is not in it."""
+    unless ``bytes_per_el`` is given; what stays float32 in any compute type
+    (``encoder_float32_bytes``); and NV-Embed's latent-pool head
+    (``latent_pool_bytes``), which runs after the last block."""
     if bytes_per_el is None:
         bytes_per_el = _DTYPE_BYTES.get(config.compute_dtype, 4)
-    return transformer_activation_bytes(
-        config.hidden_dim, config.num_heads, config.intermediate_dim, batch, length or config.max_length, bytes_per_el
+    length = length or config.max_length
+    block = transformer_activation_bytes(
+        config.hidden_dim, config.num_heads, config.intermediate_dim, batch, length, bytes_per_el
     )
+    return block + encoder_float32_bytes(config, batch, length) + latent_pool_bytes(config, batch, length, bytes_per_el)
+
+
+def encoder_float32_bytes(config: EncoderConfig, batch: int, length: int) -> int:
+    """The encoder's float32 blocks, whatever its compute type: a norm's
+    float32 copy of the residual stream and its product (2·D a token), the
+    float32 hidden states handed to the pool (D), and the attention's
+    masked logits and their softmax (twice heads x L x L a row). In 16 bits
+    the block's model alone counts these at half their size."""
+    tokens = batch * length
+    return (tokens * 3 * config.hidden_dim + 2 * batch * config.num_heads * length * length) * 4
+
+
+def latent_pool_bytes(config: EncoderConfig, batch: int, length: int, bytes_per_el: int) -> int:
+    """NV-Embed's latent-pool head over [batch, length] tokens (0 without
+    it), at ``bytes_per_el`` (its compute type): per token q and its
+    permuted copy (2 x heads x dim_head; the attention's output and its copy
+    after them), the GEGLU's [h | g] block (2 x 4·D) and its output (D), and
+    the attention's probabilities over the latents (heads x latents, float32),
+    plus the float32 LayerNorm and residual rows (2·D)."""
+    if not config.latent_pool:
+        return 0
+    d = config.hidden_dim
+    inner = config.latent_pool_heads * config.latent_pool_dim_head
+    probs = config.latent_pool_heads * config.latent_pool_num_latents
+    per_token = (2 * inner + 8 * d + d) * bytes_per_el + (2 * d + probs) * 4
+    return batch * length * per_token
 
 
 def estimate_encoder_batch(

@@ -123,11 +123,15 @@ def recording(on: Optional[bool] = None) -> Iterator[bool]:
 
 def unit(name: str) -> Callable:
     """Decorate a unit of work: each call decides whether it records
-    (``recording()``) and runs inside the span ``name``."""
+    (``recording()``) and runs inside the span ``name``; a call made inside
+    a recording span ``name`` on its thread belongs to that unit and opens
+    none of its own."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
+            if name in _state.stack:
+                return fn(*args, **kwargs)
             with recording(), span(name):
                 return fn(*args, **kwargs)
 

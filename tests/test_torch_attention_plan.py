@@ -157,6 +157,19 @@ def test_plan_at_the_encoder_head(bl, rows, slices, dtype):
     assert (p.rows, p.slices) == (rows, slices) and p.smem_bytes <= SMEM_LIMIT
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bl", [(1592, 32), (776, 64), (368, 128), (8, 32)])
+def test_plan_at_the_encoder_head_in_16_bits(bl, dtype):
+    """The head computing in the encoder's 16-bit type, at the encode's
+    batches (the memory model's at widths 32, 64 and 128 on an 80 GB card,
+    and a bucket's last few rows): Pair blocks, whose 16-bit P.V stages and
+    float32 logits rows fit a block's shared memory with room for none
+    beside it, one slice of dh where the rows fill the card."""
+    p = plan_attention(bl[0], 8, bl[1], 512, 4096, dtype, SMS)
+    assert p.rows == 32 and p.smem_bytes == attention_smem(32, 512, dtype) <= SMEM_LIMIT < 2 * p.smem_bytes
+    assert p.slices == (1 if bl[0] * bl[1] >= 4096 else 2) and p.slices * p.slice_cols >= 4096
+
+
 @pytest.mark.parametrize(
     "shape, match",
     [

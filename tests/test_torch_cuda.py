@@ -17,6 +17,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from news_recommendation_project_v2_torch.config import QUERY_INSTRUCTION, EncoderConfig, TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors, compile_native
@@ -128,6 +129,32 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape):
     assert (latent_attention.launches, latent_attention.shapes[shape]) == (before[0] + 1, before[1] + 1)
     want = reference_attention(q, k, v)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_attention_tol(want, dtype))
+
+
+def _one_unit(want32: torch.Tensor, dtype) -> torch.Tensor:
+    """Per element, one unit of ``dtype`` in the binade of the float32 value
+    it rounds (the spacing at its size), and float32's own slack."""
+    binade = torch.exp2(torch.floor(torch.log2(want32.abs().clamp_min(torch.finfo(dtype).tiny))))
+    return torch.finfo(dtype).eps * binade + 1e-6 * want32.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "shape", [(1592, 8, 32, 512, 4096), (64, 8, 64, 512, 4096), (8, 8, 32, 512, 4096), (1, 8, 50, 512, 4096)],
+    ids=["encode_batch", "b64_l64", "two_slices", "one_news"],
+)
+def test_attention_kernel_at_the_encoder_head_in_16_bits(cuda, dtype, shape):
+    """NV-Embed's head computing in the encoder's 16-bit type: 512 latents,
+    8 heads of 4,096, at the encode's batch (the memory model's at width 32
+    on an 80 GB card), where the rows fill the card, and where dh splits.
+    The kernel sums in float32 as the plain version does and rounds once, so
+    each element lies within one unit of its own size (the 16-bit spacing at
+    the float32 value) of the plain version before its rounding."""
+    q, k, v = _attention_args(shape, dtype, cuda)
+    got = latent_attention(q, k, v)
+    torch.cuda.synchronize()
+    want32 = reference_attention(q.float(), k.float(), v.float())
+    assert ((got.float() - want32).abs() <= _one_unit(want32, dtype)).all()
 
 
 @pytest.mark.parametrize("shape, split", [((3, 8, 37, 64, 512), True), ((8, 8, 64, 64, 512), False)])
@@ -243,6 +270,32 @@ def test_geglu_kernel_matches_plain(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert (geglu.launches, geglu.shapes[shape]) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=GEGLU_TOL[dtype])
+
+
+def _tie_allowance(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """Per output, what the gated values near a rounding tie may move it: the
+    kernel and the plain version each round u to x's type after float32 sums
+    in other orders, so a u within 2^-18 of a tie may round one unit apart,
+    and moves y[m, n] by that unit times |W_out[n, f]|."""
+    h, g = F.linear(x.float(), w_in.float(), b_in.float()).chunk(2, dim=-1)
+    u = h * F.gelu(g, approximate="tanh")
+    spread = (u * (1 + 2.0**-18)).to(x.dtype).float() - (u * (1 - 2.0**-18)).to(x.dtype).float()
+    return spread.abs() @ w_out.float().abs().T
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(37, 4096, 16384), (2048, 4096, 16384)], ids=["few_rows", "row_chunks"])
+def test_geglu_kernel_at_the_encoder_head_in_16_bits(cuda, dtype, shape):
+    """NV-Embed's head's feed-forward (D = 4,096, F = 16,384) in the
+    encoder's 16-bit type; 2,048 rows of a 16,384-wide u take the planner's
+    row chunks (64 MB of scratch). The narrower shapes' tolerance, plus each
+    output's allowance for its gated values at a rounding tie: over 16,384
+    of them a few such ties in one output pass that tolerance alone."""
+    args = _geglu_args(shape, dtype, cuda)
+    got = geglu(*args)
+    torch.cuda.synchronize()
+    gap = (got - reference_geglu(*args)).abs()
+    assert (gap <= GEGLU_TOL[dtype] + _tie_allowance(*args)).all(), float(gap.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])

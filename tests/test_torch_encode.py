@@ -37,7 +37,12 @@ from news_recommendation_project_v2_torch.ops.encode import (
     encode_corpus_bucketed,
     encode_query_and_passage,
 )
-from news_recommendation_project_v2_torch.utils.memory import encoder_activation_bytes, estimate_encoder_batch
+from news_recommendation_project_v2_torch.utils.memory import (
+    encoder_activation_bytes,
+    encoder_float32_bytes,
+    estimate_encoder_batch,
+    latent_pool_bytes,
+)
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 TINY = dict(vocab_size=120, hidden_dim=32, num_layers=2, num_heads=4, intermediate_dim=64, max_position=66,
@@ -149,14 +154,22 @@ def test_build_token_store_empty_corpus(pair, tmp_path):
 @pytest.mark.parametrize("length", [None, 32, 512])
 @pytest.mark.parametrize("compute", ["bfloat16", "float32"])
 def test_encoder_memory_model_matches_jax(budget, length, compute):
+    """The block's envelope is the JAX package's; the port adds what stays
+    float32 in any compute type (``encoder_float32_bytes``; these layouts
+    have no latent-pool head), so its batch is its own envelope's and at
+    most the JAX package's."""
     for kw in ({}, dict(arch="qwen2", hidden_dim=4096, num_heads=32, intermediate_dim=14336)):
         cfg, jcfg = EncoderConfig(compute_dtype=compute, **kw), JaxEncoderConfig(compute_dtype=compute, **kw)
-        assert estimate_encoder_batch(cfg, length, hbm_budget_bytes=budget) == jax_memory.estimate_encoder_batch(
-            jcfg, length, hbm_budget_bytes=budget
-        )
+        width = length or cfg.max_length
+        assert latent_pool_bytes(cfg, 64, width, 2) == 0
         for batch in (1, 64):
-            assert encoder_activation_bytes(cfg, batch, length) == jax_memory.encoder_activation_bytes(jcfg, batch, length)
-        assert encoder_activation_bytes(cfg, 8, length, 4) == jax_memory.encoder_activation_bytes(jcfg, 8, length, 4)
+            want = jax_memory.encoder_activation_bytes(jcfg, batch, length) + encoder_float32_bytes(cfg, batch, width)
+            assert encoder_activation_bytes(cfg, batch, length) == want
+        want = jax_memory.encoder_activation_bytes(jcfg, 8, length, 4) + encoder_float32_bytes(cfg, 8, width)
+        assert encoder_activation_bytes(cfg, 8, length, 4) == want
+        got = estimate_encoder_batch(cfg, length, hbm_budget_bytes=budget)
+        assert got == max(8, int(budget * 0.25) // encoder_activation_bytes(cfg, 1, length) // 8 * 8)
+        assert got <= jax_memory.estimate_encoder_batch(jcfg, length, hbm_budget_bytes=budget)
 
 
 def _tensors():

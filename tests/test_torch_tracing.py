@@ -1,5 +1,6 @@
 """The port's spans and counters (``utils.profiling``) in the trainer loop,
-its prefetch producer and the flat eval, on the CPU: nothing records
+its prefetch producer, the flat eval and the corpus encode, on the CPU:
+nothing records
 without a profiler; under ``torch.profiler`` the spans nest as documented,
 the producer's are kept, and each span agrees with its
 ``record_function`` event; the counters equal the counts of the batches and
@@ -19,6 +20,12 @@ from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.data.prefetch import prefetch
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.models import build_tower
+from news_recommendation_project_v2_torch.models.news_encoder import HashTokenizer, NewsEncoder, encoder_config_from_hf
+from news_recommendation_project_v2_torch.ops.encode import (
+    encode_corpus_bucketed,
+    encode_query_and_passage,
+    instruction_pool_mask,
+)
 from news_recommendation_project_v2_torch.train.trainer import TowerTrainer
 from news_recommendation_project_v2_torch.utils import profiling
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
@@ -240,3 +247,57 @@ def test_counters_and_spans_lose_nothing_across_threads():
     spans, counters = profiling.recorded()
     assert counters == {"shared": threads * n}
     assert len(spans) == threads * n and {s.parent for s in spans} == {None}
+
+
+NV_EMBED = {
+    "architectures": ["NVEmbedModel"],
+    "text_config": {"architectures": ["MistralModel"], "vocab_size": 97, "hidden_size": 32, "intermediate_size": 64,
+                    "num_hidden_layers": 1, "num_attention_heads": 4, "num_key_value_heads": 2,
+                    "max_position_embeddings": 64, "sliding_window": 4096},
+    "latent_attention_config": {"num_latents_value": 4, "num_cross_heads": 2, "cross_dim_head": 8, "latent_dim": 32},
+}
+
+
+def test_encode_is_one_unit_and_counts_what_it_computed():
+    """``encode_query_and_passage`` is one ``encode.corpus`` unit (its inner
+    bucketed encodes open none of their own); ``encode.batch`` spans one a
+    batch; the counters are the rows, the real tokens, rows x width of every
+    batch computed, and the tokens the pool took (the query rows' without
+    the instruction). A bucketed encode alone is a unit of its own, and
+    nothing records without a profiler."""
+    torch.manual_seed(0)
+    enc = NewsEncoder(encoder_config_from_hf(NV_EMBED, compute_dtype="float32", max_length=24)).eval()
+    tok = HashTokenizer(vocab_size=97, max_length=24)
+    rng = np.random.default_rng(0)
+    texts = [" ".join(f"w{w}" for w in rng.integers(0, 50, size=int(c))) for c in rng.integers(1, 14, size=13)]
+    instruction = "find news like this one: "
+    buckets, batch = (8, 16), 4
+    encode_query_and_passage(enc, tok, texts, instruction, batch_size=batch, buckets=buckets, device="cpu")
+    assert profiling.recorded() == ([], {})
+    _, events = _profiled(lambda: encode_query_and_passage(
+        enc, tok, texts, instruction, batch_size=batch, buckets=buckets, device="cpu"))
+    spans, counters = profiling.recorded()
+    units = [s for s in spans if s.name == "encode.corpus"]
+    assert len(units) == 1 and units[0].parent is None
+    (p_ids, p_mask), (q_ids, q_mask) = tok(texts), tok([instruction + t for t in texts])
+    computed = batches = 0
+    for mask in (p_mask, q_mask):
+        lens = mask.sum(1)
+        for lo, w in zip((0, *buckets), (*buckets, 24)):
+            n = int(((lens > lo) & (lens <= w)).sum())
+            if n:
+                bs = max(8, min(batch, 1 << (n - 1).bit_length()))
+                batches += -(-n // bs)
+                computed += -(-n // bs) * bs * w
+    assert [s.parent for s in spans if s.name == "encode.batch"] == ["encode.corpus"] * batches
+    pool = instruction_pool_mask(tok, instruction, q_ids, q_mask)
+    assert counters == {
+        "encode.rows": 2 * len(texts),
+        "encode.tokens_real": int(p_mask.sum() + q_mask.sum()),
+        "encode.tokens_computed": computed,
+        "encode.pool_tokens": int(p_mask.sum() + pool.sum()),
+    }
+    assert sum(e.name() == "encode.batch" for e in events) == batches
+    profiling.clear()
+    _profiled(lambda: encode_corpus_bucketed(enc, p_ids, p_mask, buckets, batch, "cpu"))
+    assert [s.name for s in profiling.recorded().spans if s.name == "encode.corpus"] == ["encode.corpus"]
