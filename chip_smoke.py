@@ -628,13 +628,35 @@ def measure(name: str, shape: tuple, dtype, gen) -> dict:
     return r
 
 
+# The float32 GEGLU where the main path calls it: one request's 37 tokens,
+# the flat eval's token chunk, the flat train step's tokens, and the
+# NV-Embed tower (D = 4,096) over 8,192 tokens.
+GEGLU_MAIN_SHAPES = ((37, DIM, 4 * DIM), (262144, DIM, 4 * DIM), (65536, DIM, 4 * DIM), (8192, 4096, 16384))
+
+
+def geglu_route_phase(gen) -> list[dict]:
+    """The float32 GEGLU at ``GEGLU_MAIN_SHAPES``, each on the route
+    ``plan_geglu`` picks (warpgroup MMA or mma.sync), against its bound,
+    its plain version and the library call."""
+    records = []
+    with torch.no_grad():
+        for shape in GEGLU_MAIN_SHAPES:
+            before = collections.Counter(geglu.routes)
+            r = measure("geglu", shape, torch.float32, gen)
+            r["route"] = next(k[0] for k, n in geglu.routes.items() if n > before[k])
+            log(f"  geglu float32 {r['label']}: route {r['route']}")
+            records.append(r)
+    return records
+
+
 def kernel_phase(gen) -> None:
     """Every kernel vs its plain version at the serving shapes that bound the
     path's range (a single request's 16 history rows, eight short and eight
     600-long history rows, and two and four rows of the 256 and 600 history
     buckets between them; one request's 37 tokens and eight 600-token rows),
     in float32 and bfloat16, the GEGLU at D=1536, wider than a 1024 row, and
-    the attention at the flat eval's [1, 8, 131072, 512] in float32."""
+    the attention at the flat eval's [1, 8, 131072, 512] in float32; then the
+    float32 GEGLU at the main path's shapes (``geglu_route_phase``)."""
     cases = [
         ("latent_attention", (b, 8, l, 64, 512))
         for b, l in ((1, 16), (8, 16), (2, 256), (4, 256), (2, 600), (4, 600), (8, 600))
@@ -646,6 +668,7 @@ def kernel_phase(gen) -> None:
             for name, shape in cases:
                 measure(name, shape, dtype, gen)
         measure("latent_attention", (1, 8, 131072, 64, 512), torch.float32, gen)
+    geglu_route_phase(gen)
 
 
 TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "library_device_ms")
@@ -1162,8 +1185,7 @@ def part(times: dict, test) -> float:
 
 def ours(key: str) -> bool:
     """A kernel of ours (csrc/)."""
-    return any(k in key for k in ("geglu_gate_kernel", "geglu_out_kernel", "geglu_reduce_kernel",
-                                  "latent_attention_kernel"))
+    return any(k in key for k in ("geglu_", "latent_attention_kernel"))
 
 
 def cublas(key: str) -> bool:

@@ -19,53 +19,68 @@
 // bounds it, above that the products. In bf16 (989 TFLOP/s, C operations per
 // weight byte) the line lies near 300 rows.
 //
-// Design, and what it does about each bound:
-//   * Two tiled passes sharing one mma.sync tile core:
-//       pass A  u = round_T(h * gelu_tanh(g)): a block computes a [BM, BN/2]
-//               tile of h and the matching tile of g (W_in rows f0.. and
-//               F+f0..) over K = D, gates in registers and writes u in x's
-//               type to a scratch buffer;
-//       pass B  y = u W_out^T + b_out, tiled [BM, BN] over [C, D]. When the
-//               output has few tiles (small C), the F sum splits over extra
-//               blocks (gridDim.z); each writes a float32 partial and a third
-//               kernel adds them in split order with the bias: deterministic,
-//               no atomics.
-//     The Pallas kernel kept [h | g] in VMEM. Here u goes through L2 and
-//     device memory: C*F*sizeof(T) bytes written and read once more (8 MB at
-//     C=512 float32, inside the 50 MB L2). The wrapper walks C in row chunks
-//     so u never exceeds 64 MB; with no full-row accumulator, D is unlimited.
-//   * Tensor cores. bf16 and f16: mma.m16n8k16 with fragments from ldmatrix
-//     (f16 takes bf16's tiles, fragments and plans). float32:
-//     3xTF32 on mma.m16n8k8: each operand splits into big = tf32(a) and
-//     small = tf32(a - big), and small*big + big*small + big*big accumulate
-//     in float32, small terms first: float32-accurate products (plain TF32
-//     would break the port's true-float32 contract). The tensor cores' own
-//     sums round toward zero, which over a K=4096 chain drifts by about 1e-4
-//     relative; so they only sum one stage (16 or 32 of K) into a fresh
-//     partial, and partials add into the accumulator by FADD, rounding to
-//     nearest. The 32-bit fragments are read from shared memory by hand;
-//     rows are padded to 80 bytes, so neither they nor ldmatrix meet a bank
-//     conflict.
-//   * Loads overlap the products: a 4-stage cp.async ring, 16 bytes per
-//     thread, each stage 64 bytes of K for every tile row. Rows that are not
-//     16-byte aligned, and the ragged C, D and F edges, take a masked scalar
-//     path inside the kernel (zeros past the edge), never the host's.
-//   * Enough blocks: two tile shapes, Large (128 x 128 with 8 warps in bf16,
-//     128 x 64 with 4 warps in float32) and Small (64 x 32, 4 warps). The
-//     planner in ops/geglu.py gives each pass the largest shape whose rows
-//     C fills; pass A's must also make a block per SM, and pass B's F sum
-//     splits to reach about two blocks per SM. At C=37, D=1024,
-//     F=4096 each pass runs 256 blocks, so the weight reads spread over all
-//     132 SMs.
-// What limits it now (H100, chip_smoke.py): float32 issues its TF32 mma.sync
-// at 120-150 TFLOP/s, whatever the tiling, ILP or ring depth tried, a
-// quarter of the tensor cores' TF32 rate; wgmma is the next step. At a few
-// rows, pass A's fixed cost per stage (barrier, zero-filled rows) and not the
-// weight bytes sets its time.
+// Two passes, on either of two tensor-core routes:
+//   pass A  u = round_T(h * gelu_tanh(g)): a tile of rows times a block of
+//           gate columns of h and the same of g (W_in rows f0.. and F+f0..)
+//           over K = D; the gate in registers; u in x's type to a scratch;
+//   pass B  y = u W_out^T + b_out over [C, D]. Where the output has few
+//           tiles, the F sum splits; each split writes a float32 partial and
+//           geglu_reduce_kernel adds them in split order with the bias:
+//           deterministic, no atomics.
+// The Pallas kernel kept [h | g] in VMEM. Here u goes through L2 and device
+// memory: C*F*sizeof(T) bytes written and read once more. The wrapper walks C
+// in row chunks so u and the partials never pass 64 MB; with no full-row
+// accumulator, D is unlimited. The wrapper's planner (ops/geglu.py) picks the
+// route, the chunks, the tiles and the splits.
+//
+// float32 keeps its products float32-accurate as 3xTF32: each operand splits
+// into big = tf32(a) (to nearest, ties away) and small = tf32(a - big), and
+// small*big + big*small + big*big accumulate in float32, small terms first
+// (plain TF32 would break the port's true-float32 contract). The tensor
+// cores' own sums round toward zero, which over a K=4096 chain drifts by
+// about 1e-4 relative; so they only sum a run of at most 32 of K into a
+// fresh partial, and partials add into the accumulator by FADD, rounding to
+// nearest.
+//
+// The warpgroup route (float32 from 192 rows, D and F multiples of 4,
+// 16-byte aligned operands). geglu_split_weights_kernel writes both weights'
+// big and small halves once per call (6*D*F floats). Each pass then runs
+// persistent blocks, one an SM, that walk 128 x 128 output tiles (pass A: 64
+// gate columns of h beside the same 64 of g): one thread keeps TMA loads of
+// A (x or u) and of B's two halves in flight through a 4-stage ring of
+// 128-byte-swizzled 32-float stages (mbarriers full and empty); two consumer
+// warpgroups (setmaxnreg: 232 registers against the producer's 40) each take
+// 64 rows of A from shared memory into registers, split them, and issue the
+// stage's 12 wgmma.m64n128k8 TF32 products with B from shared memory into a
+// fresh partial. h and g of a gate column land in the same thread's
+// accumulators. Measured (H100 80GB HBM3; PERF.md, Findings): 112 TFLOP/s of
+// float32-accurate work at C=262,144, D=1,024 (68% of 165) and 116 at the
+// NV-Embed tower (D=4,096); the plain library call runs 47. What limits it
+// now: each warpgroup waits for its stage's products before adding the
+// partial and splitting the next A, and the two warpgroups do so together;
+// a second partial to pipeline across stages has no registers left at N=128.
+//
+// The mma.sync route (bf16 and f16; float32 below 192 rows or with ragged
+// widths or unaligned rows): tiles of one block each through a 4-stage
+// cp.async ring, 16 bytes per thread, 64 bytes of K a stage; rows padded to
+// 80 bytes, so neither the hand-read 32-bit fragments nor ldmatrix meet a
+// bank conflict. bf16 and f16: mma.m16n8k16 from ldmatrix (f16 takes bf16's
+// tiles and plans); float32: 3xTF32 on mma.m16n8k8, split in registers, the
+// partial over one stage (16 of K). Rows that are not 16-byte aligned and the
+// ragged C, D and F edges take a masked scalar path inside the kernel (zeros
+// past the edge). Two tile shapes: Large (128 x 128 with 8 warps in bf16,
+// 128 x 64 with 4 warps in float32) and Small (64 x 32, 4 warps); pass A's
+// must also make a block per SM, and pass B's F sum splits to reach about
+// two blocks per SM. At C=37, D=1024, F=4096 each pass runs 256 blocks, so
+// the weight reads spread over all 132 SMs. mma.sync issues TF32 at 120-150
+// TFLOP/s, a quarter of the tensor cores' rate: the reason for the
+// warpgroup route. At a few rows, pass A's fixed cost per stage (barrier,
+// zero-filled rows) and not the weight bytes sets its time.
 // Launches on the caller's stream, allocates nothing, returns the first CUDA
 // error.
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 #include <cstdint>
@@ -403,6 +418,362 @@ int launch(const void* x, const void* w_in, const void* b_in, const void* w_out,
   return cudaSuccess;
 }
 
+// ---- float32 on warpgroup MMA: wgmma fed by TMA ----
+namespace wg {
+
+constexpr int kBM = 128;           // tile rows: two consumer warpgroups of 64
+constexpr int kBN = 128;           // tile columns (pass A: 64 of h, then the same 64 of g)
+constexpr int kBK = 32;            // K floats a stage: one 128-byte swizzled row
+constexpr int kStages = 4;         // depth of the TMA ring
+constexpr int kTile = 128 * 128;   // bytes of a 128-row operand tile, one stage deep
+constexpr int kStage = 3 * kTile;  // A as stored; B's big and small TF32 halves
+constexpr int kThreads = 384;      // a producer warpgroup, two consumer warpgroups
+constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+
+struct Args {
+  int rows, D, F, ldu;               // chunk rows, widths, u's row stride
+  int row_tiles, col_tiles, units;  // output tiles; pass B's units are tiles x splits
+  int splits, split_k;              // pass B: splits of the F sum, F columns each
+};
+
+// A block's unit of work: the output tile at (m0, n0) over stages [0, nk) of
+// K from k0. Pass A's n0 is the first gate column f0 (B rows f0.. and F + f0..).
+struct Unit {
+  int m0, n0, k0, nk, split;
+};
+
+template <bool kGate>
+__device__ __forceinline__ Unit unit_at(int u, const Args& p) {
+  Unit t;
+  const int rest = u / p.row_tiles;
+  t.m0 = (u % p.row_tiles) * kBM;
+  if (kGate) {
+    t.n0 = rest * (kBN / 2);
+    t.k0 = 0;
+    t.nk = (p.D + kBK - 1) / kBK;
+    t.split = 0;
+  } else {
+    t.n0 = (rest % p.col_tiles) * kBN;
+    t.split = rest / p.col_tiles;
+    t.k0 = t.split * p.split_k;
+    t.nk = (min(p.F, t.k0 + p.split_k) - t.k0 + kBK - 1) / kBK;
+  }
+  return t;
+}
+
+// Pass A's epilogue: u = (h + b_h) * gelu_tanh(g + b_g); h of gate column f
+// is acc column f - f0 and g column 64 + f - f0, in the same thread.
+__device__ __forceinline__ void store_gate(const float (&acc)[64], const Unit& t, int r, int t4,
+                                           const float* __restrict__ b_in, float* __restrict__ u,
+                                           const Args& p) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = t.m0 + r + 8 * h;
+    if (m >= p.rows) continue;
+    float* row = u + static_cast<long long>(m) * p.ldu;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int f = t.n0 + 8 * j + 2 * t4;
+      if (f >= p.F) continue;  // F is even: f + 1 < F too
+      float2 v;
+      v.x = (acc[4 * j + 2 * h] + b_in[f]) * gelu_tanh(acc[4 * (j + 8) + 2 * h] + b_in[p.F + f]);
+      v.y = (acc[4 * j + 2 * h + 1] + b_in[f + 1]) *
+            gelu_tanh(acc[4 * (j + 8) + 2 * h + 1] + b_in[p.F + f + 1]);
+      *reinterpret_cast<float2*>(row + f) = v;
+    }
+  }
+}
+
+// Pass B's epilogue: y with the bias where the F sum is whole, else the
+// split's partial for geglu_reduce_kernel.
+__device__ __forceinline__ void store_out(const float (&acc)[64], const Unit& t, int r, int t4,
+                                          const float* __restrict__ b_out, float* __restrict__ y,
+                                          float* __restrict__ partial, const Args& p) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = t.m0 + r + 8 * h;
+    if (m >= p.rows) continue;
+    const long long row = static_cast<long long>(m) * p.D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = t.n0 + 8 * j + 2 * t4;
+      if (n >= p.D) continue;  // D is even: n + 1 < D too
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (p.splits == 1) {
+        v.x += b_out[n];
+        v.y += b_out[n + 1];
+        *reinterpret_cast<float2*>(y + row + n) = v;
+      } else {
+        *reinterpret_cast<float2*>(partial + static_cast<long long>(t.split) * p.rows * p.D + row + n) = v;
+      }
+    }
+  }
+}
+
+// One persistent block: it walks units blockIdx.x, + gridDim.x, ... One
+// thread keeps TMA loads in flight through a ring of kStages stages: A (x or
+// u) as stored, and B's big and small TF32 halves, split once per call by
+// geglu_split_weights_kernel (full: the bytes landed). Each consumer
+// warpgroup takes its 64 rows of A from shared memory into registers, splits
+// them, and runs the stage's 12 wgmmas (small.big, big.small, big.big for
+// each of 4 k8 steps) into a fresh partial; FADD adds the partial to the
+// accumulator, and the stage is freed (empty).
+template <bool kGate>
+__device__ __forceinline__ void run(const CUtensorMap* a_map, const CUtensorMap* big_map,
+                                    const CUtensorMap* small_map, const float* __restrict__ bias,
+                                    float* __restrict__ out, float* __restrict__ partial,
+                                    const Args& p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(a_map);
+    tma_prefetch_map(big_map);
+    tma_prefetch_map(small_map);
+    int it = 0;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const Unit t = unit_at<kGate>(u, p);
+      for (int kt = 0; kt < t.nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kStage;
+        const int k = t.k0 + kt * kBK;
+        mbar_arrive_expect_tx(&full[s], kStage);
+        tma_load_2d(st, a_map, &full[s], k, t.m0);
+        if (kGate) {
+          tma_load_2d(st + kTile, big_map, &full[s], k, t.n0);
+          tma_load_2d(st + kTile + kTile / 2, big_map, &full[s], k, p.F + t.n0);
+          tma_load_2d(st + 2 * kTile, small_map, &full[s], k, t.n0);
+          tma_load_2d(st + 2 * kTile + kTile / 2, small_map, &full[s], k, p.F + t.n0);
+        } else {
+          tma_load_2d(st + kTile, big_map, &full[s], k, t.n0);
+          tma_load_2d(st + 2 * kTile, small_map, &full[s], k, t.n0);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    // Row r of the tile, r % 8 == g: the thread's A rows are r and r + 8.
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r = ((warp >> 2) - 1) * 64 + (warp & 3) * 16 + g;
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+    int it = 0;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const Unit t = unit_at<kGate>(u, p);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < t.nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        __syncwarp();
+        const unsigned char* st = smem + s * kStage;
+        // Row r's 16-byte chunk c lies at chunk c ^ (r % 8) (128-byte swizzle).
+        const float* a0 = reinterpret_cast<const float*>(st + r * 128);
+        const float* a1 = a0 + 8 * 32;
+        unsigned a_big[4][4], a_small[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c0 = ((2 * j) ^ g) * 4 + t4, c1 = ((2 * j + 1) ^ g) * 4 + t4;
+          split_tf32_bits(a0[c0], a_big[j][0], a_small[j][0]);
+          split_tf32_bits(a1[c0], a_big[j][1], a_small[j][1]);
+          split_tf32_bits(a0[c1], a_big[j][2], a_small[j][2]);
+          split_tf32_bits(a1[c1], a_big[j][3], a_small[j][3]);
+        }
+        const uint64_t d_big = sw128_desc(st + kTile), d_small = sw128_desc(st + 2 * kTile);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wgmma_m64n128k8_tf32(part, a_small[j], d_big + 2 * j, j);
+          wgmma_m64n128k8_tf32(part, a_big[j], d_small + 2 * j, 1);
+          wgmma_m64n128k8_tf32(part, a_big[j], d_big + 2 * j, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if (kGate) {
+        store_gate(acc, t, r, t4, bias, out, p);
+      } else {
+        store_out(acc, t, r, t4, bias, out, partial, p);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+geglu_gate_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap big_map,
+                        const __grid_constant__ CUtensorMap small_map, const float* __restrict__ b_in,
+                        float* __restrict__ u, wg::Args p) {
+  wg::run<true>(&x_map, &big_map, &small_map, b_in, u, nullptr, p);
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+geglu_out_wgmma_kernel(const __grid_constant__ CUtensorMap u_map,
+                       const __grid_constant__ CUtensorMap big_map,
+                       const __grid_constant__ CUtensorMap small_map, const float* __restrict__ b_out,
+                       float* __restrict__ y, float* __restrict__ partial, wg::Args p) {
+  wg::run<false>(&u_map, &big_map, &small_map, b_out, y, partial, p);
+}
+
+// The weights' TF32 halves, once per call: big = tf32(w), small =
+// tf32(w - big), each in w's layout; n4 is the count of 16-byte groups.
+__global__ void geglu_split_weights_kernel(const float4* __restrict__ w, uint4* __restrict__ big,
+                                           uint4* __restrict__ small, long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float4 v = w[i];
+    uint4 b, s;
+    split_tf32_bits(v.x, b.x, s.x);
+    split_tf32_bits(v.y, b.y, s.y);
+    split_tf32_bits(v.z, b.z, s.z);
+    split_tf32_bits(v.w, b.w, s.w);
+    big[i] = b;
+    small[i] = s;
+  }
+}
+
+cudaError_t split_weights(const float* w, float* big, float* small, long long n, int sms,
+                          cudaStream_t s) {
+  const long long n4 = n / 4, want = (n4 + 255) / 256;
+  geglu_split_weights_kernel<<<static_cast<int>(want < 8LL * sms ? want : 8LL * sms), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(big),
+      reinterpret_cast<uint4*>(small), n4);
+  return cudaGetLastError();
+}
+
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query, so the library links against the runtime alone.
+TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major float32 matrix [rows, cols] with rows ld floats apart, read in
+// boxes of 32 columns by box_rows rows, 128-byte swizzled; zeros past its
+// edges.
+cudaError_t tile_map(CUtensorMap* map, const float* base, int rows, int cols, long long ld,
+                     int box_rows) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(float)};
+  const cuuint32_t box[2] = {wg::kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+                              strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+// The float32 GEGLU over C rows on the warpgroup route: the weights split
+// into w_split (W_in's big and small halves, then W_out's: 6 * D * F floats),
+// then C walked chunk_rows at a time through the u scratch [chunk_rows, ldu],
+// pass B's F sum in `splits` of split_k columns. Each pass launches one
+// persistent block per SM (or per unit, where fewer).
+int launch_wgmma(const float* x, const float* w_in, const float* b_in, const float* w_out,
+                 const float* b_out, float* y, float* u, float* partial, float* w_split, int C,
+                 int D, int F, int chunk_rows, int ldu, int splits, int split_k, int device,
+                 cudaStream_t s) {
+  if (C < 1 || D < 4 || F < 4 || D % 4 != 0 || F % 4 != 0 || chunk_rows < 1 || ldu < F ||
+      ldu % 8 != 0 || split_k < 1 || split_k % wg::kBK != 0 || splits != (F + split_k - 1) / split_k ||
+      (splits > 1 && !partial) || !aligned16(x) || !aligned16(w_in) || !aligned16(w_out) ||
+      !aligned16(u) || !aligned16(w_split))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(geglu_gate_wgmma_kernel, wg::kSmem);
+  if (err == cudaSuccess) err = allow_smem(geglu_out_wgmma_kernel, wg::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long in_n = 2LL * F * D, out_n = static_cast<long long>(D) * F;
+  float* in_big = w_split;
+  float* in_small = in_big + in_n;
+  float* out_big = in_small + in_n;
+  float* out_small = out_big + out_n;
+  err = split_weights(w_in, in_big, in_small, in_n, sms, s);
+  if (err == cudaSuccess) err = split_weights(w_out, out_big, out_small, out_n, sms, s);
+  if (err != cudaSuccess) return err;
+  CUtensorMap in_big_map, in_small_map, out_big_map, out_small_map;
+  err = tile_map(&in_big_map, in_big, 2 * F, D, D, wg::kBN / 2);
+  if (err == cudaSuccess) err = tile_map(&in_small_map, in_small, 2 * F, D, D, wg::kBN / 2);
+  if (err == cudaSuccess) err = tile_map(&out_big_map, out_big, D, F, F, wg::kBN);
+  if (err == cudaSuccess) err = tile_map(&out_small_map, out_small, D, F, F, wg::kBN);
+  if (err != cudaSuccess) return err;
+  for (long long r0 = 0; r0 < C; r0 += chunk_rows) {
+    const int rows = static_cast<int>(C - r0 < chunk_rows ? C - r0 : chunk_rows);
+    CUtensorMap x_map, u_map;
+    err = tile_map(&x_map, x + r0 * D, rows, D, D, wg::kBM);
+    if (err == cudaSuccess) err = tile_map(&u_map, u, rows, F, ldu, wg::kBM);
+    if (err != cudaSuccess) return err;
+    const int row_tiles = (rows + wg::kBM - 1) / wg::kBM;
+    wg::Args a{rows, D, F, ldu, row_tiles, (F + wg::kBN / 2 - 1) / (wg::kBN / 2), 0, 1, 0};
+    a.units = row_tiles * a.col_tiles;
+    geglu_gate_wgmma_kernel<<<a.units < sms ? a.units : sms, wg::kThreads, wg::kSmem, s>>>(
+        x_map, in_big_map, in_small_map, b_in, u, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    wg::Args b{rows, D, F, ldu, row_tiles, (D + wg::kBN - 1) / wg::kBN, 0, splits, split_k};
+    b.units = row_tiles * b.col_tiles * splits;
+    float* yc = y + r0 * D;
+    geglu_out_wgmma_kernel<<<b.units < sms ? b.units : sms, wg::kThreads, wg::kSmem, s>>>(
+        u_map, out_big_map, out_small_map, b_out, yc, partial, b);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (splits == 1) continue;
+    const long long size = static_cast<long long>(rows) * D;
+    const long long want = (size + 255) / 256;
+    geglu_reduce_kernel<float><<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, s>>>(
+        partial, b_out, yc, splits, size, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 NR_EXPORT int geglu_f32(const void* x, const void* w_in, const void* b_in, const void* w_out,
@@ -411,6 +782,17 @@ NR_EXPORT int geglu_f32(const void* x, const void* w_in, const void* b_in, const
                         int device, void* stream) {
   return launch<float>(x, w_in, b_in, w_out, b_out, y, u, partial, C, D, F, chunk_rows, ldu, tile_a,
                        tile_b, splits, split_k, device, stream);
+}
+
+NR_EXPORT int geglu_f32_wgmma(const void* x, const void* w_in, const void* b_in, const void* w_out,
+                              const void* b_out, void* y, void* u, void* partial, void* w_split,
+                              int C, int D, int F, int chunk_rows, int ldu, int splits, int split_k,
+                              int device, void* stream) {
+  return launch_wgmma(static_cast<const float*>(x), static_cast<const float*>(w_in),
+                      static_cast<const float*>(b_in), static_cast<const float*>(w_out),
+                      static_cast<const float*>(b_out), static_cast<float*>(y), static_cast<float*>(u),
+                      static_cast<float*>(partial), static_cast<float*>(w_split), C, D, F, chunk_rows,
+                      ldu, splits, split_k, device, static_cast<cudaStream_t>(stream));
 }
 
 NR_EXPORT int geglu_bf16(const void* x, const void* w_in, const void* b_in, const void* w_out,

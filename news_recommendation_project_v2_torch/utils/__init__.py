@@ -11,6 +11,7 @@ from .memory import (
     estimate_tower_batch,
     estimate_tower_train_batch,
     flat_token_bytes,
+    geglu_scratch_bytes,
     tower_activation_bytes,
     transformer_activation_bytes,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "estimate_tower_batch",
     "estimate_tower_train_batch",
     "flat_token_bytes",
+    "geglu_scratch_bytes",
     "profile_trace",
     "timed",
     "tower_activation_bytes",

@@ -105,9 +105,9 @@ def flat_token_bytes(config: TowerConfig) -> int:
     The port holds less at once: the gathered row and its LayerNorm (2·D,
     the LayerNorm in float32 whatever the compute type) plus two
     heads·dim_head blocks (q and its permuted copy, or the attention's
-    output and its permuted copy). The GEGLU's row-chunk scratch (at most
-    64 MB, ``ops.geglu.SCRATCH_LIMIT``) comes on top. PERF.md gives the
-    measured peak beside this model."""
+    output and its permuted copy). The GEGLU's scratch
+    (``geglu_scratch_bytes``) comes on top. PERF.md gives the measured peak
+    beside this model."""
     b = _DTYPE_BYTES.get(config.compute_dtype, 4)
     if config.kind != "latent":
         raise ValueError("flat scoring applies to token-local towers only")
@@ -115,6 +115,19 @@ def flat_token_bytes(config: TowerConfig) -> int:
     inner = config.num_heads * config.latent_dim_head
     widest = max(8 * d, 2 * inner)
     return (widest + 4 * d + config.num_heads * config.num_latents) * b
+
+
+def geglu_scratch_bytes(config: TowerConfig) -> int:
+    """Device scratch of one call of the latent tower's GEGLU (``ops.geglu``,
+    F = 4·D), on top of the activations and freed after the call: the row
+    chunks' u and pass B's partials, at most 64 MB
+    (``ops.geglu.SCRATCH_LIMIT``); in float32, whose calls of 192 rows and
+    more take the warpgroup route, also both weights split into their big
+    and small TF32 halves, 2 × 3·D·F floats (96 MiB at D = 1,024, 1.5 GiB at
+    D = 4,096)."""
+    d = config.reduced_dim
+    split = 2 * 3 * d * (4 * d) * 4 if config.compute_dtype == "float32" else 0
+    return 64 * 2**20 + split
 
 
 def estimate_flat_chunk(

@@ -251,19 +251,29 @@ def _geglu_args(shape, dtype, device):
     return tuple(a.to(dtype) for a in args)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize(
-    "shape",
-    [(37, 1024, 4096), (16, 1024, 4096), (512, 1024, 4096), (37, 1536, 6144), (300, 96, 130)],
-    ids=["request", "c16", "c512", "wide_d", "unaligned"],
-)
+GEGLU_SHAPES = {
+    "request": (37, 1024, 4096), "c16": (16, 1024, 4096), "c512": (512, 1024, 4096),
+    "wide_d": (37, 1536, 6144), "unaligned": (300, 96, 130),
+}
+# The warpgroup route's shapes, float32 only: the flat eval's row chunk, a
+# ragged C past it, the NV-Embed tower's width.
+GEGLU_WGMMA_SHAPES = {"flat_chunk": (4096, 1024, 4096), "c4100": (4100, 1024, 4096), "nvembed": (1024, 4096, 16384)}
+GEGLU_CASES = [
+    pytest.param(dtype, shape, id=f"{name}-{str(dtype)[6:]}")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    for name, shape in GEGLU_SHAPES.items()
+] + [pytest.param(torch.float32, shape, id=f"{name}-float32") for name, shape in GEGLU_WGMMA_SHAPES.items()]
+
+
+@pytest.mark.parametrize("dtype, shape", GEGLU_CASES)
 def test_geglu_kernel_matches_plain(cuda, dtype, shape):
     """float32 runs as 3xTF32, whose products are float32-accurate, summed in
-    another order over up to 6,144 + 1,536 terms: 1e-4. In bfloat16 the
+    another order over up to 16,384 + 4,096 terms: 1e-4. In bfloat16 the
     gated product may round one bfloat16 unit apart from the plain
     version's: 1e-3; a float16 one unit of 2^-11, a quarter of that:
     2.5e-4. (300, 96, 130) has F not a multiple of 4, so W_out's
-    rows are not 16-byte aligned and take the kernel's masked loads."""
+    rows are not 16-byte aligned and take the kernel's masked loads. From
+    128 rows float32 takes the warpgroup route."""
     args = _geglu_args(shape, dtype, cuda)
     before = geglu.launches, geglu.shapes[shape]
     got = geglu(*args)
@@ -310,15 +320,64 @@ def test_geglu_kernel_takes_ragged_edges(cuda, dtype, shape):
     torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=GEGLU_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-def test_geglu_kernel_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize(
+    "dtype, shape",
+    [pytest.param(dtype, (37, 1024, 4096), id=str(dtype)[6:]) for dtype in (torch.float32, torch.bfloat16, torch.float16)]
+    + [pytest.param(torch.float32, shape, id=f"{name}-float32") for name, shape in GEGLU_WGMMA_SHAPES.items()],
+)
+def test_geglu_kernel_is_deterministic(cuda, dtype, shape):
     """Split F sums are added in a fixed order, with no atomics: the same
-    inputs give the same bits on two launches (C=37 splits pass B 8 ways)."""
-    args = _geglu_args((37, 1024, 4096), dtype, cuda)
+    inputs give the same bits on two launches (C=37 splits pass B 8 ways;
+    on the warpgroup route C=4,100 splits it 3 ways)."""
+    args = _geglu_args(shape, dtype, cuda)
     first = geglu(*args)
     second = geglu(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _geglu64(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """The plain GEGLU in float64 throughout."""
+    h, g = F.linear(x.double(), w_in.double(), b_in.double()).chunk(2, dim=-1)
+    return F.linear(h * F.gelu(g, approximate="tanh"), w_out.double(), b_out.double())
+
+
+def test_geglu_wgmma_route_is_float32_accurate(cuda):
+    """At C = 4,096 the warpgroup route stays within 2e-6 of the output's
+    scale (its largest magnitude) of a float64 GEGLU: the 3xTF32 split and
+    the promotion of the tensor cores' short sums survive. The plain version
+    with TF32 on passes that limit (H100: 5e-4 against the route's 9e-7),
+    so the limit tells the two apart. geglu.routes counts the route, and
+    C = 37 (one request) stays on mma.sync."""
+    args = _geglu_args((4096, 1024, 4096), torch.float32, cuda)
+    want = _geglu64(*args)
+    limit = 2e-6 * want.abs().max().item()
+    before = geglu.routes[("wgmma", torch.float32)], geglu.routes[("mma_sync", torch.float32)]
+    got = geglu(*args)
+    torch.cuda.synchronize()
+    assert (got.double() - want).abs().max().item() <= limit
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = reference_geglu(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert (tf32.double() - want).abs().max().item() > limit
+    geglu(*_geglu_args((37, 1024, 4096), torch.float32, cuda))
+    after = geglu.routes[("wgmma", torch.float32)], geglu.routes[("mma_sync", torch.float32)]
+    assert after == (before[0] + 1, before[1] + 1)
+
+
+def test_geglu_wgmma_route_needs_aligned_operands(cuda):
+    """x starting 4 bytes past a 16-byte boundary cannot feed TMA: a
+    warpgroup-sized GEGLU then takes mma.sync's masked loads, with the same
+    result within the float32 tolerance."""
+    args = list(_geglu_args((256, 64, 48), torch.float32, cuda))
+    x = torch.empty(args[0].numel() + 1, device=cuda)[1:].view_as(args[0]).copy_(args[0])
+    before = geglu.routes[("mma_sync", torch.float32)]
+    got = geglu(x, *args[1:])
+    torch.cuda.synchronize()
+    assert geglu.routes[("mma_sync", torch.float32)] == before + 1
+    torch.testing.assert_close(got, reference_geglu(*args), rtol=0, atol=GEGLU_TOL[torch.float32])
 
 
 def test_geglu_kernel_takes_unaligned_rows(cuda):

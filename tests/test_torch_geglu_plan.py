@@ -1,11 +1,13 @@
 """The GEGLU kernel's launch planner (``ops/geglu.py::plan_geglu``) and the
 wrapper's any-D contract, on the CPU.
 
-The planner decides how csrc/geglu.cu covers a GEGLU: row chunks, the tile of
-each pass and pass B's split of the F sum. Its invariants are held here at the
-serving, fixed and flat-eval shapes, for an H100's 132 SMs: every row, every
-[h | g] column and every output column covered exactly once, no empty split,
-the scratch within its limit and enough blocks to fill the card."""
+The planner decides how csrc/geglu.cu covers a GEGLU: the route (float32 on
+warpgroup MMA, or mma.sync), row chunks, the tile of each pass and pass B's
+split of the F sum. Its invariants are held here at the serving, fixed,
+flat-eval, training and NV-Embed tower shapes, for an H100's 132 SMs: every
+row, every [h | g] column and every output column covered exactly once, no
+empty split, the scratch within its limit, enough blocks to fill the card,
+and the route rule."""
 
 import collections
 
@@ -21,9 +23,14 @@ from news_recommendation_project_v2_torch.ops.geglu import (
     SCRATCH_LIMIT,
     STAGE_BYTES,
     TILES,
+    WGMMA,
+    WGMMA_MIN_ROWS,
+    WGMMA_STAGE,
     geglu,
     plan_geglu,
 )
+from news_recommendation_project_v2_torch.config import TowerConfig
+from news_recommendation_project_v2_torch.utils.memory import geglu_scratch_bytes
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 SMS, L2 = 132, 50 * 2**20  # an H100 SXM
@@ -34,6 +41,12 @@ SHAPES = [
     (4800, 1024, 4096),
     (131072, 1024, 4096),
     (37, 1536, 6144),
+    (4096, 1024, 4096),  # the flat eval's row chunk
+    (4100, 1024, 4096),  # a ragged one
+    (65536, 1024, 4096),  # flat training
+    (262144, 1024, 4096),  # the flat eval's token chunk
+    (1024, 4096, 16384),  # the NV-Embed tower's row chunk
+    (65536, 4096, 16384),  # its flat eval's token chunk
 ]
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
@@ -87,6 +100,8 @@ def test_plan_splits_are_nonempty_whole_stages(shape, dtype):
     c, d, f = shape
     plan = plan_geglu(c, d, f, dtype, SMS, L2)
     depth = STAGE_BYTES // torch.tensor([], dtype=dtype).element_size()
+    if plan.route == "wgmma":
+        depth = WGMMA_STAGE
     assert plan.split_k % depth == 0
     assert plan.splits == _ceil(f, plan.split_k)
     assert (plan.splits - 1) * plan.split_k < f
@@ -119,6 +134,53 @@ def test_plan_fills_the_card(shape, dtype):
     assert _ceil(rows, bm) * _ceil(f, bn // 2) >= SMS
     bm, bn = TILES[dtype][plan.tile_b]
     assert _ceil(rows, bm) * _ceil(d, bn) * plan.splits >= SMS
+
+
+@pytest.mark.parametrize(
+    "dtype, shape, aligned, route",
+    [
+        (torch.float32, (4096, 1024, 4096), True, "wgmma"),
+        (torch.float32, (WGMMA_MIN_ROWS, 1024, 4096), True, "wgmma"),
+        (torch.float32, (1024, 4096, 16384), True, "wgmma"),
+        (torch.float32, (WGMMA_MIN_ROWS - 1, 1024, 4096), True, "mma_sync"),
+        (torch.float32, (37, 1024, 4096), True, "mma_sync"),
+        (torch.float32, (4096, 1024, 4096), False, "mma_sync"),
+        (torch.float32, (4096, 1022, 4096), True, "mma_sync"),
+        (torch.float32, (4096, 1024, 4094), True, "mma_sync"),
+        (torch.bfloat16, (4096, 1024, 4096), True, "mma_sync"),
+        (torch.float16, (4096, 1024, 4096), True, "mma_sync"),
+        (torch.bfloat16, (1024, 4096, 16384), True, "mma_sync"),
+        (torch.float16, (1024, 4096, 16384), True, "mma_sync"),
+    ],
+)
+def test_plan_route_rule(dtype, shape, aligned, route):
+    """float32 with at least WGMMA_MIN_ROWS rows, D and F multiples of 4 and
+    16-byte aligned operands takes the warpgroup route, on its own tile in
+    both passes; fewer rows, ragged widths, unaligned operands and the
+    16-bit types take mma.sync on its Large and Small tiles."""
+    plan = plan_geglu(*shape, dtype, SMS, L2, aligned)
+    assert plan.route == route
+    if route == "wgmma":
+        assert plan.tile_a == plan.tile_b == WGMMA
+    else:
+        assert {plan.tile_a, plan.tile_b} <= {0, 1}
+
+
+@pytest.mark.parametrize(
+    "d, compute, c",
+    [(1024, "float32", 262144), (1024, "float32", 37), (4096, "float32", 65536), (1024, "bfloat16", 524288)],
+)
+def test_plan_scratch_is_counted_in_the_memory_model(d, compute, c):
+    """What a call of the tower's GEGLU allocates beside its output (u, the
+    partials and, on the warpgroup route, the weights' TF32 halves) is
+    within ``utils.memory.geglu_scratch_bytes``, at the flat evals' chunks
+    and one request."""
+    dtype = getattr(torch, compute)
+    plan = plan_geglu(c, d, 4 * d, dtype, SMS, L2)
+    assert plan.split_bytes == (2 * 3 * d * 4 * d * 4 if plan.route == "wgmma" else 0)
+    assert plan.scratch_bytes + plan.split_bytes <= geglu_scratch_bytes(
+        TowerConfig(reduced_dim=d, compute_dtype=compute)
+    )
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 0), (0, 8, 4), (3, 0, 4)])
