@@ -1,23 +1,34 @@
-"""Device time of the attention kernel under every block shape and slice
-count, beside the plan that ``plan_attention`` picks, on one NVIDIA GPU.
+"""Device times of the port's kernels under each plan or route, beside the
+one its planner picks, on one NVIDIA GPU.
 
-    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder]
+    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder|geglu]
 
-With ``encoder`` it sweeps NV-Embed's pooling head (N = 512, dh = 4,096) at
-the batches of news an encode gives it, instead of the user tower's shapes.
-
-For each shape (B, H, L, N, dh) and type (float32, bfloat16, float16) it
-prints the library call's time (``scaled_dot_product_attention``, a
-yardstick), the planner's plan and its
+Without an argument it sweeps the attention kernel's block shapes and slice
+counts at the user tower's shapes (N = 64, dh = 512); with ``encoder`` at
+NV-Embed's pooling head (N = 512, dh = 4,096) and the batches of news an
+encode gives it. For each shape (B, H, L, N, dh) and type (float32,
+bfloat16, float16) it prints the library call's time
+(``scaled_dot_product_attention``, a yardstick), the planner's plan and its
 time, and the fastest plans with their largest difference from the plain
 version. Times are device times: ten launches captured in one CUDA graph and
 replayed (two at the flat eval's [1, 8, 131072, 512], where only one slice
-is tried). This is how the planner's rules were measured (PERF.md, Findings).
+is tried).
+
+With ``geglu`` it times the float32 GEGLU on both of its routes (warpgroup
+MMA and mma.sync) at C rows about ``WGMMA_MIN_ROWS`` and where the main path
+calls it: one request (C = 37), the flat train step (65,536), the flat eval's
+chunk (262,144), NV-Embed's tower at D = 4,096. Each line gives the route
+``plan_geglu`` picks, each route's device time and largest difference from
+the plain version, the plain version's time and the library call's
+(``F.linear``, GELU, ``F.linear``). This is how the planners' rules were
+measured (PERF.md, Findings).
 """
 
 from __future__ import annotations
 
+import importlib
 import sys
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +43,9 @@ from .latent_attention import (
     reference_attention,
 )
 from .timing import graph_ms
+
+# The module, not the package's ``geglu`` (the wrapper function of that name).
+geglu_ops = importlib.import_module(f"{__package__}.geglu")
 
 # (B, H, L) at N=64, dh=512: a single request's history buckets, then B·L
 # from 512 to 4,800 folded rows, the served buckets 256 and 600 at moderate B
@@ -87,12 +101,67 @@ def sweep(shape, dtype, gen) -> str:
     )
 
 
+# (C, D, F) of the float32 GEGLU: about the warpgroup route's first rows, then
+# the main path's calls at D = 1,024 and at NV-Embed's tower (D = 4,096).
+GEGLU_SHAPES = [
+    (37, 1024, 4096), (128, 1024, 4096), (192, 1024, 4096), (256, 1024, 4096), (4096, 1024, 4096),
+    (65536, 1024, 4096), (262144, 1024, 4096), (128, 4096, 16384), (256, 4096, 16384), (8192, 4096, 16384),
+]
+
+
+def geglu_library(x, w_in, b_in, w_out, b_out):
+    h, g = F.linear(x, w_in, b_in).chunk(2, dim=-1)
+    return F.linear(h * F.gelu(g, approximate="tanh"), w_out, b_out)
+
+
+def sweep_geglu(shape, gen) -> str:
+    c, d, f = shape
+    args = tuple(
+        torch.randn(*s, device="cuda", generator=gen) * scale
+        for s, scale in (((c, d), 1.0), ((2 * f, d), d**-0.5), ((2 * f,), 0.02), ((d, f), f**-0.5), ((d,), 0.02))
+    )
+    props = torch.cuda.get_device_properties(0)
+    picked = geglu_ops.plan_geglu(c, d, f, torch.float32, props.multi_processor_count, props.L2_cache_size)
+    plans = {
+        "wgmma": geglu_ops._plan_wgmma(c, d, f, props.multi_processor_count),
+        "mma_sync": geglu_ops.plan_geglu(
+            c, d, f, torch.float32, props.multi_processor_count, props.L2_cache_size, aligned=False
+        ),
+    }
+    ops = 6.0 * c * d * f
+    reps = (10, 5) if ops < 1e10 else (1, 5) if ops < 1e12 else (1, 2)
+    want = geglu_ops.reference_geglu(*args)
+    times = {}
+    for route, plan in plans.items():
+        if plan is None:
+            continue
+        # The wrapper under the route's plan, past the planner.
+        with mock.patch.object(geglu_ops, "plan_geglu", lambda *_, plan=plan: plan):
+            before = geglu_ops.geglu.routes[(route, torch.float32)]
+            err = (geglu_ops.geglu(*args) - want).abs().max().item()
+            assert geglu_ops.geglu.routes[(route, torch.float32)] == before + 1, route
+            times[route] = (graph_ms(lambda: geglu_ops.geglu(*args), *reps), err)
+    del want
+    plain = graph_ms(lambda: geglu_ops.reference_geglu(*args), *reps)
+    library = graph_ms(lambda: geglu_library(*args), *reps)
+    return (
+        f"float32 C={c} D={d} F={f}: plan {picked.route}; "
+        + "; ".join(f"{r} {t:.4f} ms (err {e:.2g})" for r, (t, e) in times.items())
+        + f"; plain {plain:.4f} ms; library {library:.4f} ms"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("plan_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
+        if sys.argv[1:] == ["geglu"]:
+            for shape in GEGLU_SHAPES:
+                print(sweep_geglu(shape, gen), flush=True)
+                torch.cuda.empty_cache()
+            return 0
         if sys.argv[1:] == ["encoder"]:
             for dtype in DTYPES:
                 for b, h, l in ENCODER_SHAPES:

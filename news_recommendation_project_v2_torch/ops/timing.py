@@ -1,8 +1,6 @@
-"""Measures of a call on the card, for the smoke run, the plan sweep and the
-card tests: two timers, and a count of the host's waits.
+"""Measures of a call on the card, for the plan sweep and the card tests: a
+timer, and a count of the host's waits.
 
-``cuda_ms`` times calls back to back, host work included: where a call's
-host work outlasts its device work, it reads the host's time per call.
 ``graph_ms`` captures calls in one CUDA graph and replays it, so that the
 host's launch costs are left out: the device time, with the inputs of one
 call warm in L2 for the next.
@@ -13,20 +11,6 @@ from __future__ import annotations
 import warnings
 
 import torch
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean time of ``fn`` over ``iters`` calls back to back, after a warm-up,
-    on CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:

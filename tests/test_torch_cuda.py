@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same inputs, forward and, under autograd, backward; the tower,
-the flat eval, the train steps and the end-to-end step on the card against
-the same on the CPU; determinism and host syncs. Every test here skips
-without CUDA.
+the flat eval, the train steps, the trainers, serving, the end-to-end step,
+the encoder and the CLIs on the card against the same on the CPU;
+determinism and host syncs. Every test here skips without CUDA.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports JAX, so there run
@@ -11,28 +11,50 @@ it without the conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
+import json
 import math
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from news_recommendation_project_v2_torch.config import QUERY_INSTRUCTION, EncoderConfig, TowerConfig, TrainConfig
+from news_recommendation_project_v2_torch.cli.serve import build_ranker, make_server
+from news_recommendation_project_v2_torch.config import (
+    QUERY_INSTRUCTION,
+    EncoderConfig,
+    TowerConfig,
+    TrainConfig,
+    tower_kwargs_for_dim,
+)
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors, compile_native
 from news_recommendation_project_v2_torch.data.synthetic import align_embeddings, synthetic_learnable_behaviors
 from news_recommendation_project_v2_torch.eval.device_metrics import DeviceMetricsPlan
 from news_recommendation_project_v2_torch.models import TokenAttentionPool, build_tower
 from news_recommendation_project_v2_torch.models.convert import (
+    classification_head_state_dict_from_jax,
     e2e_state_dict_from_jax,
     encoder_state_dict_from_jax,
+    random_classification_head_params,
     random_encoder_params,
     latent_state_dict_from_jax,
     random_e2e_params,
     random_latent_params,
+    random_reducing_params,
     random_tower_params,
+    random_weighted_sum_params,
+    reducing_state_dict_from_jax,
     tower_state_dict_from_jax,
+    weighted_sum_state_dict_from_jax,
 )
 from news_recommendation_project_v2_torch.ops.geglu import _forward as geglu_forward
 from news_recommendation_project_v2_torch.ops.geglu import geglu, reference_geglu
@@ -48,10 +70,12 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     reference_attention,
 )
 from news_recommendation_project_v2_torch.models.news_encoder import HashTokenizer, NewsEncoder
+from news_recommendation_project_v2_torch.models.towers import ClassificationHead, ReducingModel, WeightedSumModel
 from news_recommendation_project_v2_torch.ops.encode import (
     TokenStore,
     build_token_store,
     encode_query_and_passage,
+    save_embeddings,
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan, score_all_impressions
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
@@ -64,7 +88,13 @@ from news_recommendation_project_v2_torch.train.step import (
     padded_infonce_loss,
     padded_margin_loss,
 )
-from news_recommendation_project_v2_torch.train.trainer import EndToEndTrainer, TowerTrainer, make_optimizer
+from news_recommendation_project_v2_torch.train.trainer import (
+    ClassificationTrainer,
+    EndToEndTrainer,
+    JointTowerTrainer,
+    TowerTrainer,
+    make_optimizer,
+)
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 pytestmark = pytest.mark.cuda
@@ -624,24 +654,35 @@ def _flat_tower(cfg, state, device):
     ids=["small", "full_width"],
 )
 def test_flat_eval_on_cuda_matches_cpu(cuda, cfg):
-    """FlatEvalPlan on the card (both kernels, every chunk) against the same
-    plan on the CPU (plain versions); its metrics against DeviceMetricsPlan
-    over its own scores."""
+    """FlatEvalPlan on the card (both kernels, every chunk, rows straddling
+    chunks) against the same plan on the CPU (plain versions, 1e-4); its
+    metrics against DeviceMetricsPlan over its own scores (1e-6); histories
+    capped at 128 tokens against the padded, masked tower call of
+    ``score_all_impressions`` on the card (1e-5); the tower in bfloat16, as
+    bench.py casts it, within a norm-relative 3e-2 of float32."""
     w = _flat_world(cfg)
     chunks = dict(chunk_tokens=256, cand_chunk=128)
+    tower = _flat_tower(cfg, w["state"], cuda)
     before = latent_attention.launches, geglu.launches
     plan = FlatEvalPlan(*w["hist"], device=cuda, **chunks)
-    got = plan.score(_flat_tower(cfg, w["state"], cuda), w["emb"])
+    got = plan.score(tower, w["emb"])
     n_chunks = len(plan.history.chunks)
     assert n_chunks > 3
     assert (latent_attention.launches, geglu.launches) == (before[0] + n_chunks, before[1] + n_chunks)
     want = FlatEvalPlan(*w["hist"], device="cpu", **chunks).score(_flat_tower(cfg, w["state"], "cpu"), w["emb"])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     mplan = DeviceMetricsPlan(w["imp_lens"], w["labels"], hist_slots=np.arange(len(got)), device=cuda)
-    m = plan.metrics(_flat_tower(cfg, w["state"], cuda), w["emb"], mplan)
+    m = plan.metrics(tower, w["emb"], mplan)
     direct = mplan.compute(got)
     for key in ("auc", "mrr", "ndcg5", "ndcg10"):
         assert abs(m[key] - direct[key]) <= 1e-6, key
+    capped = FlatEvalPlan(*w["hist"], max_len=128, device=cuda, **chunks).score(tower, w["emb"])
+    padded = score_all_impressions(tower, w["emb"], *w["hist"], batch_size=16, buckets=(16, 64, 128), device=cuda)
+    np.testing.assert_allclose(padded, capped, rtol=0, atol=1e-5)
+    bf16 = _flat_tower(dataclasses.replace(cfg, compute_dtype="bfloat16"), w["state"], cuda).to(torch.bfloat16)
+    query = torch.from_numpy(w["emb"]).to(cuda, torch.bfloat16)
+    got16 = plan.score(bf16, w["emb"], query_news_emb=query)
+    assert np.linalg.norm(got16 - got) <= 3e-2 * np.linalg.norm(got)
 
 
 def test_flat_segment_add_is_deterministic(cuda):
@@ -764,7 +805,7 @@ def test_latent_padded_forward_and_step_match_cpu(cuda, cfg):
         assert _norm_rel(out["card"][2][name], g) <= 1e-4, name
 
 
-@pytest.mark.parametrize("step, compute", [("flat", "float16"), ("padded", "bfloat16")])
+@pytest.mark.parametrize("step, compute", [("flat", "float16"), ("flat", "bfloat16"), ("padded", "bfloat16")])
 def test_16_bit_steps_match_the_cpu(cuda, step, compute):
     """A full-width latent tower's margin step in a 16-bit type at B = 8
     (the flat step over its tokens, the padded one over [8, 32] histories):
@@ -800,12 +841,17 @@ def test_16_bit_steps_match_the_cpu(cuda, step, compute):
         assert (g[n] - gc[n]).norm() <= 0.15 * gc[n].norm(), n
 
 
-@pytest.mark.parametrize("kind", ["final_attention", "transformer"])
-def test_padded_towers_keep_all_pad_rows_finite_on_cuda(cuda, kind):
+@pytest.mark.parametrize(
+    "kind, extra",
+    [pytest.param("final_attention", {}, id="final_attention"), pytest.param("transformer", {}, id="transformer"),
+     pytest.param("transformer", {"as_built": True}, id="transformer_as_built")],
+)
+def test_padded_towers_keep_all_pad_rows_finite_on_cuda(cuda, kind, extra):
     """A fully padded row stays finite on the card (the transformer's
     additive float32 mask gives a uniform softmax), and the towers match the
-    CPU within 1e-4 at full width."""
-    cfg = TowerConfig(kind=kind)
+    CPU within 1e-4 at full width; the card's tower computing in bfloat16
+    stays finite and within a norm-relative 3e-2 of its float32 output."""
+    cfg = TowerConfig(kind=kind, **extra)
     rng = np.random.default_rng(5)
     emb = rng.standard_normal((4, 37, 1024)).astype(np.float32)
     mask = np.ones((4, 37), np.float32)
@@ -813,11 +859,12 @@ def test_padded_towers_keep_all_pad_rows_finite_on_cuda(cuda, kind):
     mask[2] = 0.0
     emb *= mask[..., None]
     outs = []
-    for dev in ("cpu", cuda):
+    for dev, c in (("cpu", cfg), (cuda, cfg), (cuda, dataclasses.replace(cfg, compute_dtype="bfloat16"))):
         with torch.no_grad():
-            outs.append(_padded_tower(kind, dev, cfg)(torch.from_numpy(emb).to(dev), torch.from_numpy(mask).to(dev)).cpu())
-    assert torch.isfinite(outs[1]).all()
+            outs.append(_padded_tower(kind, dev, c)(torch.from_numpy(emb).to(dev), torch.from_numpy(mask).to(dev)).float().cpu())
+    assert torch.isfinite(outs[1]).all() and torch.isfinite(outs[2]).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+    assert _norm_rel(outs[2], outs[1]) <= 3e-2
 
 
 @pytest.mark.parametrize("kind", list(PADDED))
@@ -836,7 +883,8 @@ def test_padded_eval_on_cuda_matches_cpu(cuda, kind):
 def test_padded_train_steps_are_deterministic_on_cuda(cuda, kind):
     """Five padded steps, margin and InfoNCE in turn, dropout on (rate 0.1,
     masks from one seeded CUDA generator), twice from one state: the same
-    parameter bits."""
+    parameter bits. A margin step with its loss fetched waits for the card
+    once."""
     rng = np.random.default_rng(6)
     nce = tuple(torch.from_numpy(a).to(cuda) for a in _padded_batch(rng))
     margin = nce[:4] + (nce[4][:, 0].clamp_min(0),) + nce[5:]
@@ -851,6 +899,196 @@ def test_padded_train_steps_are_deterministic_on_cuda(cuda, kind):
             apply_step(opt, loss)
         finals.append([p.detach().clone() for p in tower.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*finals))
+    torch.cuda.synchronize()
+    assert count_syncs(lambda: float(apply_step(opt, padded_margin_loss(tower, emb, margin, 2.0, gen)))) == 1
+
+
+# -- the trainers, epoch by epoch ------------------------------------------------
+
+METRIC_KEYS = ("auc", "mrr", "ndcg5", "ndcg10")
+# The padded towers and the heads at bench.py's trained-metrics fixture's
+# width, 2 epochs of it.
+SMALL_PADDED = dict(reduced_dim=64, embedding_dim=64, hidden_dim=128, num_layers=1, dropout_rate=0.0)
+FIXTURE_TRAIN = dict(learning_rate=3e-4, num_epochs=2, batch_size=128, seed=0)
+
+
+def _learnable_split(num_rows=800, n_train=600, dim=64, seed=7):
+    """bench.py's trained-metrics fixture: the learnable behaviors split into
+    train and val rows, each with its aligned table."""
+    imps, hist, emb = synthetic_learnable_behaviors(num_news=200, num_rows=num_rows, dim=dim, noise=0.05, seed=seed)
+    ct = compile_behaviors(imps[:n_train], hist[:n_train]).with_history_view()
+    cv = compile_behaviors(imps[n_train:], hist[n_train:]).with_history_view()
+    return ct, cv, align_embeddings(ct.news_ids, emb), align_embeddings(cv.news_ids, emb)
+
+
+def _heads(dim=64):
+    """The classification head, the blend and the reducer from one numpy seed."""
+    rng = np.random.default_rng(85)
+    head = ClassificationHead(dim, dim)
+    head.load_state_dict(classification_head_state_dict_from_jax(random_classification_head_params(rng, dim, dim)))
+    blend, reduce = WeightedSumModel(), ReducingModel(dim, dim)
+    blend.load_state_dict(weighted_sum_state_dict_from_jax(random_weighted_sum_params(rng)))
+    reduce.load_state_dict(reducing_state_dict_from_jax(random_reducing_params(rng, dim, dim)))
+    return head, blend, reduce
+
+
+def _trainer_run(name, dev, split, baseline=None):
+    """One trainer of ``name`` on ``dev`` over ``split``: its history, and
+    for the classification trainer its baseline scores of both tables."""
+    ct, cv, emb_t, emb_v = split
+    val = dict(compiled_val=cv, news_emb_val=emb_v)
+    if name == "latent":
+        cfg = TowerConfig(kind="latent", reduced_dim=64, num_latents=8, latent_dim_head=16)
+        tower = _flat_tower(cfg, latent_state_dict_from_jax(random_latent_params(np.random.default_rng(0), cfg)), dev)
+        trainer = TowerTrainer(tower, ct, emb_t, **val, device_metrics=True, device=dev,
+                               cfg=TrainConfig(learning_rate=3e-4, num_epochs=3, batch_size=128, seed=0))
+        return trainer.train(), None
+    head, blend, reduce = _heads()
+    if name == "classification":
+        trainer = ClassificationTrainer(head, ct, emb_t, **val, cfg=TrainConfig(**FIXTURE_TRAIN), device=dev)
+        return trainer.train(), (trainer.baseline_scores(emb_t), trainer.baseline_scores(emb_v))
+    kind = "final_attention" if name == "joint" else name
+    cfg = TowerConfig(kind=kind, **SMALL_PADDED)
+    tower = build_tower(cfg)
+    tower.load_state_dict(tower_state_dict_from_jax(kind, random_tower_params(np.random.default_rng(0), cfg)))
+    tower.to(dev)
+    if name == "joint":  # the blend and the reducer drawn with the head, as the classification run's
+        trainer = JointTowerTrainer(tower, ct, emb_t, blend=blend, reduce=reduce, baseline_train=baseline[0],
+                                    baseline_val=baseline[1], **val, cfg=TrainConfig(**FIXTURE_TRAIN), flat_eval=False,
+                                    device=dev)
+    else:
+        trainer = TowerTrainer(tower, ct, emb_t, **val, cfg=TrainConfig(**FIXTURE_TRAIN), flat_train=False,
+                               flat_eval=False, device=dev)
+    return trainer.train(), None
+
+
+@pytest.mark.parametrize("name", ["latent", "final_attention", "transformer", "classification", "joint"])
+def test_trainer_on_cuda_matches_cpu_epoch_by_epoch(cuda, name):
+    """A trainer on bench.py's trained-metrics fixture (d = 64, 600 / 200
+    rows) on the card against the same trainer on the CPU, epoch by epoch:
+    the loss within 1e-5 relative, the val metrics within 2e-3 (the CPU
+    tests' tolerances). ``latent``: TowerTrainer on the flat step and eval
+    with the metrics on the card, 3 epochs, both kernels launched, its best
+    val AUC past bench.py's gate of 0.58; ``final_attention`` and
+    ``transformer``: TowerTrainer's padded step and bucketed eval, 2 epochs;
+    ``classification``: ClassificationTrainer; ``joint``: JointTowerTrainer
+    blending a final_attention tower with the card's classification
+    baseline and reducing both tables."""
+    split = _learnable_split()
+    baseline = _trainer_run("classification", cuda, split)[1] if name == "joint" else None
+    before = latent_attention.launches, geglu.launches
+    card, _ = _trainer_run(name, cuda, split, baseline)
+    if name == "latent":
+        assert latent_attention.launches > before[0] and geglu.launches > before[1]
+        assert max(h["val"]["auc"] for h in card) > 0.58
+    cpu, _ = _trainer_run(name, "cpu", split, baseline)
+    assert len(card) == len(cpu) > 1
+    for got, want in zip(card, cpu):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]), (got, want)
+        for k in METRIC_KEYS:
+            assert abs(got["val"][k] - want["val"][k]) <= 2e-3, (k, got, want)
+
+
+# -- serving ---------------------------------------------------------------------
+
+# Scores on the card against the CPU's ranker: the latent tower's float32
+# ones within 1e-4, the other towers' within 1e-5 and in the CPU's order;
+# float16 within a norm-relative 3e-2 of the CPU's float16 ranker.
+SERVE_TOL = {"latent": 1e-4, "final_attention": 1e-5, "transformer": 1e-5}
+
+
+def _requests(rng, ids, n):
+    """MIND-like requests: geometric histories (mean 29, capped at 600),
+    10-90 candidates."""
+    out = []
+    for _ in range(n):
+        h, c = int(np.clip(rng.geometric(1 / 29.0), 1, 600)), int(rng.integers(10, 90))
+        out.append(([ids[j] for j in rng.integers(0, len(ids), h)], [ids[j] for j in rng.integers(0, len(ids), c)]))
+    return out
+
+
+def _order_agrees(got, want, slack):
+    """``got`` holds ``want``'s candidates in ``want``'s order but where two
+    of ``want``'s scores lie within ``slack`` of each other."""
+    score = dict(want)
+    ids = [c for c, _ in got]
+    return sorted(ids) == sorted(c for c, _ in want) and all(
+        score[b] <= score[a] + slack for i, a in enumerate(ids) for b in ids[i + 1:]
+    )
+
+
+def _check_ranked(ranked, candidates):
+    scores = np.array([s for _, s in ranked])
+    assert sorted(c for c, _ in ranked) == sorted(candidates)
+    assert np.isfinite(scores).all() and (np.diff(scores) <= 0).all()
+
+
+def _post(port, path, payload):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/{path}", data=json.dumps(payload).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+@pytest.mark.parametrize(
+    "kind, compute",
+    [("latent", "float32"), ("final_attention", "float32"), ("transformer", "float32"), ("latent", "float16")],
+)
+def test_served_ranker_on_cuda_matches_cpu(cuda, tmp_path, kind, compute):
+    """``cli.serve.build_ranker`` (as ``nrtorch-serve --tower KIND --dim 64``
+    builds it) over an id-keyed dump of 500 news and a saved tower, on the
+    card against the same ranker on the CPU: a ``rank_batch`` of 32
+    MIND-like requests, one request's ``rank`` and one HTTP ``POST /rank``
+    (``make_server``), each ranking the request's candidates, its scores
+    finite and descending and within ``SERVE_TOL`` of the CPU's (float16: a
+    norm-relative 3e-2 a request), the ids in the CPU's order (the latent
+    tower's up to near-ties: where two CPU scores lie within twice the
+    largest score difference); ``retrieve(k=10)``. The latent tower in
+    float32 takes the GEGLU's warpgroup route over the batch's grids and
+    mma.sync for the short request."""
+    rng = np.random.default_rng(0)
+    cfg = TowerConfig(kind=kind, compute_dtype=compute, **tower_kwargs_for_dim(64))
+    ckpt = tmp_path / "tower.pt"
+    torch.save(tower_state_dict_from_jax(kind, random_tower_params(rng, cfg)), ckpt)
+    ids = [f"N{i}" for i in range(500)]
+    save_embeddings(tmp_path / "emb", "MINDsmall_dev", rng.standard_normal((500, 64), dtype=np.float32) * 0.05,
+                    news_ids=np.array(ids))
+    requests = _requests(rng, ids, 32)
+    short = (ids[:5], ids[5:25])
+    ranker = build_ranker(tmp_path / "emb", "MINDsmall_dev", ckpt, cfg, device=cuda)
+    routes = collections.Counter(geglu.routes)
+    launches = latent_attention.launches, geglu.launches
+    got = ranker.rank_batch(requests) + [ranker.rank(*short)]
+    server = make_server(ranker, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        posted = _post(server.server_address[1], "rank", {"history": requests[1][0], "candidates": requests[1][1]})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    got.append([tuple(r) for r in posted["ranked"]])
+    top = ranker.retrieve(requests[0][0], k=10)
+    assert len(top) == 10 and (np.diff([s for _, s in top]) <= 0).all()
+    if kind == "latent":
+        assert latent_attention.launches > launches[0] and geglu.launches > launches[1]
+    if (kind, compute) == ("latent", "float32"):
+        assert geglu.routes[("wgmma", torch.float32)] > routes[("wgmma", torch.float32)]
+        assert geglu.routes[("mma_sync", torch.float32)] > routes[("mma_sync", torch.float32)]
+    cpu = build_ranker(tmp_path / "emb", "MINDsmall_dev", ckpt, cfg, device="cpu")
+    want = cpu.rank_batch(requests) + [cpu.rank(*short), cpu.rank(*requests[1])]
+    for (_, cands), g, w in zip(requests + [short, requests[1]], got, want, strict=True):
+        _check_ranked(g, cands)
+        a, b = dict(g), dict(w)
+        diff = np.array([a[c] - b[c] for c in cands])
+        if compute == "float16":
+            assert np.linalg.norm(diff) <= 3e-2 * np.linalg.norm([b[c] for c in cands])
+        else:
+            assert np.abs(diff).max() <= SERVE_TOL[kind]
+        if kind == "latent":
+            assert _order_agrees(g, w, 2 * float(np.abs(diff).max()))
+        else:
+            assert [c for c, _ in g] == [c for c, _ in w]
 
 
 # -- the end-to-end path (config[2]) ------------------------------------------
@@ -928,7 +1166,8 @@ def test_e2e_step_on_cuda_matches_cpu(cuda, loss):
 def test_e2e_device_store_and_streamed_are_identical_on_cuda(cuda):
     """One epoch with dropout on: the resident store and the streamed one
     give the same losses and parameter bits on the card, and a second run
-    of the resident route repeats them."""
+    of the resident route repeats them; the news vectors materialized from
+    the resident states and from the streamed store agree within 1e-6."""
     c, store = _e2e_fixture()
     cfg = TrainConfig(batch_size=32, learning_rate=1e-3, seed=0)
     runs = []
@@ -938,10 +1177,12 @@ def test_e2e_device_store_and_streamed_are_identical_on_cuda(cuda):
             model["token_encoder"], model["tower"], c, store, cfg=cfg, max_token_len=16, device_store=device_store, device=cuda
         )
         loss = trainer.train_one_epoch()
-        runs.append((loss, [p.detach().clone() for p in model.parameters()]))
+        runs.append((loss, [p.detach().clone() for p in model.parameters()], trainer.materialize_news_embeddings()))
     assert runs[0][0] == runs[1][0] == runs[2][0]
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], other[1]))
+    assert np.isfinite(runs[1][2]).all()
+    np.testing.assert_allclose(runs[1][2], runs[0][2], rtol=0, atol=1e-6)
 
 
 # -- the news encoder: NV-Embed's pooling head --------------------------------
@@ -1115,6 +1356,120 @@ def test_train_cli_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     num = math.sqrt(sum(float((a[k] - b[k]).pow(2).sum()) for k in b))
     den = math.sqrt(sum(float(b[k].pow(2).sum()) for k in b))
     assert num <= 1e-4 * den
+
+
+@pytest.fixture(scope="module")
+def cli_root(tmp_path_factory):
+    """Both synthetic MIND splits through ``nrtorch-ingest``, ``nrtorch-save-emb
+    --tiny-encoder`` and ``nrtorch-train --dim 128`` (one epoch each) on the
+    card: the dumps and the checkpoint the eval and serve CLIs load."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from news_recommendation_project_v2_torch.cli import ingest as ingest_cli
+    from news_recommendation_project_v2_torch.cli import save_emb as save_emb_cli
+    from news_recommendation_project_v2_torch.cli import train as train_cli
+
+    root = tmp_path_factory.mktemp("mind")
+    for name in ("MINDsmall_train", "MINDsmall_dev"):
+        ingest_cli.main([str(root), name, "--synthetic"])
+        save_emb_cli.main([str(root), name, "--save-dir", str(root / "emb"), "--tiny-encoder", "--max-length", "24",
+                           "--batch-size", "16"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)
+        train_cli.main([str(root), "--emb-dir", str(root / "emb"), "--dim", "128", "--epochs", "1", "--cls-epochs", "1",
+                        "--batch-size", "32", "--no-cache", "--log-dir", str(root / "logs"), "--ckpt-dir",
+                        str(root / "models")])
+    return root
+
+
+CLI_CKPT = Path("models") / "attention" / "Best_model_e5_query_latent"
+
+
+def test_eval_cli_on_cuda_matches_the_direct_flat_eval(cuda, cli_root):
+    """``nrtorch-eval --ckpt`` on the card over the dev split's with-history
+    rows: its metrics within 1e-5 of the flat eval and the metrics on the
+    card computed directly from the same checkpoint and tables."""
+    from news_recommendation_project_v2_torch.cli import eval as eval_cli
+    from news_recommendation_project_v2_torch.cli.common import build_context
+    from news_recommendation_project_v2_torch.config import DataSubset, NewsDataset
+    from news_recommendation_project_v2_torch.eval.ranker import history_candidate_slots
+    from news_recommendation_project_v2_torch.ops.encode import load_embeddings
+    from news_recommendation_project_v2_torch.pipeline import TransformDataComponent
+    from news_recommendation_project_v2_torch.train.checkpoint import load_pytree
+
+    ckpt = cli_root / CLI_CKPT
+    ctx = eval_cli.main([str(cli_root), "--dataset", "MINDsmall_dev", "--emb-dir", str(cli_root / "emb"), "--ckpt",
+                         str(ckpt), "--dim", "128", "--log-dir", str(cli_root / "logs")])
+    compiled = TransformDataComponent().transform(
+        build_context(cli_root, NewsDataset.MINDsmall_dev, data_subset=DataSubset.WITH_HISTORY)
+    )["compiled"]
+    emb, query = load_embeddings(cli_root / "emb", "MINDsmall_dev", with_query=True, align_to_news_ids=compiled.news_ids)
+    tower = build_tower(TowerConfig(kind="latent", **tower_kwargs_for_dim(128)))
+    tower.load_state_dict(load_pytree(ckpt))
+    slots, rows = history_candidate_slots(compiled)
+    view = compiled.with_history_view()
+    plan = FlatEvalPlan(view.hist_rev, view.hist_lens, compiled.imp_rev[slots], rows, max_len=600, device=cuda)
+    mplan = DeviceMetricsPlan(compiled.imp_lens, compiled.labels_flat, hist_slots=slots, device=cuda)
+    direct = plan.metrics(tower.to(cuda), emb, mplan, query_news_emb=query)
+    for k in METRIC_KEYS:
+        assert abs(ctx["metrics"][k] - direct[k]) <= 1e-5, k
+
+
+def test_serve_cli_on_cuda_answers_a_post(cuda, cli_root):
+    """``nrtorch-serve --ckpt`` in its own process on the card answers a
+    ``POST /rank``: the request's candidates, scores finite and descending,
+    within 1e-5 of ``build_ranker`` over the same dump and checkpoint in
+    this process."""
+    ckpt = cli_root / CLI_CKPT
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ids = [str(n) for n in np.load(cli_root / "emb" / "MINDsmall_dev_ids.npy")]
+    hist, cands = ids[:20], ids[20:40]
+    repo = Path(__file__).resolve().parents[1]
+    with open(cli_root / "serve.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "news_recommendation_project_v2_torch.cli.serve", str(cli_root / "emb"),
+             "MINDsmall_dev", "--ckpt", str(ckpt), "--dim", "128", "--port", str(port)],
+            cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+        )
+        try:
+            deadline = time.monotonic() + 180
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5):
+                        break
+                except OSError:
+                    assert proc.poll() is None and time.monotonic() < deadline, (cli_root / "serve.log").read_text()
+                    time.sleep(0.5)
+            ranked = _post(port, "rank", {"history": hist, "candidates": cands})["ranked"]
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    _check_ranked(ranked, cands)
+    cfg = TowerConfig(kind="latent", **tower_kwargs_for_dim(128))
+    want = dict(build_ranker(cli_root / "emb", "MINDsmall_dev", ckpt, cfg, device=cuda).rank(hist, cands))
+    assert max(abs(s - want[c]) for c, s in ranked) <= 1e-5
+
+
+def test_reproduce_and_train_e2e_clis_on_cuda(cuda, tmp_path):
+    """``nrtorch-reproduce --synthetic --tiny-encoder --with-e2e`` on the card
+    gives configs 0-2's rows with MIND metrics in [0, 1]; then
+    ``nrtorch-train-e2e --dim 32`` on its data gives finite metrics."""
+    from news_recommendation_project_v2_torch.cli import reproduce as reproduce_cli
+    from news_recommendation_project_v2_torch.cli import train_e2e as train_e2e_cli
+
+    rows = reproduce_cli.main([str(tmp_path), "--synthetic", "--tiny-encoder", "--epochs", "1", "--with-e2e",
+                               "--max-length", "24", "--out", str(tmp_path / "rows.json")])
+    assert [r["config"] for r in rows] == [0, 1, 2]
+    assert all(np.isfinite(r[k]) and 0 <= r[k] <= 1 for r in rows for k in METRIC_KEYS)
+    ctx = train_e2e_cli.main([str(tmp_path), "--epochs", "1", "--dim", "32", "--max-length", "24", "--log-dir",
+                              str(tmp_path / "logs_e2e"), "--ckpt-dir", str(tmp_path / "models_e2e")])
+    assert all(np.isfinite(ctx["metrics"][k]) for k in METRIC_KEYS)
 
 
 @pytest.mark.parametrize("backend,ranks", [("gloo", 2), ("nccl", 1)], ids=["gloo_two_ranks", "nccl_one_rank"])

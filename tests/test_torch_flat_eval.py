@@ -4,8 +4,6 @@ kernel wrappers compute their plain versions); and the helpers it needs
 (``data.grouping``, ``utils.memory``) against their JAX originals."""
 
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,34 +30,27 @@ from news_recommendation_project_v2_torch.ops import scoring
 from news_recommendation_project_v2_torch.utils import memory
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
-ROOT = Path(__file__).resolve().parent.parent
 SMALL = dict(reduced_dim=32, embedding_dim=32, num_latents=4, num_heads=2, latent_dim_head=8)
 NUM_ROWS, NUM_NEWS = 24, 60
 CHUNKS = dict(chunk_tokens=32, cand_chunk=16)  # rows straddle chunks, grids pad
 
 
-def _load(name):
-    spec = importlib.util.spec_from_file_location(f"_{name}", ROOT / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-@pytest.fixture(scope="module")
-def smoke():
-    return _load("chip_smoke")
-
-
-def test_workload_copy_matches_bench(smoke):
-    """``chip_smoke.build_workload`` is ``bench.build_workload``, draw for draw."""
-    bench = _load("bench")
-    got = smoke.build_workload(np.random.default_rng(0))
-    want = bench.build_workload(np.random.default_rng(0))
-    assert len(got) == len(want) == 6
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
-        np.testing.assert_array_equal(g, w)
-    assert len(got[0]) == 50_000 and got[2].max() < 65_238
+def _mind_workload(rng, num_rows, num_news):
+    """bench.py's MIND-like eval workload at another size, its draws in its
+    order: geometric histories (mean 33, capped at 600), Poisson(37)
+    candidates clipped to 2-300, click labels with one positive first and one
+    negative last an impression. Returns (hist_lens, imp_lens, hist_rev,
+    cand_rev, cand_row, labels)."""
+    hist_lens = np.minimum(rng.geometric(1.0 / 33, size=num_rows), 600).astype(np.int32)
+    imp_lens = np.clip(rng.poisson(37, size=num_rows), 2, 300).astype(np.int32)
+    hist_rev = rng.integers(0, num_news, size=int(hist_lens.sum())).astype(np.int32)
+    cand_rev = rng.integers(0, num_news, size=int(imp_lens.sum())).astype(np.int32)
+    cand_row = np.repeat(np.arange(num_rows, dtype=np.int32), imp_lens)
+    labels = (rng.random(len(cand_rev)) < 0.2).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(imp_lens)])
+    labels[offsets[:-1]] = 1.0
+    labels[offsets[1:] - 1] = 0.0
+    return hist_lens, imp_lens, hist_rev, cand_rev, cand_row, labels
 
 
 def _towers(cfg_kwargs, seed=3, compute_dtype="float32"):
@@ -81,13 +72,11 @@ def _tree_bf16(v):
 
 
 @pytest.fixture(scope="module")
-def world(smoke):
-    """A scaled-down MIND-like workload (the smoke's copy of bench.py's
-    build_workload), a news table and a second query table."""
+def world():
+    """A scaled-down MIND-like workload (``_mind_workload``), a news table and
+    a second query table."""
     rng = np.random.default_rng(11)
-    hist_lens, imp_lens, hist_rev, cand_rev, cand_row, labels = smoke.build_workload(
-        rng, num_rows=NUM_ROWS, num_news=NUM_NEWS
-    )
+    hist_lens, imp_lens, hist_rev, cand_rev, cand_row, labels = _mind_workload(rng, NUM_ROWS, NUM_NEWS)
     emb = rng.standard_normal((NUM_NEWS, 32)).astype(np.float32)
     query = (emb * 0.5 + rng.standard_normal(emb.shape) * 0.3).astype(np.float32)
     tower, apply, params = _towers(SMALL)

@@ -28,7 +28,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "news_recommendation_pro
 
 
 def _port_sources():
-    return sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT_DIR.rglob("*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -325,25 +325,3 @@ def test_gather_rows_backward_sums_in_order():
     (want,) = torch.autograd.grad(src[index], src, grad)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     assert got[1].abs().sum() == 0
-
-
-def test_flat_inputs_copy_matches_train_profile():
-    """``chip_smoke.flat_inputs`` (phase 7's timed batch) is
-    ``benchmarks/train_profile.py``'s, draw for draw."""
-    import importlib.util
-    from pathlib import Path
-
-    from benchmarks.train_profile import flat_inputs
-
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    for b in (64, 2048):
-        T, total, got = smoke.flat_inputs(b, np.random.default_rng(0))
-        want = flat_inputs(b, np.random.default_rng(0))
-        assert (T, total) == want[:2] and len(got) == len(want[2]) == 7
-        for g, w in zip(got, want[2]):
-            assert g.dtype == np.asarray(w).dtype
-            np.testing.assert_array_equal(g, np.asarray(w))
-    assert T == 65_536

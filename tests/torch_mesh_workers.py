@@ -295,12 +295,13 @@ def eval_worker(params, unsorted: dict, config3: dict) -> dict:
 
 
 def cuda_worker(params, backend: str) -> dict:
-    """On the card: over gloo, two ranks that share it run the flat and
-    padded margin steps on mesh (2, 1) (``run_sharded_steps``); over NCCL,
-    a world of one runs the flat step on mesh (1, 1)."""
+    """On the card: over gloo, two ranks that share it run the flat margin
+    and InfoNCE steps and the padded margin step on mesh (2, 1)
+    (``run_sharded_steps``); over NCCL, a world of one runs the flat step on
+    mesh (1, 1)."""
     mesh = build_mesh(MeshConfig(), backend=backend)
     torch.backends.cuda.matmul.allow_tf32 = False
-    kinds = ("flat_margin", "padded_margin") if mesh.size > 1 else ("flat_margin",)
+    kinds = ("flat_margin", "flat_infonce", "padded_margin") if mesh.size > 1 else ("flat_margin",)
     return dict(backend=torch.distributed.get_backend(), shape=mesh.shape,
                 steps={kind: run_sharded_steps(mesh, kind, params, "cuda") for kind in kinds})
 
