@@ -25,6 +25,10 @@ writes logs and checkpoints.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adamw)`` as the JAX
 package builds it (``ClippedAdamW``).
+
+``TowerTrainer``'s flat step on one CUDA card runs as CUDA graphs, one per
+token bucket (``train.graphs``), with its optimizer built ``capturable``;
+every other route runs its step eagerly.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from ..parallel.sharding import (
 from ..utils import profiling
 from ..utils.memory import fits_device_token_store
 from .checkpoint import BestTracker, load_pytree, mean_metric, save_pytree
+from .graphs import StepGraphs
 from .step import (
     apply_step,
     classification_infonce_loss,
@@ -91,11 +96,19 @@ class ClippedAdamW(torch.optim.AdamW):
     does not reach, such as an ``as_built`` transformer layer's attention)
     counts as a zero gradient, as optax gives an inert leaf: its moments
     decay and its weight decay applies. ``torch.optim.AdamW`` would skip it.
+
+    With ``capturable`` the step keeps its count and bias corrections on the
+    device, so that a CUDA graph can capture it (``train.graphs``); its
+    eager steps, a graph's warm-up, are meant, so torch's warning about them
+    is off.
     """
 
-    def __init__(self, params, lr: float, weight_decay: float, max_norm: float):
-        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    def __init__(self, params, lr: float, weight_decay: float, max_norm: float, capturable: bool = False):
+        super().__init__(
+            params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay, capturable=capturable
+        )
         self.max_norm = max_norm
+        self._warned_capturable_if_run_uncaptured = capturable
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -112,9 +125,10 @@ class ClippedAdamW(torch.optim.AdamW):
         return super().step(closure)
 
 
-def make_optimizer(cfg: TrainConfig, params) -> ClippedAdamW:
+def make_optimizer(cfg: TrainConfig, params, capturable: bool = False) -> ClippedAdamW:
     return ClippedAdamW(
-        params, lr=cfg.learning_rate, weight_decay=cfg.weight_decay, max_norm=cfg.grad_clip_norm
+        params, lr=cfg.learning_rate, weight_decay=cfg.weight_decay, max_norm=cfg.grad_clip_norm,
+        capturable=capturable,
     )
 
 
@@ -290,7 +304,7 @@ class ResumableTrainer:
         path = Path(path)
         state = load_pytree(path)
         self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self._load_optimizer_state(state["opt_state"])
         self.plateau.lr = float(state["plateau_lr"])
         self.plateau.best = float(state["plateau_best"])
         self.plateau.stale = int(state["plateau_stale"])
@@ -302,6 +316,20 @@ class ResumableTrainer:
         self.history = list(meta["history"])
         self.rng.bit_generator.state = meta["rng_state"]
         return int(state["epochs_done"])
+
+    def _load_optimizer_state(self, opt_state: dict) -> None:
+        """The optimizer's saved state, under this optimizer's own
+        ``capturable``: a state saved by a route of the other kind (or by the
+        flat step on the card before it ran as graphs) loads too, its step
+        counts moved to where this optimizer keeps them."""
+        capturable = [g["capturable"] for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(opt_state)
+        for group, keep in zip(self.optimizer.param_groups, capturable):
+            group["capturable"] = keep
+            for p in group["params"]:
+                state = self.optimizer.state.get(p, {})
+                if "step" in state:
+                    state["step"] = state["step"].to(p.device if keep else "cpu")
 
 
 def _real_rows(batch: tuple) -> tuple:
@@ -343,6 +371,11 @@ class TowerTrainer(ResumableTrainer):
     data index on a mesh). ``mesh=`` trains data parallel over the ranks of
     a ``parallel.mesh.Mesh`` (the module docstring); ``cfg.batch_size``
     must divide over its data axis.
+
+    The flat step on a CUDA device without a mesh runs through
+    ``train.graphs.StepGraphs`` (one CUDA graph per token bucket, the
+    optimizer ``capturable``); ``set_tables`` and ``restore_training_state``
+    drop its graphs, and a changed learning rate does too.
     """
 
     def __init__(
@@ -385,6 +418,7 @@ class TowerTrainer(ResumableTrainer):
         self.cfg = cfg
         self.ct = compiled_train
         self.cv = compiled_val
+        self._graphs: Optional[StepGraphs] = None
         self.set_tables(news_emb_train, news_emb_val, query_news_emb_train, query_news_emb_val)
         writer = mesh is None or mesh.rank == 0
         self.log_dir = log_dir if writer else None
@@ -393,7 +427,10 @@ class TowerTrainer(ResumableTrainer):
         self.rng = np.random.default_rng(cfg.seed)
         seed = cfg.seed if mesh is None else cfg.seed + mesh.data_index
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        graphed = flat_train and mesh is None and self.device.type == "cuda"
+        self.optimizer = make_optimizer(cfg, self.model.parameters(), capturable=graphed)
+        if graphed:
+            self._graphs = StepGraphs(self.optimizer, self.device)
         self.best = BestTracker(ckpt_dir, exp_name, write=writer)
         self.plateau = PlateauScheduler(cfg)
         self.history: list[dict] = []
@@ -408,7 +445,10 @@ class TowerTrainer(ResumableTrainer):
         """The splits' tables, as the constructor takes them: a corpus encoded
         anew takes the old tables' place, rows in the same news order. The
         eval's plans (index and metric grids, built once per split) read the
-        tables at each call, so they stay."""
+        tables at each call, so they stay; the train step's graphs hold the
+        old tables' addresses, so they go."""
+        if self._graphs is not None:
+            self._graphs.clear()
         self.news_emb_train = self._table(news_emb_train)
         self.news_emb_val = self._table(news_emb_val)
         self.query_train = self.news_emb_train if query_news_emb_train is None else self._table(query_news_emb_train)
@@ -417,6 +457,12 @@ class TowerTrainer(ResumableTrainer):
     def _trained_model(self) -> torch.nn.Module:
         """The module the optimizer steps and the checkpoint saves: the tower."""
         return self.tower
+
+    def restore_training_state(self, path: Path) -> int:
+        done = super().restore_training_state(path)
+        if self._graphs is not None:
+            self._graphs.clear()  # the optimizer's state is new tensors
+        return done
 
     def _sharded_step(self):
         """The data-parallel step of ``_train_step``'s loss."""
@@ -543,14 +589,27 @@ class TowerTrainer(ResumableTrainer):
         profiling.count("train.tokens_real", int(real))
         profiling.count("train.tokens_computed", int(computed))
 
+    def _flat_step(self, batch) -> torch.Tensor:
+        """One eager flat step on the current tables."""
+        cfg, news, query = self.cfg, self.news_emb_train, self.query_train
+        if cfg.loss == "infonce":
+            return flat_infonce_step(self.tower, self.optimizer, news, batch, query)
+        return flat_margin_step(self.tower, self.optimizer, news, batch, cfg.margin, query)
+
+    def _to_device(self, batch: tuple) -> tuple:
+        return tuple(t.to(self.device, non_blocking=True) for t in batch)
+
     def _train_step(self, batch) -> torch.Tensor:
+        """One step on a host batch (pinned on CUDA): the graphs copy it
+        into their static inputs, every other route to fresh device tensors."""
+        if self._graphs is not None:
+            return self._graphs(self._flat_step, batch)
+        batch = self._to_device(batch)
         cfg, tower, news, query = self.cfg, self.tower, self.news_emb_train, self.query_train
         if self._mesh_step is not None:
             return self._mesh_step(self.optimizer, news, query, batch)
         if self.flat_train:
-            if cfg.loss == "infonce":
-                return flat_infonce_step(tower, self.optimizer, news, batch, query)
-            return flat_margin_step(tower, self.optimizer, news, batch, cfg.margin, query)
+            return self._flat_step(batch)
         # The block holds the batch's real rows (``_real_rows``); dropout draws over all ``batch_size``.
         draw = BatchDraw(self.generator, cfg.batch_size)
         if cfg.loss == "infonce":
@@ -567,13 +626,15 @@ class TowerTrainer(ResumableTrainer):
         (blocked on the prefetch queue), ``train.build_batch`` (the producer
         thread), ``train.step`` (the copies and the step queued) and
         ``train.loss_fetch``, and the counters ``train.steps``,
-        ``train.pairs`` and (``_count_tokens``) ``train.tokens_real``,
-        ``train.tokens_computed`` and, padded, ``train.rows_computed``."""
+        ``train.pairs``, (``_count_tokens``) ``train.tokens_real``,
+        ``train.tokens_computed`` and, padded, ``train.rows_computed``, and
+        on the graphed route ``train.graph_captures`` and
+        ``train.graph_replays`` (``train.graphs``)."""
         sync = max(1, self.cfg.loss_sync_every)
         losses, counts = [], []
         for count, batch in prefetch(self._host_batches(), spans=("train.wait_batch", "train.build_batch")):
             with profiling.span("train.step"):
-                loss = self._train_step(tuple(t.to(self.device, non_blocking=True) for t in batch))
+                loss = self._train_step(batch)
             profiling.count("train.steps")
             profiling.count("train.pairs", int(count))
             losses.append(loss)
@@ -708,6 +769,7 @@ class JointTowerTrainer(TowerTrainer):
         )
 
     def _train_step(self, batch) -> torch.Tensor:
+        batch = self._to_device(batch)
         if self._mesh_step is not None:
             return self._mesh_step(self.optimizer, self.news_emb_train, self.query_train, batch)
         loss = joint_margin_loss(

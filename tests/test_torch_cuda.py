@@ -13,6 +13,7 @@ it without the conftest:
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import socket
@@ -21,6 +22,7 @@ import sys
 import threading
 import time
 import urllib.request
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +81,7 @@ from news_recommendation_project_v2_torch.ops.encode import (
 )
 from news_recommendation_project_v2_torch.ops.scoring import FlatEvalPlan, score_all_impressions
 from news_recommendation_project_v2_torch.ops.timing import count_syncs
+from news_recommendation_project_v2_torch.utils import profiling
 from news_recommendation_project_v2_torch.train.step import (
     apply_step,
     flat_infonce_loss,
@@ -588,6 +591,174 @@ def test_train_epoch_syncs_the_host_once_a_step(cuda):
     steps = len(list(trainer._epoch_batches_flat()))
     assert steps > 3
     assert count_syncs(trainer.train_one_epoch) == steps
+
+
+# -- the flat step as CUDA graphs (train.graphs) ---------------------------------
+
+
+def _graph_split():
+    """Rows whose 64-pair batches' token streams take both buckets, T = 1,024
+    and 2,048, with each bucket more than twice an epoch."""
+    imps, hist, emb = synthetic_learnable_behaviors(
+        num_news=200, num_rows=160, dim=64, max_history=120, noise=0.05, seed=3
+    )
+    c = compile_behaviors(imps, hist).with_history_view()
+    return c, align_embeddings(c.news_ids, emb)
+
+
+def _graph_pair(cuda, **cfg):
+    """Two flat TowerTrainers on the card from one state and seed: the first
+    steps through its graphs, the second, its graphs taken away, through the
+    eager ``flat_margin_step`` / ``flat_infonce_step`` with the same
+    (capturable) optimizer. Each keeps its steps' losses as ``_train_step``
+    returned them (held, not copied) and its batches' T."""
+    c, emb = _graph_split()
+    state = latent_state_dict_from_jax(random_latent_params(np.random.default_rng(4), SMALL_TOWER))
+    pair = []
+    for graphed in (True, False):
+        trainer = TowerTrainer(
+            _flat_tower(SMALL_TOWER, state, cuda), c, emb,
+            cfg=TrainConfig(**{"batch_size": 64, "seed": 0, "learning_rate": 1e-3, **cfg}), device=cuda,
+        )
+        assert (trainer._graphs is not None) and trainer.optimizer.param_groups[0]["capturable"]
+        if not graphed:
+            trainer._graphs = None
+        trainer.losses, trainer.tokens = [], []
+
+        def recorded(batch, t=trainer, step=trainer._train_step):
+            t.tokens.append(batch[0].shape[0])
+            t.losses.append(step(batch))
+            return t.losses[-1]
+
+        trainer._train_step = recorded
+        pair.append(trainer)
+    return pair
+
+
+def _assert_same_bits(graphed, eager):
+    """Every step's loss, the parameters and both Adam moments, to the bit."""
+    assert len(graphed.losses) == len(eager.losses) > 0
+    assert all(torch.equal(a, b) for a, b in zip(graphed.losses, eager.losses))
+    for (name, p), q in zip(graphed.tower.named_parameters(), eager.tower.parameters()):
+        assert torch.equal(p, q), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(graphed.optimizer.state[p][key], eager.optimizer.state[q][key]), (name, key)
+
+
+def _counted(fn):
+    """``fn()`` with the port's counters on; returns its result and them."""
+    profiling.clear()
+    with profiling.recording(True):
+        out = fn()
+    counters = profiling.recorded().counters
+    profiling.clear()
+    return out, counters
+
+
+@pytest.mark.parametrize("loss, sync", [("margin", 1), ("infonce", 1), ("margin", 4)])
+def test_graphed_epochs_equal_the_eager_steps(cuda, loss, sync):
+    """Two epochs of the flat trainer through its graphs, over batches of both
+    buckets, against the eager steps from the same state: every step's loss
+    as returned (held to the end, so that a replay overwriting an earlier
+    step's loss would show; with loss_sync_every=4 the trainer holds them
+    too), the epoch means, the parameters and both moments, to the bit. Each
+    bucket warms once and is captured once; every other step is a replay."""
+    graphed, eager = _graph_pair(cuda, loss=loss, loss_sync_every=sync)
+    means, counters = _counted(lambda: [graphed.train_one_epoch() for _ in range(2)])
+    assert means == [eager.train_one_epoch() for _ in range(2)]
+    _assert_same_bits(graphed, eager)
+    assert set(graphed.tokens) == {1024, 2048}
+    assert counters["train.graph_captures"] == 2
+    assert counters["train.graph_replays"] == counters["train.steps"] - 2 == len(graphed.losses) - 2
+    assert len({float(x) for x in graphed.losses}) == len(graphed.losses)
+
+
+def test_graphs_follow_new_tables_a_restored_state_and_a_lr_cut(cuda, tmp_path):
+    """``set_tables``, ``restore_training_state`` and a ``PlateauScheduler``
+    cut of the learning rate, each between epochs, take effect on the next
+    graphed step: the graphed trainer stays the eager one's to the bit,
+    capturing its buckets again after each."""
+    graphed, eager = _graph_pair(cuda, plateau_patience=1)
+    other = torch.roll(graphed.news_emb_train, 1, dims=0)
+    captures = []
+    for t in (graphed, eager):
+        t.train_one_epoch()
+        t.save_training_state(tmp_path / f"state_{t is graphed}")
+        events = (
+            lambda: t.set_tables(other),
+            lambda: t.restore_training_state(tmp_path / f"state_{t is graphed}"),
+            lambda: [t.plateau.update(t.optimizer, m) for m in (1.0, 0.5, 0.5)],
+        )
+        for event in events:
+            event()
+            _, counters = _counted(t.train_one_epoch)
+            captures.append(counters.get("train.graph_captures", 0))
+        assert t.optimizer.param_groups[0]["lr"] == pytest.approx(1e-4)
+    _assert_same_bits(graphed, eager)
+    assert captures == [2, 2, 2, 0, 0, 0]
+
+
+def test_a_signature_past_the_cap_runs_eagerly_on_cuda(cuda):
+    """With room for one graph, the bucket met a second time first is graphed
+    and the other runs eagerly after its warm-up, to the eager trainer's
+    bits."""
+    graphed, eager = _graph_pair(cuda)
+    graphed._graphs.cap = 1
+    _, counters = _counted(lambda: [graphed.train_one_epoch() for _ in range(2)])
+    [eager.train_one_epoch() for _ in range(2)]
+    _assert_same_bits(graphed, eager)
+    tokens = graphed.tokens
+    first = next(t for i, t in enumerate(tokens) if t in tokens[:i])
+    assert [sig[0][0][0] for sig in graphed._graphs.graphs] == [first]
+    assert counters["train.graph_captures"] == 1
+    assert counters["train.graph_replays"] == graphed.tokens.count(first) - 1
+
+
+def test_no_collection_runs_inside_a_capture(cuda):
+    """Freeing a CUDA graph is not permitted while a stream captures, and a
+    dropped trainer's graphs sit in reference cycles that only the collector
+    frees: a collection inside one trainer's capture that freed another's
+    graphs spoiled the capture. Garbage is collected before each capture, the
+    collector is off during it and on again after, and the steps stay the
+    eager trainer's."""
+    old, _ = _graph_pair(cuda)
+    old.train_one_epoch()
+    gone = weakref.ref(old._graphs)
+    del old, _
+    graphed, eager = _graph_pair(cuda)
+    seen, step = [], graphed._flat_step
+
+    def watched(batch):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append((gc.isenabled(), gone() is None))
+        return step(batch)
+
+    graphed._flat_step = watched
+    for t in (graphed, eager):
+        t.train_one_epoch()
+        t.train_one_epoch()
+    _assert_same_bits(graphed, eager)
+    assert seen == [(False, True)] * 2
+    assert gc.isenabled()
+
+
+def test_replayed_steps_show_both_kernels_to_the_profiler(cuda):
+    """An epoch served wholly by replays still shows both hand-written kernels
+    to ``torch.profiler``'s device trace, at least once a step, so that the
+    benchmark's kernel rooflines read the graphed step."""
+    graphed, _ = _graph_pair(cuda)
+    graphed.train_one_epoch()
+    graphed.train_one_epoch()  # both buckets captured by now
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        graphed.train_one_epoch()
+        torch.cuda.synchronize()
+    counters = profiling.recorded().counters
+    profiling.clear()
+    assert counters["train.graph_replays"] == counters["train.steps"] > 3
+    names = [e.name() for e in prof.profiler.kineto_results.events() if "CUDA" in str(e.device_type())]
+    for kernel in ("geglu_", "latent_attention_kernel"):
+        assert sum(kernel in n for n in names) >= counters["train.steps"], kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from eager_graphs import EagerGraphs
 from news_recommendation_project_v2_torch.config import TowerConfig, TrainConfig
 from news_recommendation_project_v2_torch.data.compiler import compile_behaviors
 from news_recommendation_project_v2_torch.data.prefetch import prefetch
@@ -193,6 +194,37 @@ def test_tracing_changes_no_loss_parameter_or_metric(data, route):
     assert loss0 == loss1 and scores0 == scores1
     assert all(torch.equal(a, b) for a, b in zip(params0, params1))
     assert profiling.recorded().counters["train.steps"] > 0
+
+
+GRAPH_COUNTERS = ("train.graph_captures", "train.graph_replays")
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_the_cpu_route_counts_no_graph(data, route):
+    """The CPU trainer steps eagerly: under the profiler neither graph
+    counter appears, while its steps count."""
+    trainer = _trainer(data, route)
+    _profiled(trainer.train_one_epoch)
+    counters = profiling.recorded().counters
+    assert counters["train.steps"] > 1
+    assert not set(GRAPH_COUNTERS) & set(counters)
+
+
+def test_graph_counters_count_captures_and_replays(data):
+    """Through ``tests/eager_graphs.py``'s stand-in for the card's graphs,
+    two traced epochs count one capture a signature and one replay for each
+    step a graph served (the captured step's own included): the steps that
+    ran eagerly, one warm-up a signature, are ``train.steps`` less the
+    replays."""
+    trainer = _trainer(data)
+    trainer._graphs = EagerGraphs(trainer.optimizer, trainer.device)
+    _profiled(lambda: [trainer.train_one_epoch() for _ in range(2)])
+    counters = profiling.recorded().counters
+    kinds = trainer._graphs.kinds()
+    signatures = {sig for _, sig in trainer._graphs.log}
+    assert counters["train.graph_captures"] == kinds.count("capture") == len(signatures)
+    assert counters["train.graph_replays"] == kinds.count("replay") > len(signatures)
+    assert counters["train.steps"] - counters["train.graph_replays"] == kinds.count("warm") == len(signatures)
 
 
 def test_prefetch_records_both_sides_only_where_its_consumer_records():
