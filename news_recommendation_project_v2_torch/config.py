@@ -162,7 +162,19 @@ class EncoderConfig:
     ``bidirectional`` drops the causal half of the mask, and ``latent_pool``
     pools with the latent-attention tower (``latent_pool_num_latents``
     latents, ``latent_pool_heads`` heads of ``latent_pool_dim_head``) instead
-    of ``pooling``."""
+    of ``pooling``.
+
+    ``arch="deepseek_v3"`` is DeepSeek-V3's decoder (Moonlight): multi-head
+    latent attention (``q_proj`` to ``qk_nope_head_dim + qk_rope_head_dim``
+    a head; keys and values through a ``kv_lora_rank`` latent and one shared
+    rotary key of ``qk_rope_head_dim``; values of ``v_head_dim``), the first
+    ``first_k_dense_replace`` layers with a dense SiLU-gated MLP of
+    ``intermediate_dim`` and the rest a mixture of ``n_routed_experts``
+    experts of ``moe_intermediate_size``, ``num_experts_per_tok`` a token
+    (``scoring_func`` sigmoid, ``topk_method`` noaux_tc: picked on the score
+    plus a per-expert bias, weighted by the score, renormalised by
+    ``norm_topk_prob`` and scaled by ``routed_scaling_factor``) beside
+    ``n_shared_experts`` shared experts over every token."""
 
     vocab_size: int = 250002
     hidden_dim: int = 1024
@@ -176,7 +188,7 @@ class EncoderConfig:
     max_length: int = NEWS_TEXT_MAXLEN
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    arch: str = "bert"  # bert | qwen2
+    arch: str = "bert"  # bert | qwen2 | deepseek_v3
     num_kv_heads: Optional[int] = None  # None: num_heads
     head_dim: Optional[int] = None  # None: hidden_dim // num_heads
     rope_theta: float = 10000.0
@@ -186,6 +198,19 @@ class EncoderConfig:
     latent_pool_num_latents: int = 512
     latent_pool_heads: int = 8
     latent_pool_dim_head: int = 4096
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -455,12 +455,38 @@ def _strip(state: Mapping[str, Any], prefix: str) -> dict:
     return {k[len(prefix) :]: v for k, v in state.items() if k.startswith(prefix)}
 
 
+def _stack_experts(state: dict, cfg: EncoderConfig) -> dict:
+    """A DeepSeek-V3 checkpoint's per-expert tensors
+    (``layers.{l}.mlp.experts.{e}.{gate,up,down}_proj.weight``) stacked into
+    the ``MoEBlock``'s ``experts.gate_up_proj`` [E, 2I, D] (each expert's gate
+    rows, then its up rows) and ``experts.down_proj`` [E, D, I]; raises on a
+    layer that lacks an expert."""
+    out = {k: v for k, v in state.items() if ".mlp.experts." not in k}
+    for layer in range(cfg.first_k_dense_replace, cfg.num_layers):
+        prefix = f"layers.{layer}.mlp.experts."
+        names = [f"{prefix}{e}.{w}_proj.weight" for e in range(cfg.n_routed_experts) for w in ("gate", "up", "down")]
+        missing = [n for n in names if n not in state]
+        if len(missing) == len(names):
+            continue  # no experts in the checkpoint: load_state_dict names what is missing
+        if missing:
+            raise ValueError(f"checkpoint lacks {len(missing)} expert tensors, the first {missing[0]}")
+        gate_up, down = [], []
+        for e in range(cfg.n_routed_experts):
+            g, u, d = (torch.as_tensor(state[f"{prefix}{e}.{w}_proj.weight"]) for w in ("gate", "up", "down"))
+            gate_up.append(torch.cat([g, u]))
+            down.append(d)
+        out[prefix + "gate_up_proj"] = torch.stack(gate_up)
+        out[prefix + "down_proj"] = torch.stack(down)
+    return out
+
+
 def encoder_state_dict_from_hf(state: Mapping[str, Any], cfg: EncoderConfig) -> StateDict:
     """An HF checkpoint's state dict (``load_hf_weights``) -> the keys of
     ``NewsEncoder(cfg)``, for ``load_state_dict``: a task prefix stripped
     (``roberta.``, ``bert.`` or ``model.``); an NV-Embed checkpoint split
     into its backbone (``embedding_model.``) and its head
-    (``latent_attention_model.`` -> ``latent_pool.``); keys the encoder has
+    (``latent_attention_model.`` -> ``latent_pool.``); a DeepSeek-V3
+    checkpoint's experts stacked (``_stack_experts``); keys the encoder has
     no use for (a pooler, an ``lm_head``, position-id buffers) dropped.
     Raises, as the JAX package's converter does, when the checkpoint's
     NV-Embed head or its q/k/v biases disagree with ``cfg``; a missing
@@ -499,6 +525,10 @@ def encoder_state_dict_from_hf(state: Mapping[str, Any], cfg: EncoderConfig) -> 
                 "field: attention_bias)"
             )
         state.update(_with_prefix("latent_pool.", head or {}))
+    elif cfg.arch == "deepseek_v3":
+        if any(k.startswith("model.") for k in state):
+            state = _strip(state, "model.")
+        state = _stack_experts(state, cfg)
     else:
         for prefix in ("roberta.", "bert.", "model."):
             if any(k.startswith(prefix + "embeddings.") for k in state):

@@ -1,7 +1,7 @@
 """The news-text encoder: text token ids -> pooled, L2-normalised news
 vectors, or per-token hidden states for the token store.
 
-Two layouts, chosen by ``EncoderConfig.arch``:
+Three layouts, chosen by ``EncoderConfig.arch``:
 
 - ``"bert"``: the post-norm BERT/XLM-R encoder of the e5 family (learned
   RoBERTa positions, one token-type row, exact GELU);
@@ -10,13 +10,22 @@ Two layouts, chosen by ``EncoderConfig.arch``:
   SiLU-gated MLP, a causal mask); q/k/v carry biases by ``qkv_bias``.
   NV-Embed is this layout with ``bidirectional`` (a padding-only mask) and
   ``latent_pool`` (the latent-attention tower as the pooling head, whose
-  cross-attention and GEGLU run through the port's two CUDA kernels).
+  cross-attention and GEGLU run through the port's two CUDA kernels);
+- ``"deepseek_v3"``: DeepSeek-V3's decoder (Moonlight): multi-head latent
+  attention in its expanded form (``kv_b_proj`` makes each head's key and
+  value from the ``kv_lora_rank`` latent, the one rotary key is broadcast to
+  every head), DeepSeek's interleaved rotary dims, the first
+  ``first_k_dense_replace`` layers with a dense MLP and the rest a mixture
+  of experts (``models.moe``) over the batch's real tokens only, packed into
+  rows on the device (a pad position's state is read by no real token:
+  right padding, causal).
 
 Parameter names are HuggingFace's (``XLMRobertaModel``/``BertModel``,
-``Qwen2Model``/``MistralModel``/``LlamaModel``; the head under
-``latent_pool.``), so a checkpoint's state dict loads through
-``load_state_dict`` once ``models.convert.encoder_state_dict_from_hf`` has
-stripped its task prefixes. Matmuls run in ``compute_dtype``, the pooling
+``Qwen2Model``/``MistralModel``/``LlamaModel``, ``DeepseekV3Model`` with its
+experts stacked; the head under ``latent_pool.``), so a checkpoint's state
+dict loads through ``load_state_dict`` once
+``models.convert.encoder_state_dict_from_hf`` has stripped its task prefixes
+(and stacked DeepSeek's experts). Matmuls run in ``compute_dtype``, the pooling
 head's too; LayerNorm, RMSNorm, the softmaxes and the pools compute in
 float32; hidden states leave in float32.
 """
@@ -38,6 +47,7 @@ from torch import nn
 from ..config import EncoderConfig
 from . import DTYPES
 from .latent_attention import LatentAttentionTower
+from .moe import MoEBlock, MoEExperts, MoEGate, swiglu
 from .pooling import POOLING
 
 
@@ -177,6 +187,95 @@ class DecoderLayer(nn.Module):
         return hidden + _linear(mlp["down_proj"], F.silu(_linear(mlp["gate_proj"], x)) * _linear(mlp["up_proj"], x))
 
 
+def deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """DeepSeek's rotary dims come in interleaved pairs (x0, x1, x2, x3, ...);
+    its rotary code reorders them to (x0, x2, ..., x1, x3, ...) before the
+    rotate-half."""
+    *lead, d = x.shape
+    return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
+
+
+def real_token_positions(mask: torch.Tensor, real_tokens: Optional[int] = None) -> torch.Tensor:
+    """The flat positions [n] of a [B, T] mask's real tokens, row-major, on
+    the mask's device. ``real_tokens`` is their count, known on the host
+    (``None``: read from the mask, which waits for the device); given, no
+    step waits: each real position is scattered to its rank among them, the
+    pads to one spare slot past the end."""
+    flat = mask.reshape(-1) > 0
+    n = int(flat.sum()) if real_tokens is None else int(real_tokens)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, n)
+    pos = torch.empty(n + 1, dtype=torch.long, device=mask.device)
+    pos.scatter_(0, dest, torch.arange(flat.numel(), device=mask.device))
+    return pos[:n]
+
+
+class MLADecoderLayer(nn.Module):
+    """A pre-norm DeepSeek-V3 block: RMSNorm, multi-head latent attention
+    (expanded: per-head keys and values from the latent, the shared rotary
+    key broadcast, softmax scale (nope + rope) ** -0.5), residual; RMSNorm,
+    a dense SwiGLU MLP (``mlp.gate_proj`` ...) or a ``MoEBlock`` over the real
+    tokens, residual. No biases."""
+
+    def __init__(self, cfg: EncoderConfig, dense: bool):
+        super().__init__()
+        d, h, eps = cfg.hidden_dim, cfg.num_heads, cfg.layer_norm_eps
+        self.num_heads, self.dense = h, dense
+        self.nope, self.rope, self.v_dim, self.rank = (
+            cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank,
+        )
+        self.input_layernorm = RMSNorm(d, eps)
+        self.self_attn = nn.ModuleDict(
+            {
+                "q_proj": nn.Linear(d, h * (self.nope + self.rope), bias=False),
+                "kv_a_proj_with_mqa": nn.Linear(d, self.rank + self.rope, bias=False),
+                "kv_a_layernorm": RMSNorm(self.rank, eps),
+                "kv_b_proj": nn.Linear(self.rank, h * (self.nope + self.v_dim), bias=False),
+                "o_proj": nn.Linear(h * self.v_dim, d, bias=False),
+            }
+        )
+        self.post_attention_layernorm = RMSNorm(d, eps)
+        if dense:
+            self.mlp = nn.ModuleDict(
+                {
+                    "gate_proj": nn.Linear(d, cfg.intermediate_dim, bias=False),
+                    "up_proj": nn.Linear(d, cfg.intermediate_dim, bias=False),
+                    "down_proj": nn.Linear(cfg.intermediate_dim, d, bias=False),
+                }
+            )
+        else:
+            self.mlp = MoEBlock(
+                d, cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.moe_intermediate_size,
+                cfg.n_shared_experts, cfg.routed_scaling_factor, cfg.norm_topk_prob,
+            )
+
+    def forward(self, hidden, cos, sin, bias, real: torch.Tensor) -> torch.Tensor:
+        """hidden [B, T, D] in the compute type; cos, sin [T, rope]; bias
+        [B, 1, T, T] additive; ``real`` the flat positions of the real
+        tokens (``real_token_positions``), which alone go through the
+        experts."""
+        b, t, d = hidden.shape
+        h, nope, rope = self.num_heads, self.nope, self.rope
+        attn = self.self_attn
+        x = self.input_layernorm(hidden)
+        q = _linear(attn["q_proj"], x).view(b, t, h, nope + rope).transpose(1, 2)
+        q_nope, q_pe = q.split([nope, rope], dim=-1)
+        latent, k_pe = _linear(attn["kv_a_proj_with_mqa"], x).split([self.rank, rope], dim=-1)
+        kv = _linear(attn["kv_b_proj"], attn["kv_a_layernorm"](latent)).view(b, t, h, nope + self.v_dim)
+        k_nope, v = kv.transpose(1, 2).split([nope, self.v_dim], dim=-1)
+        q_pe, k_pe = deinterleave(q_pe), deinterleave(k_pe.view(b, 1, t, rope))
+        q_pe = q_pe * cos + rotate_half(q_pe) * sin
+        k_pe = k_pe * cos + rotate_half(k_pe) * sin
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(b, h, t, rope)], dim=-1)
+        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, h * self.v_dim)
+        hidden = hidden + _linear(attn["o_proj"], ctx)
+        x = self.post_attention_layernorm(hidden)
+        if self.dense:
+            return hidden + swiglu(self.mlp, x)
+        out = self.mlp(x.reshape(b * t, d).index_select(0, real))
+        return hidden + torch.zeros_like(x).view(b * t, d).index_copy_(0, real, out).view(b, t, d)
+
+
 class NewsEncoder(nn.Module):
     """Token ids [B, T] and mask [B, T] -> pooled news vectors [B, D]
     (``forward``) or per-token states [B, T, D] (``hidden_states``), both
@@ -188,13 +287,29 @@ class NewsEncoder(nn.Module):
         self.config = cfg = config
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         d = cfg.hidden_dim
+        # The MoE layers route only real tokens: ``encode_corpus`` hands
+        # ``forward`` their count, known on the host.
+        self.routes_tokens = cfg.arch == "deepseek_v3"
         if cfg.arch == "qwen2":
             self.head_dim = cfg.head_dim or d // cfg.num_heads
+            self.rope_dim = self.head_dim
             kv = cfg.num_kv_heads or cfg.num_heads
             self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
             self.layers = nn.ModuleList(
                 DecoderLayer(d, cfg.num_heads, kv, self.head_dim, cfg.intermediate_dim, cfg.layer_norm_eps, cfg.qkv_bias)
                 for _ in range(cfg.num_layers)
+            )
+            self.norm = RMSNorm(d, cfg.layer_norm_eps)
+        elif cfg.arch == "deepseek_v3":
+            if (cfg.scoring_func, cfg.topk_method) != ("sigmoid", "noaux_tc"):
+                raise ValueError(
+                    f"deepseek_v3 routes by the sigmoid and noaux_tc only, got {cfg.scoring_func!r} and "
+                    f"{cfg.topk_method!r}"
+                )
+            self.rope_dim = cfg.qk_rope_head_dim
+            self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
+            self.layers = nn.ModuleList(
+                MLADecoderLayer(cfg, dense=i < cfg.first_k_dense_replace) for i in range(cfg.num_layers)
             )
             self.norm = RMSNorm(d, cfg.layer_norm_eps)
         elif cfg.arch == "bert":
@@ -230,11 +345,15 @@ class NewsEncoder(nn.Module):
             )
         self.to(DTYPES[cfg.param_dtype])
 
-    def hidden_states(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def hidden_states(
+        self, token_ids: torch.Tensor, mask: torch.Tensor, real_tokens: Optional[int] = None
+    ) -> torch.Tensor:
         """The last layer's per-token states [B, T, D], float32 (the token
-        store's content)."""
-        if self.config.arch == "qwen2":
-            return self._decoder_hidden_states(token_ids, mask)
+        store's content). ``real_tokens``, the mask's count of real tokens
+        where the caller knows it, spares the MoE layout a wait for the
+        device; the other layouts ignore it."""
+        if self.config.arch in ("qwen2", "deepseek_v3"):
+            return self._decoder_hidden_states(token_ids, mask, real_tokens)
         cdt, emb = self.compute_dtype, self.embeddings
         m = mask.long()
         positions = torch.cumsum(m, dim=1) * m + 1  # RoBERTa: pads skipped, reals from 2
@@ -249,7 +368,9 @@ class NewsEncoder(nn.Module):
             hidden = layer(hidden, bias)
         return hidden.float()
 
-    def _decoder_hidden_states(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def _decoder_hidden_states(
+        self, token_ids: torch.Tensor, mask: torch.Tensor, real_tokens: Optional[int] = None
+    ) -> torch.Tensor:
         """Positions ``arange(T)`` (right padding keeps real tokens first);
         a causal and padding mask, or padding only with ``bidirectional``, at
         the compute type's finite min, so a fully padded row softmaxes to a
@@ -257,26 +378,36 @@ class NewsEncoder(nn.Module):
         cfg, cdt = self.config, self.compute_dtype
         t = token_ids.shape[1]
         hidden = self.embed_tokens(token_ids).to(cdt)
-        cos, sin = rope_cos_sin(t, self.head_dim, cfg.rope_theta, cdt, token_ids.device)
+        cos, sin = rope_cos_sin(t, self.rope_dim, cfg.rope_theta, cdt, token_ids.device)
         keep = mask[:, None, None, :] > 0
         if not cfg.bidirectional:
             keep = keep & torch.ones(t, t, dtype=torch.bool, device=token_ids.device).tril()
         bias = torch.zeros(keep.shape, dtype=torch.float32, device=token_ids.device)
         bias.masked_fill_(~keep, torch.finfo(cdt).min)
-        for layer in self.layers:
-            hidden = layer(hidden, cos, sin, bias)
+        if cfg.arch == "deepseek_v3":
+            real = real_token_positions(mask, real_tokens)
+            for layer in self.layers:
+                hidden = layer(hidden, cos, sin, bias, real)
+        else:
+            for layer in self.layers:
+                hidden = layer(hidden, cos, sin, bias)
         return self.norm(hidden).float()
 
     def forward(
-        self, token_ids: torch.Tensor, mask: torch.Tensor, pool_mask: Optional[torch.Tensor] = None
+        self,
+        token_ids: torch.Tensor,
+        mask: torch.Tensor,
+        pool_mask: Optional[torch.Tensor] = None,
+        real_tokens: Optional[int] = None,
     ) -> torch.Tensor:
         """Pooled vectors [B, D], float32: ``POOLING[config.pooling]`` or the
         latent-attention head, then (``normalize``) the L2 norm. Attention
         reads ``mask``; the pool reads ``pool_mask`` [B, T] where given (NV-Embed
         leaves an instruction's tokens out of the mean, though every token
-        attends to them), else ``mask``."""
+        attends to them), else ``mask``. ``real_tokens`` as in
+        ``hidden_states``."""
         cfg = self.config
-        hidden = self.hidden_states(token_ids, mask)
+        hidden = self.hidden_states(token_ids, mask, real_tokens)
         pool = mask if pool_mask is None else pool_mask
         if cfg.latent_pool:
             pooled = self.latent_pool(hidden, pool.float())
@@ -292,7 +423,8 @@ def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
     """Seeded random weights drawn on the encoder's own device (fast at full
     width on the card): linear weights N(0, 1/fan_in), biases N(0, 0.02^2),
     embeddings N(0, 1), norm scales 1 + N(0, 0.1^2) and shifts N(0, 0.1^2),
-    the head's latents N(0, 1). For tests against the JAX package use
+    the head's latents N(0, 1), stacked experts and routers N(0, 1/fan_in),
+    the routers' selection biases N(0, 0.02^2). For tests against the JAX package use
     ``models.convert.random_encoder_params``, which both packages load."""
     gen = torch.Generator(device=next(encoder.parameters()).device).manual_seed(seed)
 
@@ -312,6 +444,12 @@ def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
                 normal_(module.bias, 0.1)
         elif isinstance(module, LatentAttentionTower):
             normal_(module.latents, 1.0)
+        elif isinstance(module, MoEGate):
+            normal_(module.weight, module.weight.shape[-1] ** -0.5)
+            normal_(module.e_score_correction_bias, 0.02)
+        elif isinstance(module, MoEExperts):
+            normal_(module.gate_up_proj, module.gate_up_proj.shape[-1] ** -0.5)
+            normal_(module.down_proj, module.down_proj.shape[-1] ** -0.5)
     return encoder
 
 
@@ -322,6 +460,8 @@ def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
 # HF architectures with a layout here, and the pooling each one's embeddings
 # use (Qwen2: the last token; XLM-R (e5): the masked mean; BERT: the first).
 # Mistral and Llama share Qwen2's decoder layout without q/k/v biases.
+# DeepSeek-V3 (Moonlight) has no published embedding head: it pools as the
+# other causal decoders do, at the last real token.
 _SUPPORTED_ARCHS = {
     "XLMRobertaModel": ("bert", "mean"),
     "XLMRobertaForMaskedLM": ("bert", "mean"),
@@ -333,7 +473,54 @@ _SUPPORTED_ARCHS = {
     "MistralForCausalLM": ("qwen2", "last"),
     "LlamaModel": ("qwen2", "last"),
     "LlamaForCausalLM": ("qwen2", "last"),
+    "DeepseekV3Model": ("deepseek_v3", "last"),
+    "DeepseekV3ForCausalLM": ("deepseek_v3", "last"),
 }
+
+
+def _deepseek_v3_fields(hf_config: dict) -> dict:
+    """The MLA and MoE fields of a DeepSeek-V3 ``config.json``; raises, each
+    in words, on what this layout does not apply."""
+    refused = []
+    if hf_config.get("q_lora_rank") is not None:
+        refused.append(
+            f"q_lora_rank={hf_config['q_lora_rank']} (queries through a low-rank latent; only the direct "
+            "q_proj of q_lora_rank null is built)"
+        )
+    for key in ("n_group", "topk_group"):
+        if (hf_config.get(key) or 1) > 1:
+            refused.append(f"{key}={hf_config[key]} (group-limited routing; only one group of experts is built)")
+    if (hf_config.get("num_nextn_predict_layers") or 0) > 0:
+        refused.append(
+            f"num_nextn_predict_layers={hf_config['num_nextn_predict_layers']} (multi-token-prediction "
+            "layers have no place in an encoder)"
+        )
+    if hf_config.get("scoring_func", "sigmoid") != "sigmoid":
+        refused.append(f"scoring_func={hf_config['scoring_func']!r} (only the sigmoid router is built)")
+    if hf_config.get("topk_method", "noaux_tc") != "noaux_tc":
+        refused.append(f"topk_method={hf_config['topk_method']!r} (only noaux_tc selection is built)")
+    if hf_config.get("attention_bias"):
+        refused.append("attention_bias=True (the attention's projections are built without biases)")
+    if (hf_config.get("moe_layer_freq") or 1) != 1:
+        refused.append(f"moe_layer_freq={hf_config['moe_layer_freq']} (every layer past the dense ones is MoE)")
+    if refused:
+        raise ValueError("DeepSeek-V3 checkpoint settings this encoder does not apply: " + "; ".join(refused))
+    return dict(
+        kv_lora_rank=hf_config["kv_lora_rank"],
+        qk_nope_head_dim=hf_config["qk_nope_head_dim"],
+        qk_rope_head_dim=hf_config["qk_rope_head_dim"],
+        v_head_dim=hf_config["v_head_dim"],
+        n_routed_experts=hf_config["n_routed_experts"],
+        num_experts_per_tok=hf_config["num_experts_per_tok"],
+        n_shared_experts=hf_config.get("n_shared_experts") or 0,
+        moe_intermediate_size=hf_config["moe_intermediate_size"],
+        first_k_dense_replace=hf_config.get("first_k_dense_replace", 0),
+        routed_scaling_factor=float(hf_config.get("routed_scaling_factor", 1.0)),
+        norm_topk_prob=bool(hf_config.get("norm_topk_prob", True)),
+        scoring_func="sigmoid",
+        topk_method="noaux_tc",
+        qkv_bias=False,
+    )
 
 
 def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
@@ -345,7 +532,12 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
     architecture, on ``rope_scaling`` (only plain ``rope_theta`` is
     applied), on a ``sliding_window`` under 512 tokens (attention here is
     always full), on an NV-Embed head whose ``latent_dim`` is not the
-    backbone's width, and on an NV-Embed config without ``text_config``."""
+    backbone's width, and on an NV-Embed config without ``text_config``.
+    ``DeepseekV3ForCausalLM`` / ``DeepseekV3Model`` (Moonlight) take the
+    ``deepseek_v3`` layout with last-token pooling and their MLA and MoE
+    fields; they raise on a ``q_lora_rank``, on ``n_group`` or
+    ``topk_group`` over 1, on MTP layers, on a scoring function other than
+    the sigmoid (``_deepseek_v3_fields``) and on ``rope_scaling``."""
     arch_name = (hf_config.get("architectures") or ["XLMRobertaModel"])[0]
     if arch_name == "NVEmbedModel":
         text = dict(hf_config.get("text_config") or {})
@@ -381,7 +573,8 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
         raise ValueError(
             f"architecture {arch_name!r} is not supported; supported HF "
             f"architectures: {sorted(_SUPPORTED_ARCHS)} (BERT/XLM-R encoder "
-            "layouts and Qwen2/Mistral/Llama-class decoder layouts)"
+            "layouts, Qwen2/Mistral/Llama-class decoder layouts and DeepSeek-V3's "
+            "MLA and MoE decoder)"
         ) from None
     if hf_config.get("rope_scaling") is not None:
         raise ValueError(
@@ -419,6 +612,8 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
         # Mistral and Llama expose attention_bias, default False.
         qkv_bias=hf_config.get("attention_bias", arch_name.startswith("Qwen2")),
     )
+    if arch == "deepseek_v3":
+        cfg = dataclasses.replace(cfg, **_deepseek_v3_fields(hf_config))
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

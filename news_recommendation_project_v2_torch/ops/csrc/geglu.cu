@@ -662,31 +662,6 @@ cudaError_t split_weights(const float* w, float* big, float* small, long long n,
   return cudaGetLastError();
 }
 
-using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
-// query, so the library links against the runtime alone.
-TensorMapEncode tensor_map_encoder() {
-  static const TensorMapEncode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TensorMapEncode>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major float32 matrix [rows, cols] with rows ld floats apart, read in
 // boxes of 32 columns by box_rows rows, 128-byte swizzled; zeros past its
 // edges.

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) helpers: TMA tile loads into shared memory, mbarriers,
-// warpgroup register budgets, and the warpgroup MMA (wgmma) on TF32 with A
-// from registers and B from a 128-byte-swizzled shared-memory tile.
+// Hopper (sm_90a) helpers: the tensor-map encoder, TMA tile loads into
+// shared memory, mbarriers, warpgroup register budgets, and the warpgroup MMA
+// (wgmma): on TF32 with A from registers and B from a 128-byte-swizzled
+// shared-memory tile, and on bf16 with both operands from such tiles.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -56,6 +58,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(k), "r"(row)
       : "memory");
+}
+
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query, so a library links against the runtime alone.
+inline TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncode>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -134,4 +161,34 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const unsig
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A . B over one k16 step, m64n128k16, bf16 operands, float32 sums,
+// both operands K-major 128-byte-swizzled tiles in shared memory (adding 2
+// to a descriptor moves it one k16 step, 32 bytes, along K); a warpgroup's
+// 128 threads run it together. d's layout is the TF32 form's: d[4j + 2h +
+// c] is row 16 * warp + g + 8h, column 8j + 2t + c. scale_d = 0 starts a
+// fresh sum.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }

@@ -50,6 +50,12 @@ from ..utils.memory import estimate_encoder_batch, estimate_token_attention_batc
 # Length buckets of a corpus encode: MIND's title-only news are about 15-30
 # tokens, so most rows run 32 wide instead of the tokenizer's full width.
 TOKEN_BUCKETS = (32, 64, 128, 256, 512)
+# A bucket whose one batch holds at most this many tokens (rows x width) is
+# encoded on a side stream on the card. Such a batch launches as many kernels
+# as a full one for almost no work: queued behind a wide bucket on the same
+# stream, its launches wait for that bucket to drain and then pace the card
+# (Moonlight's 16-row and 8-row buckets on an H100: ~60 ms idle each).
+SIDE_STREAM_TOKENS = 8192
 
 
 def _auto_batch(encoder, width: int, device: torch.device) -> int:
@@ -78,7 +84,10 @@ def encode_corpus(
     third argument, batch by batch (the tokens its pool takes; ``None``: the
     encoder pools over ``token_mask``). Each batch's arrays go to the card
     from pinned memory; up to 2 batches stay in flight before the oldest is
-    written into the result."""
+    written into the result. An encoder that routes tokens to experts
+    (``routes_tokens``, the ``deepseek_v3`` layout) is handed each batch's
+    count of real tokens from the host mask, so it never waits for the
+    device to count them."""
     device = resolve_device(device)
     n, width = token_ids.shape
     if batch_size is None:
@@ -95,11 +104,14 @@ def encode_corpus(
         profiling.count("encode.pool_tokens", int(np.asarray(token_mask if pool_mask is None else pool_mask).sum()))
     out: Optional[torch.Tensor] = None
     window = InflightWindow(2, lambda item: out[item[0] : item[0] + len(item[1])].copy_(item[1]))
+    routes = getattr(encoder, "routes_tokens", False)
     with torch.no_grad():
         for start in range(0, n_pad, batch_size):
             with profiling.span("encode.batch"):
-                batch = _to_device(tuple(a[start : start + batch_size] for a in arrays), device)
-                emb = encoder(*batch).float()
+                host = tuple(a[start : start + batch_size] for a in arrays)
+                batch = _to_device(host, device)
+                extra = {"real_tokens": int(host[1].sum())} if routes else {}
+                emb = encoder(*batch, **extra).float()
             if out is None:
                 out = torch.empty((n_pad, emb.shape[1]), dtype=torch.float32, device=device)
             window.push((start, emb))
@@ -126,7 +138,11 @@ def encode_corpus_bucketed(
     ``batch_size`` or the memory model's at its width (``None``), capped at
     the power of two at or above its row count (at least 8), which bounds
     the set of batch shapes across calls. ``pool_mask`` goes with its rows,
-    cut to their bucket."""
+    cut to their bucket. The host never waits for the device here: the
+    next bucket's batches queue behind the last one's (on the card a
+    pageable copy of the row index would wait for all of them, and a short
+    bucket's launches would then pace the card), and a bucket of one small
+    batch (``SIDE_STREAM_TOKENS``) runs beside them on a side stream."""
     device = resolve_device(device)
     n, width = token_ids.shape
     if n == 0:
@@ -144,11 +160,34 @@ def encode_corpus_bucketed(
         ids, mask, pool = (
             None if a is None else np.ascontiguousarray(a[rows, :w]) for a in (token_ids, token_mask, pool_mask)
         )
-        emb = encode_corpus(encoder, ids, mask, bs, device, pool)
+        if device.type == "cuda" and len(rows) <= bs and bs * w <= SIDE_STREAM_TOKENS:
+            emb = _on_side_stream(lambda: encode_corpus(encoder, ids, mask, bs, device, pool), device)
+        else:
+            emb = encode_corpus(encoder, ids, mask, bs, device, pool)
         if out is None:
             out = torch.zeros((n, emb.shape[1]), dtype=torch.float32, device=device)
-        out.index_copy_(0, torch.from_numpy(rows).to(device), emb)
+        (index,) = _to_device((rows,), device)
+        out.index_copy_(0, index, emb)
     return out
+
+
+def _on_side_stream(fn, device: torch.device) -> torch.Tensor:
+    """``fn()``'s tensor, its work queued on a side stream of ``device`` that
+    runs beside the current one; the current stream waits for it before
+    its next work, and holds its memory."""
+    main = torch.cuda.current_stream(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    side = _SIDE_STREAMS.get(index)
+    if side is None:
+        side = _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    out.record_stream(main)
+    return out
+
+
+_SIDE_STREAMS: dict = {}
 
 
 def instruction_pool_mask(tokenize, instruction: str, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -181,17 +220,20 @@ def encode_query_and_passage(
     still reach the other tokens through attention. e5 pools them. Passage
     rows pool every real token. ``tokenize`` maps a list of texts to (ids,
     mask) arrays; ``buckets`` runs ``encode_corpus_bucketed``, else
-    ``encode_corpus``."""
+    ``encode_corpus``. The passage rows are queued before the query rows
+    are tokenized, so the card encodes while the host tokenizes."""
     ids, mask = tokenize(texts)
+    if buckets is not None:
+        passage = encode_corpus_bucketed(encoder, ids, mask, buckets, batch_size, device)
+    else:
+        passage = encode_corpus(encoder, ids, mask, batch_size, device)
     q_ids, q_mask = tokenize([query_instruction + t for t in texts])
     q_pool = None
     if getattr(getattr(encoder, "config", None), "latent_pool", False):
         q_pool = instruction_pool_mask(tokenize, query_instruction, q_ids, q_mask)
     if buckets is not None:
-        passage = encode_corpus_bucketed(encoder, ids, mask, buckets, batch_size, device)
         query = encode_corpus_bucketed(encoder, q_ids, q_mask, buckets, batch_size, device, q_pool)
     else:
-        passage = encode_corpus(encoder, ids, mask, batch_size, device)
         query = encode_corpus(encoder, q_ids, q_mask, batch_size, device, q_pool)
     return query, passage
 

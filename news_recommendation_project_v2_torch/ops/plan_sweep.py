@@ -1,7 +1,7 @@
 """Device times of the port's kernels under each plan or route, beside the
 one its planner picks, on one NVIDIA GPU.
 
-    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder|geglu]
+    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder|geglu|moe]
 
 Without an argument it sweeps the attention kernel's block shapes and slice
 counts at the user tower's shapes (N = 64, dh = 512); with ``encoder`` at
@@ -22,6 +22,14 @@ chunk (262,144), NV-Embed's tower at D = 4,096. Each line gives the route
 the plain version, the plain version's time and the library call's
 (``F.linear``, GELU, ``F.linear``). This is how the planners' rules were
 measured (PERF.md, Findings).
+
+With ``moe`` it times the routed experts' two grouped kernels
+(``ops/moe.py``) at Moonlight's widths (64 experts, D = 2,048, I = 1,408,
+top-6) over the token counts of an encode's batches, routed by random
+scores, beside the per-expert cuBLAS loop (``F.linear`` on each expert's
+rows, the rows' counts read on the host first) and the bound of the work at
+the bf16 peak; each line also gives the kernels' largest difference from
+the plain version.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from .latent_attention import (
     plan_attention,
     reference_attention,
 )
+from .moe import reference_routed_experts, routed_experts
 from .timing import graph_ms
 
 # The module, not the package's ``geglu`` (the wrapper function of that name).
@@ -151,12 +160,57 @@ def sweep_geglu(shape, gen) -> str:
     )
 
 
+# Tokens of an encode batch at Moonlight's widths: the passage bucket's
+# (2,048 rows of ~22 real tokens), the query bucket's (~50 real tokens a
+# row), and a small batch.
+MOE_TOKENS = (4096, 45056, 102400)
+MOE_WIDTHS = (64, 6, 2048, 1408)  # experts, top-k, D, I
+
+
+def sweep_moe(tokens: int, gen) -> str:
+    e, k, d, i = MOE_WIDTHS
+    dev = "cuda"
+    picked = torch.topk(torch.rand(tokens, e, device=dev, generator=gen), k, dim=-1).indices.reshape(-1)
+    order = torch.argsort(picked, stable=True)
+    offsets = torch.searchsorted(picked[order], torch.arange(e + 1, device=dev)).to(torch.int32)
+    m = tokens * k
+    xs = torch.randn(m, d, device=dev, generator=gen).to(torch.bfloat16)
+    w_gate_up = (torch.randn(e, 2 * i, d, device=dev, generator=gen) * d**-0.5).to(torch.bfloat16)
+    w_down = (torch.randn(e, d, i, device=dev, generator=gen) * i**-0.5).to(torch.bfloat16)
+    pair_w = torch.rand(m, device=dev, generator=gen)
+    bounds = offsets.tolist()
+
+    def library():
+        y = torch.empty(m, d, device=dev)
+        for x in range(e):
+            lo, hi = bounds[x], bounds[x + 1]
+            g, u = F.linear(xs[lo:hi], w_gate_up[x]).chunk(2, dim=-1)
+            y[lo:hi] = F.linear(F.silu(g) * u, w_down[x]).float() * pair_w[lo:hi, None]
+        return y
+
+    want = reference_routed_experts(xs, offsets, w_gate_up, w_down, pair_w)
+    err = ((routed_experts(xs, offsets, w_gate_up, w_down, pair_w) - want).abs().max() / want.abs().max()).item()
+    kernel = graph_ms(lambda: routed_experts(xs, offsets, w_gate_up, w_down, pair_w), 2, 5)
+    loop = graph_ms(library, 2, 5)
+    bound = 2.0 * 3 * d * i * m / 9.89e14 * 1e3
+    return (
+        f"moe tokens={tokens} rows={m} E={e} D={d} I={i}: kernels {kernel:.4f} ms "
+        f"({bound / kernel:.1%} of the bf16 peak; err {err:.2g} of the largest); "
+        f"cuBLAS loop {loop:.4f} ms ({bound / loop:.1%}); bound {bound:.4f} ms"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("plan_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
+        if sys.argv[1:] == ["moe"]:
+            for tokens in MOE_TOKENS:
+                print(sweep_moe(tokens, gen), flush=True)
+                torch.cuda.empty_cache()
+            return 0
         if sys.argv[1:] == ["geglu"]:
             for shape in GEGLU_SHAPES:
                 print(sweep_geglu(shape, gen), flush=True)

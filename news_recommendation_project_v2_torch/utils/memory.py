@@ -222,17 +222,52 @@ def encoder_activation_bytes(
 ) -> int:
     """The news encoder's activation envelope over [batch, length] tokens
     (``length`` defaults to ``config.max_length``): one block of its widths
-    (``transformer_activation_bytes``) at ``compute_dtype``'s element size
-    unless ``bytes_per_el`` is given; what stays float32 in any compute type
+    (``transformer_activation_bytes``, or ``deepseek_block_bytes`` for the
+    DeepSeek-V3 layout) at ``compute_dtype``'s element size unless
+    ``bytes_per_el`` is given; what stays float32 in any compute type
     (``encoder_float32_bytes``); and NV-Embed's latent-pool head
     (``latent_pool_bytes``), which runs after the last block."""
     if bytes_per_el is None:
         bytes_per_el = _DTYPE_BYTES.get(config.compute_dtype, 4)
     length = length or config.max_length
-    block = transformer_activation_bytes(
-        config.hidden_dim, config.num_heads, config.intermediate_dim, batch, length, bytes_per_el
-    )
+    if config.arch == "deepseek_v3":
+        block = deepseek_block_bytes(config, batch, length, bytes_per_el)
+    else:
+        block = transformer_activation_bytes(
+            config.hidden_dim, config.num_heads, config.intermediate_dim, batch, length, bytes_per_el
+        )
     return block + encoder_float32_bytes(config, batch, length) + latent_pool_bytes(config, batch, length, bytes_per_el)
+
+
+def deepseek_block_bytes(config: EncoderConfig, batch: int, length: int, bytes_per_el: int) -> int:
+    """One DeepSeek-V3 block over [batch, length] tokens, every token counted
+    as real (the MoE routes the real ones only): the residual stream in and
+    out (2·D) beside the largest of its three phases.
+
+    - MLA, expanded: the normed input and the output projection (2·D), q
+      and its concatenated copy (2 x heads·(nope + rope)), the latent and its
+      rotary key before and after the norm (2·rank + rope), each head's key
+      and value from the latent (heads·(nope + v)) and the concatenated key
+      (heads·(nope + rope)), the rotary parts' de-interleaved and rotated
+      copies (3 x heads·rope), the attention's output and its transpose
+      (2 x heads·v); the attention's logits (heads x L x L a row, and their
+      float32 softmax in ``encoder_float32_bytes``).
+    - The dense layers' MLP: gate, up and their product (3 x intermediate).
+    - The MoE, per token and its top-k pairs: the rows gathered in expert
+      order (k·D), the gated h (k·I) and the weighted float32 expert outputs
+      (k·D floats) live together at the down launch; the float32 combine and
+      one gathered pair (2·D floats), the router's float32 scores and picks,
+      and the shared experts' gate, up and product (3 x shared·I)."""
+    b = bytes_per_el
+    d, h, k = config.hidden_dim, config.num_heads, config.num_experts_per_tok
+    nope, rope, v, rank = config.qk_nope_head_dim, config.qk_rope_head_dim, config.v_head_dim, config.kv_lora_rank
+    mla = (2 * d + 2 * h * (nope + rope) + 2 * rank + rope + h * (nope + v) + h * (nope + rope) + 3 * h * rope
+           + 2 * h * v) * b
+    dense = 3 * config.intermediate_dim * b if config.first_k_dense_replace else 0
+    i, e = config.moe_intermediate_size, config.n_routed_experts
+    moe = (k * d + k * i) * b + k * d * 4 + 2 * d * 4 + 3 * e * 4 + 4 * k * 8 + 3 * config.n_shared_experts * i * b
+    tokens = batch * length
+    return tokens * (2 * d * b + max(mla, dense, moe)) + batch * h * length * length * b
 
 
 def encoder_float32_bytes(config: EncoderConfig, batch: int, length: int) -> int:

@@ -71,7 +71,14 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.models.news_encoder import HashTokenizer, NewsEncoder
+from news_recommendation_project_v2_torch.models.moe import MoEBlock, dispatch
+from news_recommendation_project_v2_torch.models.news_encoder import (
+    HashTokenizer,
+    NewsEncoder,
+    encoder_config_from_hf,
+    init_random_weights,
+)
+from news_recommendation_project_v2_torch.ops.moe import reference_routed_experts, routed_experts
 from news_recommendation_project_v2_torch.models.towers import ClassificationHead, ReducingModel, WeightedSumModel
 from news_recommendation_project_v2_torch.ops.encode import (
     TokenStore,
@@ -1460,6 +1467,160 @@ def test_corpus_encode_and_token_store_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert np.array_equal(res["cuda"][1].offsets, res["cpu"][1].offsets)
     np.testing.assert_allclose(res["cuda"][1].states, res["cpu"][1].states, rtol=0, atol=1e-5)
+
+
+# -- the news encoder: Moonlight's routed experts ---------------------------------
+
+MOONLIGHT_WIDTHS = (64, 6, 2048, 1408)  # experts, top-k, D, I
+
+
+def _routed_rows(routing: str, gen):
+    """Token-expert pairs of ``routing`` in expert order at Moonlight's
+    widths: ``uniform`` (1,000 tokens over all experts), ``skewed`` (90% of
+    1,000 tokens favour experts 0-5), ``empty_experts`` (no odd expert gets a
+    row), ``one_token`` (6 rows, no expert past one: every tile ragged)."""
+    e, k, d, i = MOONLIGHT_WIDTHS
+    tokens = 1 if routing == "one_token" else 1000
+    scores = torch.rand(tokens, e, device="cuda", generator=gen)
+    if routing == "skewed":
+        scores[: int(0.9 * tokens), :k] += 1.0
+    elif routing == "empty_experts":
+        scores[:, 1::2] = -1.0
+    order, offsets = dispatch(torch.topk(scores, k, dim=-1).indices, e)
+    m = tokens * k
+    xs = torch.randn(m, d, device="cuda", generator=gen).to(torch.bfloat16)
+    w_gate_up = (torch.randn(e, 2 * i, d, device="cuda", generator=gen) * d**-0.5).to(torch.bfloat16)
+    w_down = (torch.randn(e, d, i, device="cuda", generator=gen) * i**-0.5).to(torch.bfloat16)
+    return xs, offsets, w_gate_up, w_down, torch.rand(m, device="cuda", generator=gen)
+
+
+@pytest.mark.parametrize("routing", ["uniform", "skewed", "empty_experts", "one_token"])
+def test_grouped_expert_kernels_match_plain(cuda, routing):
+    """Both grouped launches at Moonlight's widths in bf16 against the plain
+    per-expert loop: each element within one bf16 unit of its own value
+    (the gated h and the expert's output round to bf16 after float32 sums
+    in another order) beyond a thousandth of the largest; the same bits
+    twice; two launches a call."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _routed_rows(routing, gen)
+    if routing == "empty_experts":
+        counts = args[1].diff()
+        assert (counts[1::2] == 0).all() and (counts[::2] > 0).all()
+    before = routed_experts.launches
+    got = routed_experts(*args)
+    assert routed_experts.launches == before + 2
+    want = reference_routed_experts(*args)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    slack = 2.0**-7 * want.abs() + 1e-3 * want.abs().max()
+    assert ((got - want).abs() <= slack).all(), (got - want).abs().max()
+    assert torch.equal(routed_experts(*args), got)
+
+
+def test_grouped_expert_kernels_refuse_what_they_do_not_take(cuda):
+    xs, offsets, w_gate_up, w_down, pair_w = _routed_rows("one_token", torch.Generator(device="cuda").manual_seed(0))
+    with pytest.raises(TypeError):
+        routed_experts(xs.float(), offsets, w_gate_up.float(), w_down.float(), pair_w)
+    with pytest.raises(ValueError):
+        routed_experts(xs, offsets.long(), w_gate_up, w_down, pair_w)
+    with pytest.raises(ValueError):
+        cut = (xs[:, :1000].contiguous(), offsets, w_gate_up[..., :1000].contiguous(), w_down[:, :1000].contiguous())
+        routed_experts(*cut, pair_w)
+
+
+def test_a_moe_layer_on_the_card_waits_for_nothing(cuda):
+    """One MoE block at Moonlight's widths over 3,000 tokens under
+    ``set_sync_debug_mode("error")``: routing, dispatch, both grouped
+    launches, the combine and the shared experts, with no wait for the
+    device; its output equals the same block's plain path on the card (the
+    per-expert loop) within a bf16 unit beyond a thousandth."""
+    e, k, d, i = MOONLIGHT_WIDTHS
+    block = MoEBlock(d, e, k, i, 2, 2.446, True)
+    for t in block.parameters():
+        t.data = torch.randn(t.shape) * (t.shape[-1] ** -0.5 if t.dim() > 1 else 0.02)
+    block = block.to(cuda, torch.bfloat16).eval()
+    x = torch.randn(3000, d, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = block(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with torch.no_grad():
+        picked, weight = block.gate(x)
+        order, offsets = dispatch(picked, e)
+        y = reference_routed_experts(
+            x.index_select(0, order // k), offsets, block.experts.gate_up_proj, block.experts.down_proj,
+            weight.reshape(-1)[order].contiguous(),
+        )
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(order.numel(), device=cuda)
+        routed = sum(y[slot.view(-1, k)[:, j]] for j in range(k)).to(torch.bfloat16)
+        sh = block.shared_experts
+        want = routed + sh["down_proj"](F.silu(sh["gate_proj"](x)) * sh["up_proj"](x))
+    assert ((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs() + 1e-3 * want.float().abs().max()).all()
+
+
+SMALL_MOONLIGHT = {
+    "architectures": ["DeepseekV3ForCausalLM"], "vocab_size": 101, "hidden_size": 64, "intermediate_size": 160,
+    "num_hidden_layers": 3, "num_attention_heads": 4, "num_key_value_heads": 4, "kv_lora_rank": 32,
+    "q_lora_rank": None, "qk_nope_head_dim": 16, "qk_rope_head_dim": 16, "v_head_dim": 16, "n_routed_experts": 8,
+    "num_experts_per_tok": 2, "n_shared_experts": 1, "moe_intermediate_size": 64, "first_k_dense_replace": 1,
+    "routed_scaling_factor": 2.446, "norm_topk_prob": True, "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+    "n_group": 1, "topk_group": 1, "rms_norm_eps": 1e-5, "rope_theta": 50000, "max_position_embeddings": 512,
+}
+
+
+def test_moonlight_encoder_on_cuda_matches_cpu(cuda):
+    """A small DeepSeek-V3 encoder (3 layers, the first dense; 8 experts,
+    top-2) in bf16 through ``encode_query_and_passage`` on the card and on
+    the CPU: the grouped kernels launch on the card, and both tables agree
+    within 2e-2 (bf16 products summed in other orders, over three layers)."""
+    texts = [" ".join(f"w{j}" for j in range(n)) for n in (3, 17, 9, 30, 1, 12)]
+    tok = HashTokenizer(vocab_size=101, max_length=40)
+    cfg = encoder_config_from_hf(SMALL_MOONLIGHT, param_dtype="bfloat16", compute_dtype="bfloat16")
+    base = init_random_weights(NewsEncoder(cfg), 4).eval()
+    out = {}
+    before = routed_experts.launches
+    for dev in ("cpu", cuda):
+        enc = NewsEncoder(cfg).eval()
+        enc.load_state_dict(base.state_dict())
+        enc.to(dev)
+        tables = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(8, 16), device=dev)
+        out[str(dev)] = [t.cpu() for t in tables]
+    assert routed_experts.launches > before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+def test_moonlight_encode_on_the_card_waits_for_nothing(cuda):
+    """The small DeepSeek-V3 encoder's whole bucketed ``encode_query_and_passage``
+    under ``set_sync_debug_mode("error")``, once the kernels are built: the
+    host queues it all without a wait for the device, the short bucket's
+    three batches on the current stream and the long bucket's one small
+    batch on the side stream (``SIDE_STREAM_TOKENS``) beside them. The tables
+    equal the call's before it to the bit, and the CPU's within 2e-2."""
+    rng = np.random.default_rng(2)
+    lens = [int(n) for n in rng.integers(1, 6, size=20)] + [24, 30]
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 90, size=n)) for n in lens]
+    tok = HashTokenizer(vocab_size=101, max_length=40)
+    cfg = encoder_config_from_hf(SMALL_MOONLIGHT, param_dtype="bfloat16", compute_dtype="bfloat16")
+    base = init_random_weights(NewsEncoder(cfg), 4).eval()
+    cpu = encode_query_and_passage(base, tok, texts, QUERY_INSTRUCTION, 4, buckets=(8, 16), device="cpu")
+    enc = NewsEncoder(cfg).eval()
+    enc.load_state_dict(base.state_dict())
+    enc.to(cuda)
+    want = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(8, 16), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(8, 16), device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w, c in zip(got, want, cpu):
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=2e-2)
 
 
 def test_query_table_step_on_cuda_matches_cpu(cuda):

@@ -6,6 +6,8 @@ plain kernel versions); the NV-Embed layout's conversion and its loud
 errors, word for word the JAX package's; bfloat16 rows that are all pad
 stay finite."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,12 @@ from news_recommendation_project_v2_torch.models.news_encoder import NewsEncoder
 from news_recommendation_project_v2_torch.ops.geglu import geglu
 from news_recommendation_project_v2_torch.ops.latent_attention import latent_attention
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
+
+def _jax_config(cfg):
+    """The JAX package's config of the port's ``cfg``: its own fields (the
+    port's DeepSeek-V3 fields have no counterpart there)."""
+    return JaxEncoderConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(JaxEncoderConfig)})
 
 # A tiny Mistral-shaped backbone: 4 query heads over 2 kv heads (GQA).
 TEXT = dict(
@@ -66,7 +74,7 @@ def _both(enc, cfg, params, ids, mask, method):
         got = getattr(enc, method)(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     jax_params = jax.tree_util.tree_map(jnp.asarray, params)
     jmethod = "__call__" if method == "forward" else method
-    want = JaxNewsEncoder(JaxEncoderConfig(**cfg.__dict__)).apply(
+    want = JaxNewsEncoder(_jax_config(cfg)).apply(
         jax_params, jnp.asarray(ids), jnp.asarray(mask), method=jmethod
     )
     return got, np.asarray(want)
@@ -137,7 +145,7 @@ def test_nv_embed_conversion_round_trip_is_exact():
     params = random_encoder_params(cfg, 2)
     sd = encoder_state_dict_from_jax(params, cfg)
     nv = _nv_layout(sd)
-    back = convert_hf_state_dict(nv, JaxEncoderConfig(**cfg.__dict__))
+    back = convert_hf_state_dict(nv, _jax_config(cfg))
     leaves_a = jax.tree_util.tree_leaves_with_path(params)
     leaves_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in leaves_a] == [p for p, _ in leaves_b]
@@ -157,7 +165,7 @@ def test_qwen2_round_trip_with_and_without_bias(bias):
     sd = encoder_state_dict_from_jax(params, cfg)
     hf = {f"model.{k}": v.numpy() for k, v in sd.items()}
     hf["lm_head.weight"] = np.zeros((97, 32), np.float32)
-    back = convert_hf_state_dict(hf, JaxEncoderConfig(**cfg.__dict__))
+    back = convert_hf_state_dict(hf, _jax_config(cfg))
     for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(params), jax.tree_util.tree_leaves_with_path(back)):
         assert np.array_equal(np.asarray(a), np.asarray(b)), path
     normalised = encoder_state_dict_from_hf(hf, cfg)
@@ -183,7 +191,7 @@ def _errors():
 def test_layout_errors_match_jax(case):
     state, cfg = _errors()[case]
     with pytest.raises(ValueError) as want:
-        convert_hf_state_dict(state, JaxEncoderConfig(**cfg.__dict__))
+        convert_hf_state_dict(state, _jax_config(cfg))
     with pytest.raises(ValueError) as got:
         encoder_state_dict_from_hf(state, cfg)
     assert str(got.value) == str(want.value)

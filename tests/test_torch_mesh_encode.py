@@ -32,6 +32,7 @@ Then ``nrtorch-reproduce --cpu-ranks 2`` runs configs 3-4 on two gloo
 ranks (the tool's own spawn), and the flag refuses CUDA.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -64,6 +65,12 @@ from news_recommendation_project_v2_tpu.parallel import build_mesh as jax_build_
 from news_recommendation_project_v2_tpu.parallel.sharding import shard_encoder_params_tp as jax_shard_tp
 from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
+
+def _jax_config(cfg):
+    """The JAX package's config of the port's ``cfg``: its own fields (the
+    port's DeepSeek-V3 fields have no counterpart there)."""
+    return JaxEncoderConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(JaxEncoderConfig)})
+
 D = workers.D
 SHAPES = [(2, 1), (1, 2)]
 IDS = ["mesh2x1", "mesh1x2"]
@@ -84,7 +91,7 @@ def runs():
 
 def _jax_encoder(cfg_kwargs: dict):
     cfg = EncoderConfig(**cfg_kwargs)
-    return JaxNewsEncoder(JaxEncoderConfig(**cfg.__dict__)), jax.tree.map(jnp.asarray, random_encoder_params(cfg, 0))
+    return JaxNewsEncoder(_jax_config(cfg)), jax.tree.map(jnp.asarray, random_encoder_params(cfg, 0))
 
 
 def _jax_encode(cfg_kwargs: dict, texts: list) -> np.ndarray:
