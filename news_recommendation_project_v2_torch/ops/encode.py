@@ -11,7 +11,8 @@ states and the learned news encoder's pass over it.
   ``encode.corpus`` of ``utils.profiling``: span ``encode.batch`` (a
   batch's copies and forward queued), counters ``encode.rows``,
   ``encode.tokens_real``, ``encode.tokens_computed`` (rows computed x
-  width) and ``encode.pool_tokens``.
+  width), ``encode.pad_rows`` (rows computed past the real ones) and
+  ``encode.pool_tokens``.
 - ``build_token_store``: the encoder's per-token states, mask-trimmed, into
   a ``TokenStore`` in RAM or streamed into a memmapped directory.
 - ``save_embeddings``/``load_embeddings``: ``{dataset}.npy`` [N, D],
@@ -64,6 +65,17 @@ def _auto_batch(encoder, width: int, device: torch.device) -> int:
     return min(max(1024, 131072 // width), estimate_encoder_batch(encoder.config, length=width, device=device))
 
 
+def _even_batch(n: int, cap: int) -> int:
+    """The rows of each batch when ``n`` rows split evenly over the fewest
+    batches of at most ``cap`` rows (one batch for no rows): their share,
+    rounded up to a multiple of 8 and at most ``cap``. So a call computes
+    ``ceil(n / cap)`` batches of one shape, and fewer than 8 pad rows a batch
+    where ``cap`` is a multiple of 8."""
+    batches = max(1, -(-n // cap))
+    share = -(-max(n, 1) // batches)
+    return min(cap, -(-share // 8) * 8)
+
+
 @profiling.unit("encode.corpus")
 def encode_corpus(
     encoder: torch.nn.Module,
@@ -75,12 +87,14 @@ def encode_corpus(
 ) -> torch.Tensor:
     """``encoder`` ([B, T] ids and mask -> [B, D]) over a tokenized corpus
     [N, T] -> the [N, D] float32 vectors on ``device`` (``None``: CUDA;
-    the encoder must lie there). Every batch has the same [batch_size, T]
-    shape: rows past N are padding with mask slot 0 live, so no row is all
-    pad, and are dropped; an empty corpus runs one pad batch and gives
-    [0, D]. ``batch_size=None`` takes the memory model's batch for the
-    encoder's ``config`` (``estimate_encoder_batch``) at T, capped at about
-    131,072 tokens a batch. ``pool_mask`` [N, T] goes to the encoder as its
+    the encoder must lie there). ``batch_size`` caps a batch's rows: the N
+    rows split evenly over the fewest batches it allows (``_even_batch``),
+    all of one [B, T] shape, B at most ``batch_size``; rows past N are
+    padding with mask slot 0 live, so no row is all pad, and are dropped;
+    an empty corpus runs one pad batch and gives [0, D].
+    ``batch_size=None`` takes the memory model's batch for the encoder's
+    ``config`` (``estimate_encoder_batch``) at T, capped at about 131,072
+    tokens a batch. ``pool_mask`` [N, T] goes to the encoder as its
     third argument, batch by batch (the tokens its pool takes; ``None``: the
     encoder pools over ``token_mask``). Each batch's arrays go to the card
     from pinned memory; up to 2 batches stay in flight before the oldest is
@@ -92,6 +106,7 @@ def encode_corpus(
     n, width = token_ids.shape
     if batch_size is None:
         batch_size = _auto_batch(encoder, width, device)
+    batch_size = _even_batch(n, batch_size)
     n_pad = max(batch_size, -(-n // batch_size) * batch_size)
     arrays = [token_ids, token_mask] + ([] if pool_mask is None else [pool_mask])
     arrays = [np.pad(a, ((0, n_pad - n), (0, 0))) for a in arrays]
@@ -101,6 +116,7 @@ def encode_corpus(
         profiling.count("encode.rows", n)
         profiling.count("encode.tokens_real", int(np.asarray(token_mask).sum()))
         profiling.count("encode.tokens_computed", n_pad * width)
+        profiling.count("encode.pad_rows", n_pad - n)
         profiling.count("encode.pool_tokens", int(np.asarray(token_mask if pool_mask is None else pool_mask).sum()))
     out: Optional[torch.Tensor] = None
     window = InflightWindow(2, lambda item: out[item[0] : item[0] + len(item[1])].copy_(item[1]))
@@ -134,10 +150,9 @@ def encode_corpus_bucketed(
     news never pay for the full width; the rows' vectors are written back
     by index into one [N, D] float32 tensor on the card. A padded key adds
     exactly nothing to a masked softmax, so each row equals the fixed-width
-    encode up to the order of float sums. A bucket's batch is
-    ``batch_size`` or the memory model's at its width (``None``), capped at
-    the power of two at or above its row count (at least 8), which bounds
-    the set of batch shapes across calls. ``pool_mask`` goes with its rows,
+    encode up to the order of float sums. A bucket's rows split evenly over
+    the fewest batches that ``batch_size``, or the memory model's batch at
+    its width (``None``), allows. ``pool_mask`` goes with its rows,
     cut to their bucket. The host never waits for the device here: the
     next bucket's batches queue behind the last one's (on the card a
     pageable copy of the row index would wait for all of them, and a short
@@ -155,8 +170,7 @@ def encode_corpus_bucketed(
         rows = np.nonzero(assignment == bi)[0]
         if len(rows) == 0:
             continue
-        bs = batch_size or _auto_batch(encoder, w, device)
-        bs = max(8, min(bs, 1 << (len(rows) - 1).bit_length()))
+        bs = _even_batch(len(rows), batch_size or _auto_batch(encoder, w, device))
         ids, mask, pool = (
             None if a is None else np.ascontiguousarray(a[rows, :w]) for a in (token_ids, token_mask, pool_mask)
         )

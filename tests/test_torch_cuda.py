@@ -83,6 +83,8 @@ from news_recommendation_project_v2_torch.models.towers import ClassificationHea
 from news_recommendation_project_v2_torch.ops.encode import (
     TokenStore,
     build_token_store,
+    encode_corpus,
+    encode_corpus_bucketed,
     encode_query_and_passage,
     save_embeddings,
 )
@@ -1469,6 +1471,31 @@ def test_corpus_encode_and_token_store_on_cuda_match_cpu(cuda):
     np.testing.assert_allclose(res["cuda"][1].states, res["cpu"][1].states, rtol=0, atol=1e-5)
 
 
+def test_bucketed_encode_splits_evenly_on_cuda(cuda):
+    """A bucketed encode on the card under a cap of 16 rows: the 17 rows of
+    width 8 split into two batches of 16 on the current stream, the 3 rows
+    of width 32 run as one batch of 8 on the side stream
+    (``SIDE_STREAM_TOKENS``); the vectors equal the fixed-width encode's
+    within 1e-5."""
+    rng = np.random.default_rng(3)
+    lens = np.concatenate([rng.integers(1, 9, 17), rng.integers(20, 33, 3)])
+    ids = rng.integers(3, 97, (20, 32)).astype(np.int32)
+    mask = (np.arange(32)[None, :] < lens[:, None]).astype(np.int32)
+    enc = _small_encoder("nv_embed", cuda)
+    main = torch.cuda.current_stream(cuda)
+    seen = []
+    hook = enc.register_forward_pre_hook(
+        lambda _, args: seen.append((tuple(args[0].shape), torch.cuda.current_stream(cuda) == main))
+    )
+    try:
+        got = encode_corpus_bucketed(enc, ids, mask, buckets=(8,), batch_size=16, device=cuda)
+    finally:
+        hook.remove()
+    assert seen == [((16, 8), True), ((16, 8), True), ((8, 32), False)]
+    want = encode_corpus(enc, ids, mask, batch_size=8, device=cuda)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 # -- the news encoder: Moonlight's routed experts ---------------------------------
 
 MOONLIGHT_WIDTHS = (64, 6, 2048, 1408)  # experts, top-k, D, I
@@ -1598,8 +1625,8 @@ def test_moonlight_encode_on_the_card_waits_for_nothing(cuda):
     """The small DeepSeek-V3 encoder's whole bucketed ``encode_query_and_passage``
     under ``set_sync_debug_mode("error")``, once the kernels are built: the
     host queues it all without a wait for the device, the short bucket's
-    three batches on the current stream and the long bucket's one small
-    batch on the side stream (``SIDE_STREAM_TOKENS``) beside them. The tables
+    five batches of 4 rows (the cap) on the current stream and the long
+    bucket's one small batch on the side stream (``SIDE_STREAM_TOKENS``) beside them. The tables
     equal the call's before it to the bit, and the CPU's within 2e-2."""
     rng = np.random.default_rng(2)
     lens = [int(n) for n in rng.integers(1, 6, size=20)] + [24, 30]

@@ -96,6 +96,44 @@ def test_encode_corpus_bucketed_matches_jax_and_fixed_width(pair, corpus, batch_
     np.testing.assert_allclose(got, fixed, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "n, cap, shape",
+    [(13, 16, (1, 16)), (16, 16, (1, 16)), (17, 16, (2, 16)), (31, 16, (2, 16)), (0, 16, (1, 8)),
+     (23, 12, (2, 12)), (2047, 1976, (2, 1024))],
+    ids=["under_cap", "cap", "cap_plus_1", "two_caps_less_1", "empty", "cap_not_multiple_of_8", "moonlight_query"],
+)
+def test_encode_splits_rows_evenly_over_the_fewest_batches(pair, n, cap, shape):
+    """N rows under a batch cap: ceil(N / cap) batches (no rows: one batch
+    of 8 pad rows), all of one row count, at most the cap, fewer than 8 pad
+    rows a batch where the cap is a multiple of 8 (the last case is
+    Moonlight's query bucket: 2,047 rows under the memory model's 1,976 at
+    width 64), as ``shape`` (batches, rows) says; the bucketed encode of one
+    bucket computes the same batches. The vectors equal the encode at a
+    fixed batch of 8 and the JAX package's within 1e-5."""
+    enc, apply, _, params = pair
+    rng = np.random.default_rng(n)
+    ids = rng.integers(3, CFG.vocab_size, (n, 8)).astype(np.int32)
+    mask = (np.arange(8)[None, :] < rng.integers(1, 9, n)[:, None]).astype(np.int32)
+    fixed = encode_corpus(enc, ids, mask, batch_size=8, device="cpu").numpy()
+    if n:
+        want = np.asarray(jax_encode.encode_corpus(apply, params, ids, mask, batch_size=8))
+        np.testing.assert_allclose(fixed, want, rtol=0, atol=1e-5)
+    for encode in (encode_corpus, lambda *a, **k: encode_corpus_bucketed(*a, buckets=(), **k)):
+        seen = []
+        hook = enc.register_forward_pre_hook(lambda _, args: seen.append(tuple(args[0].shape)))
+        try:
+            got = encode(enc, ids, mask, batch_size=cap, device="cpu").numpy()
+        finally:
+            hook.remove()
+        batches, rows = len(seen), seen[0][0]
+        assert (batches, rows) == shape and batches == max(1, -(-n // cap))
+        assert seen == [(rows, 8)] * batches and rows <= cap
+        if cap % 8 == 0 and n:
+            assert batches * rows - n < 8 * batches
+        assert got.shape == (n, CFG.hidden_dim)
+        np.testing.assert_allclose(got, fixed, rtol=0, atol=1e-5)
+
+
 def test_encode_empty_corpus(pair):
     enc = pair[0]
     ids = mask = np.zeros((0, 8), np.int32)

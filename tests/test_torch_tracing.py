@@ -294,8 +294,9 @@ def test_encode_is_one_unit_and_counts_what_it_computed():
     """``encode_query_and_passage`` is one ``encode.corpus`` unit (its inner
     bucketed encodes open none of their own); ``encode.batch`` spans one a
     batch; the counters are the rows, the real tokens, rows x width of every
-    batch computed, and the tokens the pool took (the query rows' without
-    the instruction). A bucketed encode alone is a unit of its own, and
+    batch computed (a bucket's rows split evenly over the fewest batches of
+    at most ``batch_size`` rows), the pad rows, and the tokens the pool took
+    (the query rows' without the instruction). A bucketed encode alone is a unit of its own, and
     nothing records without a profiler."""
     torch.manual_seed(0)
     enc = NewsEncoder(encoder_config_from_hf(NV_EMBED, compute_dtype="float32", max_length=24)).eval()
@@ -312,21 +313,25 @@ def test_encode_is_one_unit_and_counts_what_it_computed():
     units = [s for s in spans if s.name == "encode.corpus"]
     assert len(units) == 1 and units[0].parent is None
     (p_ids, p_mask), (q_ids, q_mask) = tok(texts), tok([instruction + t for t in texts])
-    computed = batches = 0
+    computed = batches = pad = 0
     for mask in (p_mask, q_mask):
         lens = mask.sum(1)
         for lo, w in zip((0, *buckets), (*buckets, 24)):
             n = int(((lens > lo) & (lens <= w)).sum())
             if n:
-                bs = max(8, min(batch, 1 << (n - 1).bit_length()))
-                batches += -(-n // bs)
-                computed += -(-n // bs) * bs * w
+                k = -(-n // batch)  # the fewest batches of at most `batch` rows
+                share = -(-n // k)
+                bs = min(batch, (share + 7) // 8 * 8)  # the even share, up to a multiple of 8
+                batches += k
+                computed += k * bs * w
+                pad += k * bs - n
     assert [s.parent for s in spans if s.name == "encode.batch"] == ["encode.corpus"] * batches
     pool = instruction_pool_mask(tok, instruction, q_ids, q_mask)
     assert counters == {
         "encode.rows": 2 * len(texts),
         "encode.tokens_real": int(p_mask.sum() + q_mask.sum()),
         "encode.tokens_computed": computed,
+        "encode.pad_rows": pad,
         "encode.pool_tokens": int(p_mask.sum() + pool.sum()),
     }
     assert sum(e.name() == "encode.batch" for e in events) == batches
