@@ -174,7 +174,17 @@ class EncoderConfig:
     (``scoring_func`` sigmoid, ``topk_method`` noaux_tc: picked on the score
     plus a per-expert bias, weighted by the score, renormalised by
     ``norm_topk_prob`` and scaled by ``routed_scaling_factor``) beside
-    ``n_shared_experts`` shared experts over every token."""
+    ``n_shared_experts`` shared experts over every token.
+
+    ``arch="kimi_linear"`` is Kimi Linear's hybrid decoder: each layer's
+    token mixer is ``layer_kinds[i]``, ``"kda"`` (Kimi Delta Attention,
+    ``kda_num_heads`` heads of ``kda_head_dim``, short convs of
+    ``short_conv_kernel_size``) or ``"mla"`` (DeepSeek-V3's latent attention,
+    without rotation where ``mla_use_nope``), and its MLP that of the
+    ``deepseek_v3`` layout. ``experts_held`` ``(first, count)`` is this
+    device's share of an expert-parallel deployment: the router scores all
+    ``n_routed_experts`` and keeps the pairs of experts ``first`` to
+    ``first + count - 1``, whose weights alone are held (``None``: all)."""
 
     vocab_size: int = 250002
     hidden_dim: int = 1024
@@ -188,7 +198,7 @@ class EncoderConfig:
     max_length: int = NEWS_TEXT_MAXLEN
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    arch: str = "bert"  # bert | qwen2 | deepseek_v3
+    arch: str = "bert"  # bert | qwen2 | deepseek_v3 | kimi_linear
     num_kv_heads: Optional[int] = None  # None: num_heads
     head_dim: Optional[int] = None  # None: hidden_dim // num_heads
     rope_theta: float = 10000.0
@@ -211,6 +221,12 @@ class EncoderConfig:
     norm_topk_prob: bool = True
     scoring_func: str = "sigmoid"
     topk_method: str = "noaux_tc"
+    layer_kinds: tuple[str, ...] = ()
+    kda_num_heads: int = 0
+    kda_head_dim: int = 0
+    short_conv_kernel_size: int = 4
+    mla_use_nope: bool = False
+    experts_held: Optional[tuple[int, int]] = None
 
 
 @dataclasses.dataclass(frozen=True)

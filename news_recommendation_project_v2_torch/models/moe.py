@@ -22,10 +22,22 @@ each expert's ``gate_proj`` rows, then its ``up_proj`` rows;
 ``experts.down_proj`` [E, D, I]); ``models.convert.encoder_state_dict_from_hf``
 stacks a checkpoint's per-expert tensors.
 
+A block may hold a share of its experts (``held=(first, count)``: experts
+``first`` to ``first + count - 1`` of an expert-parallel deployment): the
+router still scores all ``num_experts`` and picks its ``top_k`` among them;
+the pairs of held experts are sorted first, by expert, and the others after
+them, so ``offsets[count]`` (on the device) ends the held pairs and the
+grouped kernels compute no row past it; the combine adds a token's held
+pairs in pick order and nothing for the others. A token with no held pair
+gets the shared experts alone. What the other devices' experts would add is
+theirs to add.
+
 Counters (``utils.profiling``, known on the host): ``moe.tokens_routed``
 (tokens a layer routes, summed over layers), ``moe.assignments`` (their
 token-expert pairs) and ``moe.grouped_launches`` (the grouped kernels'
-launches); each block runs inside the span ``moe.layer``.
+launches); on the device, ``moe.assignments_held`` (the pairs of held
+experts, read when the records are); each block runs inside the span
+``moe.layer``.
 """
 
 from __future__ import annotations
@@ -78,7 +90,8 @@ def dispatch(picked: torch.Tensor, num_experts: int) -> tuple[torch.Tensor, torc
     """The token-expert pairs (``picked`` [N, k], flattened token-major) in
     expert order, ``order`` [N k] (stable: a token's pairs keep token order
     within an expert), and ``offsets`` [E + 1] int32, expert e's first row
-    in that order; on the device, without a wait."""
+    in that order; on the device, without a wait. A pick of ``num_experts``
+    or more sorts after every expert's rows, past ``offsets[E]``."""
     flat = picked.reshape(-1)
     order = torch.argsort(flat, stable=True)
     bounds = torch.arange(num_experts + 1, device=flat.device, dtype=flat.dtype)
@@ -86,15 +99,33 @@ def dispatch(picked: torch.Tensor, num_experts: int) -> tuple[torch.Tensor, torc
     return order, offsets
 
 
-def combine(y_sorted: torch.Tensor, order: torch.Tensor, tokens: int, top_k: int) -> torch.Tensor:
+def held_picks(picked: torch.Tensor, first: int, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``picked`` as indices into the held experts (``first`` to ``first +
+    count - 1`` become 0 to ``count - 1``, every other expert ``count``) and
+    the mask [N, k] of held pairs."""
+    local = picked - first
+    held = (local >= 0) & (local < count)
+    return torch.where(held, local, count), held
+
+
+def combine(y_sorted: torch.Tensor, order: torch.Tensor, tokens: int, top_k: int,
+            held: torch.Tensor | None = None) -> torch.Tensor:
     """Each token's weighted expert outputs (rows of ``y_sorted`` in
-    ``order``'s order) added in the order of its picks: [N, D] float32."""
+    ``order``'s order) added in the order of its picks: [N, D] float32.
+    With ``held`` [N, k] the pairs it leaves out add nothing (their rows
+    were never computed)."""
     slot = torch.empty_like(order)
     slot[order] = torch.arange(order.numel(), device=order.device)
     slot = slot.view(tokens, top_k)
-    out = y_sorted.index_select(0, slot[:, 0])
-    for j in range(1, top_k):
-        out += y_sorted.index_select(0, slot[:, j])
+    out = None
+    for j in range(top_k):
+        part = y_sorted.index_select(0, slot[:, j])
+        if held is not None:
+            part = part.masked_fill_(~held[:, j, None], 0.0)
+        if out is None:
+            out = part
+        else:
+            out += part
     return out
 
 
@@ -103,11 +134,14 @@ class MoEBlock(nn.Module):
     weighted sum (float32, then rounded) plus the shared experts."""
 
     def __init__(self, dim: int, num_experts: int, top_k: int, width: int, shared: int, scaling: float,
-                 normalize: bool):
+                 normalize: bool, held: tuple[int, int] | None = None):
         super().__init__()
         self.num_experts, self.top_k = num_experts, top_k
+        if held is not None and not (0 <= held[0] and 1 <= held[1] and held[0] + held[1] <= num_experts):
+            raise ValueError(f"MoEBlock: held experts {held} are not a range of the {num_experts} experts")
+        self.held = None if held is None or tuple(held) == (0, num_experts) else (int(held[0]), int(held[1]))
         self.gate = MoEGate(dim, num_experts, top_k, scaling, normalize)
-        self.experts = MoEExperts(dim, num_experts, width)
+        self.experts = MoEExperts(dim, num_experts if self.held is None else self.held[1], width)
         self.shared_experts = nn.ModuleDict(
             {
                 "gate_proj": nn.Linear(dim, shared * width, bias=False),
@@ -120,17 +154,24 @@ class MoEBlock(nn.Module):
         n, k = x.shape[0], self.top_k
         with profiling.span("moe.layer"):
             picked, weight = self.gate(x)
-            order, offsets = dispatch(picked, self.num_experts)
+            held = None
+            if self.held is None:
+                order, offsets = dispatch(picked, self.num_experts)
+            else:
+                picked, held = held_picks(picked, *self.held)
+                order, offsets = dispatch(picked, self.held[1])
             xs = x.index_select(0, order // k)
             pair_weight = weight.reshape(-1)[order]
             ex = self.experts
             y_sorted = routed_experts(xs, offsets, ex.gate_up_proj.to(x.dtype), ex.down_proj.to(x.dtype), pair_weight)
             del xs
-            routed = combine(y_sorted, order, n, k).to(x.dtype)
+            routed = combine(y_sorted, order, n, k, held).to(x.dtype)
             del y_sorted
             out = routed + swiglu(self.shared_experts, x)
         if profiling.active():
             profiling.count("moe.tokens_routed", n)
             profiling.count("moe.assignments", n * k)
             profiling.count("moe.grouped_launches", 0 if x.is_cpu else 2)
+            if self.held is not None:
+                profiling.count_device("moe.assignments_held", offsets[-1])
         return out

@@ -1,7 +1,7 @@
 """The news-text encoder: text token ids -> pooled, L2-normalised news
 vectors, or per-token hidden states for the token store.
 
-Three layouts, chosen by ``EncoderConfig.arch``:
+Four layouts, chosen by ``EncoderConfig.arch``:
 
 - ``"bert"``: the post-norm BERT/XLM-R encoder of the e5 family (learned
   RoBERTa positions, one token-type row, exact GELU);
@@ -18,7 +18,13 @@ Three layouts, chosen by ``EncoderConfig.arch``:
   ``first_k_dense_replace`` layers with a dense MLP and the rest a mixture
   of experts (``models.moe``) over the batch's real tokens only, packed into
   rows on the device (a pad position's state is read by no real token:
-  right padding, causal).
+  right padding, causal);
+- ``"kimi_linear"``: Kimi Linear's hybrid decoder: each layer's token mixer
+  is Kimi Delta Attention (``models.kda``, a linear-attention recurrence
+  through the port's chunked kernel) or the latent attention above without
+  rotation (``mla_use_nope``: the 64 rotary dims kept as they are, causal
+  by ``scaled_dot_product_attention``), by ``layer_kinds``; the MLPs as
+  DeepSeek-V3's, the MoE layers holding ``experts_held`` of the experts.
 
 Parameter names are HuggingFace's (``XLMRobertaModel``/``BertModel``,
 ``Qwen2Model``/``MistralModel``/``LlamaModel``, ``DeepseekV3Model`` with its
@@ -46,6 +52,7 @@ from torch import nn
 
 from ..config import EncoderConfig
 from . import DTYPES
+from .kda import GatedNormWeight, KimiDeltaAttention
 from .latent_attention import LatentAttentionTower
 from .moe import MoEBlock, MoEExperts, MoEGate, swiglu
 from .pooling import POOLING
@@ -214,25 +221,33 @@ class MLADecoderLayer(nn.Module):
     (expanded: per-head keys and values from the latent, the shared rotary
     key broadcast, softmax scale (nope + rope) ** -0.5), residual; RMSNorm,
     a dense SwiGLU MLP (``mlp.gate_proj`` ...) or a ``MoEBlock`` over the real
-    tokens, residual. No biases."""
+    tokens, residual. No biases. Kimi Linear's blocks take ``kind="kda"``
+    (Kimi Delta Attention as the token mixer), or MLA without rotation
+    (``cfg.mla_use_nope``), and hold ``cfg.experts_held`` of the experts."""
 
-    def __init__(self, cfg: EncoderConfig, dense: bool):
+    def __init__(self, cfg: EncoderConfig, dense: bool, kind: str = "mla"):
         super().__init__()
         d, h, eps = cfg.hidden_dim, cfg.num_heads, cfg.layer_norm_eps
-        self.num_heads, self.dense = h, dense
+        self.num_heads, self.dense, self.kind = h, dense, kind
+        self.rotary = not cfg.mla_use_nope
         self.nope, self.rope, self.v_dim, self.rank = (
             cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank,
         )
         self.input_layernorm = RMSNorm(d, eps)
-        self.self_attn = nn.ModuleDict(
-            {
-                "q_proj": nn.Linear(d, h * (self.nope + self.rope), bias=False),
-                "kv_a_proj_with_mqa": nn.Linear(d, self.rank + self.rope, bias=False),
-                "kv_a_layernorm": RMSNorm(self.rank, eps),
-                "kv_b_proj": nn.Linear(self.rank, h * (self.nope + self.v_dim), bias=False),
-                "o_proj": nn.Linear(h * self.v_dim, d, bias=False),
-            }
-        )
+        if kind == "kda":
+            self.self_attn = KimiDeltaAttention(d, cfg.kda_num_heads, cfg.kda_head_dim, cfg.short_conv_kernel_size, eps)
+        elif kind == "mla":
+            self.self_attn = nn.ModuleDict(
+                {
+                    "q_proj": nn.Linear(d, h * (self.nope + self.rope), bias=False),
+                    "kv_a_proj_with_mqa": nn.Linear(d, self.rank + self.rope, bias=False),
+                    "kv_a_layernorm": RMSNorm(self.rank, eps),
+                    "kv_b_proj": nn.Linear(self.rank, h * (self.nope + self.v_dim), bias=False),
+                    "o_proj": nn.Linear(h * self.v_dim, d, bias=False),
+                }
+            )
+        else:
+            raise ValueError(f"unknown layer kind {kind!r} (kda | mla)")
         self.post_attention_layernorm = RMSNorm(d, eps)
         if dense:
             self.mlp = nn.ModuleDict(
@@ -245,35 +260,62 @@ class MLADecoderLayer(nn.Module):
         else:
             self.mlp = MoEBlock(
                 d, cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.moe_intermediate_size,
-                cfg.n_shared_experts, cfg.routed_scaling_factor, cfg.norm_topk_prob,
+                cfg.n_shared_experts, cfg.routed_scaling_factor, cfg.norm_topk_prob, cfg.experts_held,
             )
 
-    def forward(self, hidden, cos, sin, bias, real: torch.Tensor) -> torch.Tensor:
-        """hidden [B, T, D] in the compute type; cos, sin [T, rope]; bias
-        [B, 1, T, T] additive; ``real`` the flat positions of the real
-        tokens (``real_token_positions``), which alone go through the
-        experts."""
-        b, t, d = hidden.shape
+    def _mla(self, x, cos, sin, bias) -> torch.Tensor:
+        """The latent attention of the normed block x [B, T, D]; without a
+        ``bias``, causal through ``scaled_dot_product_attention`` (right
+        padding: a real token's keys are all real)."""
+        b, t, d = x.shape
         h, nope, rope = self.num_heads, self.nope, self.rope
         attn = self.self_attn
-        x = self.input_layernorm(hidden)
         q = _linear(attn["q_proj"], x).view(b, t, h, nope + rope).transpose(1, 2)
         q_nope, q_pe = q.split([nope, rope], dim=-1)
         latent, k_pe = _linear(attn["kv_a_proj_with_mqa"], x).split([self.rank, rope], dim=-1)
         kv = _linear(attn["kv_b_proj"], attn["kv_a_layernorm"](latent)).view(b, t, h, nope + self.v_dim)
         k_nope, v = kv.transpose(1, 2).split([nope, self.v_dim], dim=-1)
-        q_pe, k_pe = deinterleave(q_pe), deinterleave(k_pe.view(b, 1, t, rope))
-        q_pe = q_pe * cos + rotate_half(q_pe) * sin
-        k_pe = k_pe * cos + rotate_half(k_pe) * sin
+        k_pe = k_pe.view(b, 1, t, rope)
+        if self.rotary:
+            q_pe, k_pe = deinterleave(q_pe), deinterleave(k_pe)
+            q_pe = q_pe * cos + rotate_half(q_pe) * sin
+            k_pe = k_pe * cos + rotate_half(k_pe) * sin
         q = torch.cat([q_nope, q_pe], dim=-1)
         k = torch.cat([k_nope, k_pe.expand(b, h, t, rope)], dim=-1)
-        ctx = _attention(q, k, v, bias).transpose(1, 2).reshape(b, t, h * self.v_dim)
-        hidden = hidden + _linear(attn["o_proj"], ctx)
+        if bias is not None:
+            ctx = _attention(q, k, v, bias)
+        else:
+            ctx = _causal_attention(q, k, v)
+        return _linear(attn["o_proj"], ctx.transpose(1, 2).reshape(b, t, h * self.v_dim))
+
+    def forward(self, hidden, cos, sin, bias, real: torch.Tensor, lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """hidden [B, T, D] in the compute type; cos, sin [T, rope]; bias
+        [B, 1, T, T] additive (``None``: causal attention over right-padded
+        rows); ``real`` the flat positions of the real tokens
+        (``real_token_positions``), which alone go through the experts;
+        ``lens`` [B] int32 the rows' real lengths on the device (KDA)."""
+        b, t, d = hidden.shape
+        x = self.input_layernorm(hidden)
+        if self.kind == "kda":
+            hidden = hidden + self.self_attn(x, lens, real.numel())
+        else:
+            hidden = hidden + self._mla(x, cos, sin, bias)
         x = self.post_attention_layernorm(hidden)
         if self.dense:
             return hidden + swiglu(self.mlp, x)
         out = self.mlp(x.reshape(b * t, d).index_select(0, real))
         return hidden + torch.zeros_like(x).view(b * t, d).index_copy_(0, real, out).view(b, t, d)
+
+
+def _causal_attention(q, k, v) -> torch.Tensor:
+    """Causal softmax(q k^T / sqrt(hd)) v over [B, H, T, hd] blocks by
+    ``scaled_dot_product_attention`` (no [T, T] block held); on the card v is
+    padded with zeros to q's width, so the flash kernel takes it."""
+    dv = v.shape[-1]
+    if not q.is_cpu and dv < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - dv))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=q.shape[-1] ** -0.5)
+    return out[..., :dv]
 
 
 class NewsEncoder(nn.Module):
@@ -289,7 +331,7 @@ class NewsEncoder(nn.Module):
         d = cfg.hidden_dim
         # The MoE layers route only real tokens: ``encode_corpus`` hands
         # ``forward`` their count, known on the host.
-        self.routes_tokens = cfg.arch == "deepseek_v3"
+        self.routes_tokens = cfg.arch in ("deepseek_v3", "kimi_linear")
         if cfg.arch == "qwen2":
             self.head_dim = cfg.head_dim or d // cfg.num_heads
             self.rope_dim = self.head_dim
@@ -300,16 +342,21 @@ class NewsEncoder(nn.Module):
                 for _ in range(cfg.num_layers)
             )
             self.norm = RMSNorm(d, cfg.layer_norm_eps)
-        elif cfg.arch == "deepseek_v3":
+        elif cfg.arch in ("deepseek_v3", "kimi_linear"):
             if (cfg.scoring_func, cfg.topk_method) != ("sigmoid", "noaux_tc"):
                 raise ValueError(
-                    f"deepseek_v3 routes by the sigmoid and noaux_tc only, got {cfg.scoring_func!r} and "
+                    f"{cfg.arch} routes by the sigmoid and noaux_tc only, got {cfg.scoring_func!r} and "
                     f"{cfg.topk_method!r}"
                 )
+            kinds = ("mla",) * cfg.num_layers
+            if cfg.arch == "kimi_linear":
+                kinds = tuple(cfg.layer_kinds)
+                if len(kinds) != cfg.num_layers:
+                    raise ValueError(f"kimi_linear: {len(kinds)} layer kinds for {cfg.num_layers} layers")
             self.rope_dim = cfg.qk_rope_head_dim
             self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
             self.layers = nn.ModuleList(
-                MLADecoderLayer(cfg, dense=i < cfg.first_k_dense_replace) for i in range(cfg.num_layers)
+                MLADecoderLayer(cfg, dense=i < cfg.first_k_dense_replace, kind=kinds[i]) for i in range(cfg.num_layers)
             )
             self.norm = RMSNorm(d, cfg.layer_norm_eps)
         elif cfg.arch == "bert":
@@ -352,6 +399,8 @@ class NewsEncoder(nn.Module):
         store's content). ``real_tokens``, the mask's count of real tokens
         where the caller knows it, spares the MoE layout a wait for the
         device; the other layouts ignore it."""
+        if self.config.arch == "kimi_linear":
+            return self._hybrid_hidden_states(token_ids, mask, real_tokens)
         if self.config.arch in ("qwen2", "deepseek_v3"):
             return self._decoder_hidden_states(token_ids, mask, real_tokens)
         cdt, emb = self.compute_dtype, self.embeddings
@@ -393,6 +442,21 @@ class NewsEncoder(nn.Module):
                 hidden = layer(hidden, cos, sin, bias)
         return self.norm(hidden).float()
 
+    def _hybrid_hidden_states(
+        self, token_ids: torch.Tensor, mask: torch.Tensor, real_tokens: Optional[int] = None
+    ) -> torch.Tensor:
+        """Kimi Linear: no positions (KDA has none, its MLA is NoPE), so no
+        rotary table and no [T, T] mask: right padding makes every layer
+        causal over real tokens alone (KDA's recurrence runs forward, the
+        MLA is causal). The rows' lengths go to the KDA layers on the
+        device; the final RMSNorm."""
+        hidden = self.embed_tokens(token_ids).to(self.compute_dtype)
+        real = real_token_positions(mask, real_tokens)
+        lens = mask.sum(1, dtype=torch.int32)
+        for layer in self.layers:
+            hidden = layer(hidden, None, None, None, real, lens)
+        return self.norm(hidden).float()
+
     def forward(
         self,
         token_ids: torch.Tensor,
@@ -424,7 +488,8 @@ def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
     width on the card): linear weights N(0, 1/fan_in), biases N(0, 0.02^2),
     embeddings N(0, 1), norm scales 1 + N(0, 0.1^2) and shifts N(0, 0.1^2),
     the head's latents N(0, 1), stacked experts and routers N(0, 1/fan_in),
-    the routers' selection biases N(0, 0.02^2). For tests against the JAX package use
+    the routers' selection biases N(0, 0.02^2); KDA's convs N(0, 1/width),
+    ``A_log`` log U(1, 16) and ``dt_bias`` N(0, 1). For tests against the JAX package use
     ``models.convert.random_encoder_params``, which both packages load."""
     gen = torch.Generator(device=next(encoder.parameters()).device).manual_seed(seed)
 
@@ -450,6 +515,14 @@ def init_random_weights(encoder: NewsEncoder, seed: int = 0) -> NewsEncoder:
         elif isinstance(module, MoEExperts):
             normal_(module.gate_up_proj, module.gate_up_proj.shape[-1] ** -0.5)
             normal_(module.down_proj, module.down_proj.shape[-1] ** -0.5)
+        elif isinstance(module, GatedNormWeight):
+            normal_(module.weight, 0.1, 1.0)
+        elif isinstance(module, KimiDeltaAttention):
+            for name in ("q", "k", "v"):
+                conv = getattr(module, f"{name}_conv1d").weight
+                normal_(conv, conv.shape[-1] ** -0.5)
+            module.A_log.copy_(torch.empty_like(module.A_log).uniform_(1.0, 16.0, generator=gen).log())
+            normal_(module.dt_bias, 1.0)
     return encoder
 
 
@@ -475,6 +548,8 @@ _SUPPORTED_ARCHS = {
     "LlamaForCausalLM": ("qwen2", "last"),
     "DeepseekV3Model": ("deepseek_v3", "last"),
     "DeepseekV3ForCausalLM": ("deepseek_v3", "last"),
+    "KimiLinearModel": ("kimi_linear", "last"),
+    "KimiLinearForCausalLM": ("kimi_linear", "last"),
 }
 
 
@@ -523,6 +598,84 @@ def _deepseek_v3_fields(hf_config: dict) -> dict:
     )
 
 
+def _kimi_linear_fields(hf_config: dict) -> dict:
+    """The KDA, MLA and MoE fields of a Kimi Linear ``config.json``; raises,
+    each in words, on what this layout does not apply. The top-level
+    ``head_dim`` is read by neither kind of layer (KDA's heads are
+    ``linear_attn_config.head_dim``, MLA's the nope, rope and v dims)."""
+    n = hf_config["num_hidden_layers"]
+    lac = hf_config.get("linear_attn_config") or {}
+    refused = []
+    if hf_config.get("q_lora_rank") is not None:
+        refused.append(
+            f"q_lora_rank={hf_config['q_lora_rank']} (queries through a low-rank latent; only the direct "
+            "q_proj of q_lora_rank null is built)"
+        )
+    for key in ("num_expert_group", "topk_group"):
+        if (hf_config.get(key) or 1) > 1:
+            refused.append(f"{key}={hf_config[key]} (group-limited routing; only one group of experts is built)")
+    if (hf_config.get("num_nextn_predict_layers") or 0) > 0:
+        refused.append(
+            f"num_nextn_predict_layers={hf_config['num_nextn_predict_layers']} (multi-token-prediction "
+            "layers have no place in an encoder)"
+        )
+    if hf_config.get("moe_router_activation_func", "sigmoid") != "sigmoid":
+        refused.append(
+            f"moe_router_activation_func={hf_config['moe_router_activation_func']!r} (only the sigmoid router "
+            "is built)"
+        )
+    if not hf_config.get("mla_use_nope", False):
+        refused.append("mla_use_nope=False (the MLA layers are built without rotation only)")
+    if (hf_config.get("moe_layer_freq") or 1) != 1:
+        refused.append(f"moe_layer_freq={hf_config['moe_layer_freq']} (every layer past the dense ones is MoE)")
+    kda = [int(i) for i in lac.get("kda_layers") or []]
+    full = [int(i) for i in lac.get("full_attn_layers") or []]
+    if sorted(kda + full) != list(range(1, n + 1)):
+        refused.append(
+            f"linear_attn_config's kda_layers {kda} and full_attn_layers {full} (1-indexed) do not name each of "
+            f"the {n} layers exactly once"
+        )
+    if refused:
+        raise ValueError("Kimi Linear checkpoint settings this encoder does not apply: " + "; ".join(refused))
+    return dict(
+        kv_lora_rank=hf_config["kv_lora_rank"],
+        qk_nope_head_dim=hf_config["qk_nope_head_dim"],
+        qk_rope_head_dim=hf_config["qk_rope_head_dim"],
+        v_head_dim=hf_config["v_head_dim"],
+        n_routed_experts=hf_config["num_experts"],
+        num_experts_per_tok=hf_config["num_experts_per_token"],
+        n_shared_experts=hf_config.get("num_shared_experts") or 0,
+        moe_intermediate_size=hf_config["moe_intermediate_size"],
+        first_k_dense_replace=hf_config.get("first_k_dense_replace", 0),
+        routed_scaling_factor=float(hf_config.get("routed_scaling_factor", 1.0)),
+        norm_topk_prob=bool(hf_config.get("moe_renormalize", True)),
+        scoring_func="sigmoid",
+        topk_method="noaux_tc",
+        qkv_bias=False,
+        head_dim=None,
+        layer_kinds=tuple("kda" if i + 1 in kda else "mla" for i in range(n)),
+        kda_num_heads=lac["num_heads"],
+        kda_head_dim=lac["head_dim"],
+        short_conv_kernel_size=lac.get("short_conv_kernel_size", 4),
+        mla_use_nope=True,
+    )
+
+
+def expert_share(held, num_experts: int) -> Optional[tuple[int, int]]:
+    """``experts_held`` ``(first, count)`` as a pair of ints; raises unless
+    it names one whole range of the ``num_experts`` experts."""
+    if held is None:
+        return None
+    if len(held) != 2:
+        raise ValueError(f"experts_held {held!r}: give (first expert, count) of one whole range of experts")
+    first, count = (int(x) for x in held)
+    if first < 0 or count < 1 or first + count > num_experts:
+        raise ValueError(
+            f"experts_held (first {first}, count {count}) is not a whole range of the {num_experts} experts"
+        )
+    return first, count
+
+
 def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
     """An ``EncoderConfig`` from an HF ``config.json`` dict: the layout and
     pooling by architecture name, the widths, and for decoders the GQA,
@@ -537,7 +690,11 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
     ``deepseek_v3`` layout with last-token pooling and their MLA and MoE
     fields; they raise on a ``q_lora_rank``, on ``n_group`` or
     ``topk_group`` over 1, on MTP layers, on a scoring function other than
-    the sigmoid (``_deepseek_v3_fields``) and on ``rope_scaling``."""
+    the sigmoid (``_deepseek_v3_fields``) and on ``rope_scaling``.
+    ``KimiLinearForCausalLM`` / ``KimiLinearModel`` take the ``kimi_linear``
+    layout with last-token pooling (``_kimi_linear_fields``, with its own
+    refusals); the override ``experts_held`` (``(first, count)``, one whole
+    range: ``expert_share``) gives its MoE layers a share of the experts."""
     arch_name = (hf_config.get("architectures") or ["XLMRobertaModel"])[0]
     if arch_name == "NVEmbedModel":
         text = dict(hf_config.get("text_config") or {})
@@ -573,8 +730,8 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
         raise ValueError(
             f"architecture {arch_name!r} is not supported; supported HF "
             f"architectures: {sorted(_SUPPORTED_ARCHS)} (BERT/XLM-R encoder "
-            "layouts, Qwen2/Mistral/Llama-class decoder layouts and DeepSeek-V3's "
-            "MLA and MoE decoder)"
+            "layouts, Qwen2/Mistral/Llama-class decoder layouts, DeepSeek-V3's "
+            "MLA and MoE decoder and Kimi Linear's KDA, MLA and MoE hybrid)"
         ) from None
     if hf_config.get("rope_scaling") is not None:
         raise ValueError(
@@ -614,6 +771,12 @@ def encoder_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
     )
     if arch == "deepseek_v3":
         cfg = dataclasses.replace(cfg, **_deepseek_v3_fields(hf_config))
+    elif arch == "kimi_linear":
+        cfg = dataclasses.replace(cfg, **_kimi_linear_fields(hf_config))
+    if "experts_held" in overrides:
+        if arch != "kimi_linear" and overrides["experts_held"] is not None:
+            raise ValueError(f"experts_held: an expert share is built for the kimi_linear layout only, not {arch!r}")
+        overrides = dict(overrides, experts_held=expert_share(overrides["experts_held"], cfg.n_routed_experts))
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

@@ -49,8 +49,10 @@ from ..utils.memory import estimate_encoder_batch, estimate_token_attention_batc
 
 
 # Length buckets of a corpus encode: MIND's title-only news are about 15-30
-# tokens, so most rows run 32 wide instead of the tokenizer's full width.
-TOKEN_BUCKETS = (32, 64, 128, 256, 512)
+# tokens, so most rows run 32 wide instead of the tokenizer's full width;
+# whole articles (about 850 tokens, to 4,096) take the wide ones. Only the
+# buckets narrower than a call's width apply.
+TOKEN_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 # A bucket whose one batch holds at most this many tokens (rows x width) is
 # encoded on a side stream on the card. Such a batch launches as many kernels
 # as a full one for almost no work: queued behind a wide bucket on the same
@@ -157,7 +159,12 @@ def encode_corpus_bucketed(
     next bucket's batches queue behind the last one's (on the card a
     pageable copy of the row index would wait for all of them, and a short
     bucket's launches would then pace the card), and a bucket of one small
-    batch (``SIDE_STREAM_TOKENS``) runs beside them on a side stream."""
+    batch (``SIDE_STREAM_TOKENS``) runs beside them on a side stream. Those
+    buckets are queued right behind the bucket of the most tokens a batch,
+    so the card has its long kernels to run while the host launches theirs:
+    queued before any wide work (whole articles' narrowest buckets), they
+    would be paced by the host, and queued last, their last launches
+    would."""
     device = resolve_device(device)
     n, width = token_ids.shape
     if n == 0:
@@ -165,16 +172,23 @@ def encode_corpus_bucketed(
     lengths = np.asarray(token_mask).sum(axis=1).astype(np.int64)
     widths = tuple(sorted({int(b) for b in buckets if 0 < b < width})) + (width,)
     assignment = np.searchsorted(np.asarray(widths), lengths, side="left")
-    out: Optional[torch.Tensor] = None
+    plan = []
     for bi, w in enumerate(widths):
         rows = np.nonzero(assignment == bi)[0]
-        if len(rows) == 0:
-            continue
-        bs = _even_batch(len(rows), batch_size or _auto_batch(encoder, w, device))
+        if len(rows):
+            bs = _even_batch(len(rows), batch_size or _auto_batch(encoder, w, device))
+            side = device.type == "cuda" and len(rows) <= bs and bs * w <= SIDE_STREAM_TOKENS
+            plan.append((side, w, rows, bs))
+    wide = [p for p in plan if not p[0]]
+    if wide:  # the side stream's buckets right behind the bucket of the longest batches
+        at = max(range(len(wide)), key=lambda i: wide[i][1] * wide[i][3]) + 1
+        plan = wide[:at] + [p for p in plan if p[0]] + wide[at:]
+    out: Optional[torch.Tensor] = None
+    for side, w, rows, bs in plan:
         ids, mask, pool = (
             None if a is None else np.ascontiguousarray(a[rows, :w]) for a in (token_ids, token_mask, pool_mask)
         )
-        if device.type == "cuda" and len(rows) <= bs and bs * w <= SIDE_STREAM_TOKENS:
+        if side:
             emb = _on_side_stream(lambda: encode_corpus(encoder, ids, mask, bs, device, pool), device)
         else:
             emb = encode_corpus(encoder, ids, mask, bs, device, pool)

@@ -1,7 +1,7 @@
 """Device times of the port's kernels under each plan or route, beside the
 one its planner picks, on one NVIDIA GPU.
 
-    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder|geglu|moe]
+    python -m news_recommendation_project_v2_torch.ops.plan_sweep [encoder|geglu|moe|kda]
 
 Without an argument it sweeps the attention kernel's block shapes and slice
 counts at the user tower's shapes (N = 64, dh = 512); with ``encoder`` at
@@ -30,6 +30,13 @@ scores, beside the per-expert cuBLAS loop (``F.linear`` on each expert's
 rows, the rows' counts read on the host first) and the bound of the work at
 the bf16 peak; each line also gives the kernels' largest difference from
 the plain version.
+
+With ``kda`` it times the KDA recurrence's chunked kernel (``ops/kda.py``)
+at Kimi-Linear's widths (32 heads of 128) over the batches of an article
+encode's length buckets (rows x width, every row full, strong decays),
+beside its plain chunked version and the bound of its chunk-64 work at the
+TF32 peak or the bandwidth; each line also gives the kernel's largest
+difference from the plain version.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from .latent_attention import (
     plan_attention,
     reference_attention,
 )
+from .kda import kda, reference_kda
 from .moe import reference_routed_experts, routed_experts
 from .timing import graph_ms
 
@@ -200,12 +208,47 @@ def sweep_moe(tokens: int, gen) -> str:
     )
 
 
+# (B, T) of an article encode's batches: its length buckets at the batches
+# the memory model and the even split give a unit of 128 articles.
+KDA_SHAPES = ((16, 4096), (48, 2048), (96, 1024), (64, 512), (32, 256))
+KDA_HEADS, KDA_DIM = 32, 128
+
+
+def sweep_kda(shape, gen) -> str:
+    b, t = shape
+    h, d, dev = KDA_HEADS, KDA_DIM, "cuda"
+    q = (F.normalize(torch.randn(b, t, h, d, device=dev, generator=gen), dim=-1) * d**-0.5).to(torch.bfloat16)
+    k = F.normalize(torch.randn(b, t, h, d, device=dev, generator=gen), dim=-1).to(torch.bfloat16)
+    v = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    a = torch.rand(h, device=dev, generator=gen) * 15 + 1
+    log_alpha = -a[:, None] * F.softplus(torch.randn(b, t, h, d, device=dev, generator=gen))
+    beta = torch.rand(b, t, h, device=dev, generator=gen)
+    args = (q, k, v, log_alpha, beta)
+    want = reference_kda(*args).float()
+    err = ((kda(*args).float() - want).abs().max() / want.abs().max()).item()
+    del want
+    kernel = graph_ms(lambda: kda(*args), 2, 5)
+    plain = graph_ms(lambda: reference_kda(*args), 1, 2)
+    per_head = 3 * d * d + 64 * (3 * d + 2 * d)  # multiply-adds a token, chunk-64 form (portbench/kda.py)
+    ops, nbytes = 2.0 * h * per_head * b * t, (3 * 2 + 4 + 2) * h * d * b * t + 4 * h * b * t
+    bound = max(ops / 4.95e14, nbytes / 3.35e12) * 1e3
+    return (
+        f"kda B={b} T={t} H={h} d={d}: kernel {kernel:.4f} ms ({bound / kernel:.1%} of its roofline; "
+        f"err {err:.2g} of the largest); plain chunked {plain:.4f} ms ({bound / plain:.1%}); bound {bound:.4f} ms"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("plan_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
+        if sys.argv[1:] == ["kda"]:
+            for shape in KDA_SHAPES:
+                print(sweep_kda(shape, gen), flush=True)
+                torch.cuda.empty_cache()
+            return 0
         if sys.argv[1:] == ["moe"]:
             for tokens in MOE_TOKENS:
                 print(sweep_moe(tokens, gen), flush=True)

@@ -226,10 +226,16 @@ def encoder_activation_bytes(
     DeepSeek-V3 layout) at ``compute_dtype``'s element size unless
     ``bytes_per_el`` is given; what stays float32 in any compute type
     (``encoder_float32_bytes``); and NV-Embed's latent-pool head
-    (``latent_pool_bytes``), which runs after the last block."""
+    (``latent_pool_bytes``), which runs after the last block. Kimi Linear's
+    block is ``kimi_linear_block_bytes``, beside the float32 norm copies and
+    the pooled states (3·D floats a token): its attention holds no [T, T]
+    block."""
     if bytes_per_el is None:
         bytes_per_el = _DTYPE_BYTES.get(config.compute_dtype, 4)
     length = length or config.max_length
+    if config.arch == "kimi_linear":
+        block = kimi_linear_block_bytes(config, batch, length, bytes_per_el)
+        return block + batch * length * 3 * config.hidden_dim * 4
     if config.arch == "deepseek_v3":
         block = deepseek_block_bytes(config, batch, length, bytes_per_el)
     else:
@@ -268,6 +274,38 @@ def deepseek_block_bytes(config: EncoderConfig, batch: int, length: int, bytes_p
     moe = (k * d + k * i) * b + k * d * 4 + 2 * d * 4 + 3 * e * 4 + 4 * k * 8 + 3 * config.n_shared_experts * i * b
     tokens = batch * length
     return tokens * (2 * d * b + max(mla, dense, moe)) + batch * h * length * length * b
+
+
+def kimi_linear_block_bytes(config: EncoderConfig, batch: int, length: int, bytes_per_el: int) -> int:
+    """One Kimi Linear block over [batch, length] tokens, every token counted
+    as real: the residual stream in and out (2·D) beside the largest of its
+    phases.
+
+    - KDA (inner = heads x head_dim): q, k and v with a conv's padded copy
+      and output beside them (6 x inner), log alpha with two float32
+      temporaries (3 x inner floats), the recurrence's output and its float32
+      norm and gate (4 x inner floats); and the state, heads x head_dim^2
+      floats a row (2 MB at Kimi-Linear's widths; the kernel holds it in
+      registers, the plain version in memory).
+    - MLA as ``deepseek_block_bytes`` counts it, without the [T, T] logits
+      (``scaled_dot_product_attention``), v padded to q's width (heads ·
+      (nope + rope)).
+    - The dense layer's MLP (3 x intermediate).
+    - The MoE as ``deepseek_block_bytes`` counts it: with a share of the
+      experts every pair is still gathered, and the rows past the held
+      ones are allocated and left unread."""
+    b = bytes_per_el
+    d, h, k = config.hidden_dim, config.num_heads, config.num_experts_per_tok
+    inner = config.kda_num_heads * config.kda_head_dim
+    kda = 6 * inner * b + 3 * inner * 4 + 4 * inner * 4
+    nope, rope, v, rank = config.qk_nope_head_dim, config.qk_rope_head_dim, config.v_head_dim, config.kv_lora_rank
+    mla = (2 * d + 2 * h * (nope + rope) + 2 * rank + rope + h * (nope + v) + h * (nope + rope) + 2 * h * v
+           + h * (nope + rope)) * b
+    dense = 3 * config.intermediate_dim * b if config.first_k_dense_replace else 0
+    i, e = config.moe_intermediate_size, config.n_routed_experts
+    moe = (k * d + k * i) * b + k * d * 4 + 2 * d * 4 + 3 * e * 4 + 4 * k * 8 + 3 * config.n_shared_experts * i * b
+    state = config.kda_num_heads * config.kda_head_dim**2 * 4
+    return batch * length * (2 * d * b + max(kda, mla, dense, moe)) + batch * state
 
 
 def encoder_float32_bytes(config: EncoderConfig, batch: int, length: int) -> int:

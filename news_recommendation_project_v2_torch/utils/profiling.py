@@ -54,6 +54,7 @@ class _ThreadState(threading.local):
 _state = _ThreadState()
 _spans: list[Span] = []
 _counters: dict[str, int] = {}
+_device_counters: dict[str, list[torch.Tensor]] = {}
 _lock = threading.Lock()
 _OFF = contextlib.nullcontext()
 _record_function = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
@@ -106,6 +107,19 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def count_device(name: str, n: torch.Tensor) -> None:
+    """Add ``n``, a count that lives on the device, to the counter ``name``
+    where recording is on: each count is kept on the device, with no wait,
+    and they are summed once, by ``recorded``. They are not added as they
+    come: the counts of one unit may come from several streams, and a
+    running sum on one stream would read another's count before it is
+    written."""
+    if not _state.on:
+        return
+    with _lock:
+        _device_counters.setdefault(name, []).append(n.detach().to(torch.int64))
+
+
 @contextlib.contextmanager
 def recording(on: Optional[bool] = None) -> Iterator[bool]:
     """Record on this thread while the block runs: where ``on`` is given,
@@ -141,9 +155,15 @@ def unit(name: str) -> Callable:
 
 
 def recorded() -> Recorded:
-    """The spans (in the order they ended) and counters recorded so far."""
+    """The spans (in the order they ended) and counters recorded so far;
+    the device's counters are read here (a wait for the device)."""
     with _lock:
-        return Recorded(list(_spans), dict(_counters))
+        counters = dict(_counters)
+        for name, parts in _device_counters.items():
+            if parts[0].is_cuda:
+                torch.cuda.synchronize(parts[0].device)  # every stream's counts written
+            counters[name] = counters.get(name, 0) + int(torch.stack(parts).sum())
+        return Recorded(list(_spans), counters)
 
 
 def clear() -> None:
@@ -151,6 +171,7 @@ def clear() -> None:
     with _lock:
         _spans.clear()
         _counters.clear()
+        _device_counters.clear()
 
 
 @contextlib.contextmanager

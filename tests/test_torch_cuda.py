@@ -71,12 +71,21 @@ from news_recommendation_project_v2_torch.ops.latent_attention import (
     plan_attention,
     reference_attention,
 )
-from news_recommendation_project_v2_torch.models.moe import MoEBlock, dispatch
+from news_recommendation_project_v2_torch.models.moe import MoEBlock, dispatch, held_picks
 from news_recommendation_project_v2_torch.models.news_encoder import (
     HashTokenizer,
     NewsEncoder,
     encoder_config_from_hf,
     init_random_weights,
+)
+from news_recommendation_project_v2_torch.ops.kda import (
+    kda,
+    kda_gated_norm,
+    kda_prep,
+    recurrent_kda,
+    reference_gated_norm,
+    reference_kda,
+    reference_kda_prep,
 )
 from news_recommendation_project_v2_torch.ops.moe import reference_routed_experts, routed_experts
 from news_recommendation_project_v2_torch.models.towers import ClassificationHead, ReducingModel, WeightedSumModel
@@ -1496,6 +1505,56 @@ def test_bucketed_encode_splits_evenly_on_cuda(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+def test_device_counter_sums_counts_from_two_streams(cuda):
+    """``profiling.count_device`` called in turns on a side stream and the
+    current one, each count written behind a long GEMM on its stream:
+    ``recorded()`` reads the sum of every count (a running sum kept on
+    whichever stream was current read the other stream's count before it
+    was written)."""
+    streams = [torch.cuda.Stream(cuda), torch.cuda.current_stream(cuda)]
+    work = [torch.randn(4096, 4096, device=cuda) for _ in streams]
+    torch.cuda.synchronize()
+    profiling.clear()
+    try:
+        with profiling.recording(True):
+            for i in range(20):
+                with torch.cuda.stream(streams[i % 2]):
+                    w = work[i % 2]
+                    for _ in range(3):
+                        w = torch.tanh(w @ w)
+                    n = torch.full((), i + 1, dtype=torch.int32, device=cuda) + (w[0, 0] * 0).to(torch.int32)
+                    profiling.count_device("test.counts", n)
+            got = profiling.recorded().counters["test.counts"]
+    finally:
+        profiling.clear()
+    assert got == sum(range(1, 21))
+
+
+def test_bucketed_encode_queues_the_side_stream_bucket_last_on_cuda(cuda):
+    """The narrow bucket is the small one (3 rows of width 8, the side
+    stream) and the wide bucket the large one (17 rows of width 32, two
+    batches of 16): the wide bucket's batches are queued first on the current
+    stream, so the card has work while the host launches the side stream's
+    batch; the vectors equal the fixed-width encode's within 1e-5."""
+    rng = np.random.default_rng(4)
+    lens = np.concatenate([rng.integers(1, 9, 3), rng.integers(20, 33, 17)])
+    ids = rng.integers(3, 97, (20, 32)).astype(np.int32)
+    mask = (np.arange(32)[None, :] < lens[:, None]).astype(np.int32)
+    enc = _small_encoder("nv_embed", cuda)
+    main = torch.cuda.current_stream(cuda)
+    seen = []
+    hook = enc.register_forward_pre_hook(
+        lambda _, args: seen.append((tuple(args[0].shape), torch.cuda.current_stream(cuda) == main))
+    )
+    try:
+        got = encode_corpus_bucketed(enc, ids, mask, buckets=(8,), batch_size=16, device=cuda)
+    finally:
+        hook.remove()
+    assert seen == [((16, 32), True), ((16, 32), True), ((8, 8), False)]
+    want = encode_corpus(enc, ids, mask, batch_size=8, device=cuda)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 # -- the news encoder: Moonlight's routed experts ---------------------------------
 
 MOONLIGHT_WIDTHS = (64, 6, 2048, 1408)  # experts, top-k, D, I
@@ -1586,6 +1645,230 @@ def test_a_moe_layer_on_the_card_waits_for_nothing(cuda):
         sh = block.shared_experts
         want = routed + sh["down_proj"](F.silu(sh["gate_proj"](x)) * sh["up_proj"](x))
     assert ((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs() + 1e-3 * want.float().abs().max()).all()
+
+
+def _moe_block(d, e, k, i, shared, held=None, seed=0):
+    torch.manual_seed(seed)
+    block = MoEBlock(d, e, k, i, shared, 2.446, True, held)
+    for t in block.parameters():
+        t.data = torch.randn(t.shape) * (t.shape[-1] ** -0.5 if t.dim() > 1 else 0.02)
+    return block.to("cuda", torch.bfloat16).eval()
+
+
+def test_a_moonlight_moe_layer_computes_as_before_the_expert_share(cuda):
+    """Moonlight's MoE block (no share) on a fixed input equals, to the bit,
+    the block as it computed before a block could hold a share of its
+    experts: the same picks, the same grouped launches, the same combine."""
+    e, k, d, i = MOONLIGHT_WIDTHS
+    block = _moe_block(d, e, k, i, 2, seed=3)
+    x = torch.randn(3000, d, device=cuda, generator=torch.Generator(device=cuda).manual_seed(4)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = block(x)
+        picked, weight = block.gate(x)
+        order, offsets = dispatch(picked, e)
+        y = routed_experts(x.index_select(0, order // k), offsets, block.experts.gate_up_proj,
+                           block.experts.down_proj, weight.reshape(-1)[order])
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(order.numel(), device=cuda)
+        slot = slot.view(-1, k)
+        routed = y.index_select(0, slot[:, 0])
+        for j in range(1, k):
+            routed += y.index_select(0, slot[:, j])
+        sh = block.shared_experts
+        want = routed.to(torch.bfloat16) + F.linear(F.silu(F.linear(x, sh["gate_proj"].weight)) * F.linear(
+            x, sh["up_proj"].weight), sh["down_proj"].weight)
+    assert torch.equal(got, want)
+
+
+KIMI_WIDTHS = (256, 8, 2304, 1024)  # experts, top-k, D, I
+
+
+def test_a_moe_layer_holding_a_share_waits_for_nothing(cuda):
+    """A MoE block at Kimi-Linear's widths holding experts 128-255 of 256,
+    over 3,000 tokens under ``set_sync_debug_mode("error")``: routing over
+    all 256, the held pairs dispatched first, both grouped launches ending
+    at ``offsets[128]`` on the device, the combine of the held pairs and the
+    shared expert, with no wait; its output equals the plain per-expert loop
+    over the held experts within a bf16 unit beyond a thousandth."""
+    e, k, d, i = KIMI_WIDTHS
+    block = _moe_block(d, e, k, i, 1, held=(128, 128), seed=5)
+    x = torch.randn(3000, d, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    before = routed_experts.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = block(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert routed_experts.launches == before + 2
+    with torch.no_grad():
+        picked, weight = block.gate(x)
+        local, held = held_picks(picked, 128, 128)
+        assert 0 < int(held.sum()) < held.numel()
+        routed = torch.zeros(x.shape[0], d, device=cuda)
+        for j in range(k):
+            for ex in range(128):
+                rows = torch.nonzero(held[:, j] & (local[:, j] == ex))[:, 0]
+                if rows.numel():
+                    offsets = torch.tensor([0, rows.numel()], dtype=torch.int32, device=cuda)
+                    routed[rows] += reference_routed_experts(
+                        x[rows], offsets, block.experts.gate_up_proj[ex : ex + 1],
+                        block.experts.down_proj[ex : ex + 1], weight[rows, j].contiguous())
+        sh = block.shared_experts
+        want = routed.to(torch.bfloat16) + sh["down_proj"](F.silu(sh["gate_proj"](x)) * sh["up_proj"](x))
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs() + 1e-3 * want.float().abs().max()).all()
+
+
+def _kda_inputs(lens, decay: str, gen, h=32, d=128):
+    """A right-padded batch at KDA's widths: q, k L2-normalised (q scaled),
+    log alpha of ``decay`` ``strong`` (-exp(A) softplus(f), exp(A) up to 16:
+    a chunk's decays reach -1,000) or ``weak`` (near 0: the state carries
+    across the row), beta in (0, 1)."""
+    b, t = len(lens), max(lens)
+    q = F.normalize(torch.randn(b, t, h, d, device="cuda", generator=gen), dim=-1) * d**-0.5
+    k = F.normalize(torch.randn(b, t, h, d, device="cuda", generator=gen), dim=-1)
+    v = torch.randn(b, t, h, d, device="cuda", generator=gen)
+    if decay == "strong":
+        a = torch.rand(h, device="cuda", generator=gen) * 15 + 1
+        f = torch.randn(b, t, h, d, device="cuda", generator=gen)
+        log_alpha = -a[:, None] * F.softplus(f)
+    else:
+        log_alpha = -torch.rand(b, t, h, d, device="cuda", generator=gen) * 1e-3
+    beta = torch.rand(b, t, h, device="cuda", generator=gen)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return [x.to(torch.bfloat16) for x in (q, k, v)] + [log_alpha, beta, lens_t]
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+def test_kda_kernel_matches_plain(cuda, decay):
+    """The chunked KDA kernel at Kimi-Linear's widths (32 heads of 128) on a
+    right-padded batch of rows of 1, 63, 64, 65, 1,000 and 4,096 tokens
+    against the plain chunked version (float32 throughout) on the same bf16
+    inputs: within a bf16 unit of each value (o rounds to bf16) beyond
+    1e-3 of the largest (the kernel's products take TF32 operands); zeros
+    past each row's length; one launch; the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = _kda_inputs([1, 63, 64, 65, 1000, 4096], decay, gen)
+    before = kda.launches
+    with torch.no_grad():
+        got = kda(*args)
+        assert kda.launches == before + 1
+        want = reference_kda(*args[:5], args[5]).float()
+    got = got.float()
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    err = (got - want).abs()
+    assert (err <= 2.0**-7 * want.abs() + 1e-3 * want.abs().max()).all(), err.max()
+    lens = args[5].tolist()
+    for r, n in enumerate(lens):
+        assert (got[r, n:] == 0).all()
+    assert torch.equal(kda(*args).float(), got)
+
+
+def test_kda_kernel_matches_the_per_token_recurrence(cuda):
+    """The kernel against the recurrence one token at a time (float32) on
+    rows of 200 and 131 tokens with strong decays, within the same
+    tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, log_alpha, beta, lens = _kda_inputs([200, 131], "strong", gen, h=4)
+    with torch.no_grad():
+        got = kda(q, k, v, log_alpha, beta, lens).float()
+        want = recurrent_kda(q, k, v, log_alpha, beta)
+    want[1, 131:] = 0
+    assert ((got - want).abs() <= 2.0**-7 * want.abs() + 1e-3 * want.abs().max()).all()
+
+
+def test_kda_prep_and_gated_norm_kernels_match_plain(cuda):
+    """KDA's two elementwise kernels at Kimi-Linear's widths (32 heads of
+    128) on rows of 200 tokens against their plain versions on the card:
+    q, k and v within one bf16 unit of each value (float32 inside, rounded
+    once), log alpha within 1e-5 relative, the gated norm within one bf16
+    unit beyond 1e-3 of the largest."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, t, h = 3, 200, 32
+    inner = h * 128
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(torch.bfloat16)
+
+    q_lin, k_lin, v_lin, f = (draw(b, t, inner) for _ in range(4))
+    convs = [draw(inner, 1, 4, scale=0.5) for _ in range(3)]
+    a_log = (torch.rand(h, device="cuda", generator=gen) * 15 + 1).log().to(torch.bfloat16)
+    dt_bias = draw(inner)
+    args = (q_lin, k_lin, v_lin, f, convs, a_log, dt_bias, h, 128**-0.5)
+    got = kda_prep(*args)
+    want = reference_kda_prep(*args)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.is_contiguous() and g.shape == (b, t, h, 128)
+        assert ((g.float() - w.float()).abs() <= 2.0**-7 * w.float().abs() + 1e-6).all()
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    o, gate = draw(b, t, h, 128), draw(b, t, inner)
+    weight = 1 + 0.1 * torch.randn(128, device="cuda", generator=gen)
+    got = kda_gated_norm(o, gate, weight, 1e-5).float()
+    want = reference_gated_norm(o, gate, weight, 1e-5).float()
+    assert ((got - want).abs() <= 2.0**-7 * want.abs() + 1e-3 * want.abs().max()).all()
+
+
+SMALL_KIMI = {
+    "architectures": ["KimiLinearForCausalLM"], "vocab_size": 101, "hidden_size": 128, "intermediate_size": 256,
+    "num_hidden_layers": 5, "num_attention_heads": 4, "num_key_value_heads": 4, "kv_lora_rank": 32,
+    "q_lora_rank": None, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8, "v_head_dim": 16, "num_experts": 8,
+    "num_experts_per_token": 2, "num_shared_experts": 1, "moe_intermediate_size": 64, "first_k_dense_replace": 1,
+    "routed_scaling_factor": 2.446, "moe_renormalize": True, "moe_router_activation_func": "sigmoid",
+    "num_expert_group": 1, "topk_group": 1, "rms_norm_eps": 1e-5, "rope_theta": 10000, "num_nextn_predict_layers": 0,
+    "mla_use_nope": True,
+    "linear_attn_config": {"full_attn_layers": [4], "kda_layers": [1, 2, 3, 5], "head_dim": 128, "num_heads": 2,
+                           "short_conv_kernel_size": 4},
+}
+
+
+def _small_kimi(device):
+    cfg = encoder_config_from_hf(SMALL_KIMI, experts_held=(0, 4), param_dtype="bfloat16", compute_dtype="bfloat16")
+    base = init_random_weights(NewsEncoder(cfg), 4).eval()
+    enc = NewsEncoder(cfg).eval()
+    enc.load_state_dict(base.state_dict())
+    return base, enc.to(device)
+
+
+def test_kimi_linear_encoder_on_cuda_matches_cpu(cuda):
+    """A small Kimi Linear encoder (5 layers KDA, KDA, KDA, MLA, KDA, the
+    first dense; KDA 2 heads of 128; 8 experts, top-2, 4 held) in bf16
+    through ``encode_query_and_passage`` on the card and on the CPU: the
+    KDA kernel and the grouped kernels launch on the card, and both tables
+    agree within 2e-2 (bf16 products summed in other orders over five
+    layers, the recurrence's products in TF32)."""
+    rng = np.random.default_rng(5)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 90, size=n)) for n in (3, 17, 9, 70, 1, 40, 120)]
+    tok = HashTokenizer(vocab_size=101, max_length=160)
+    base, enc = _small_kimi(cuda)
+    before = (kda.launches, routed_experts.launches)
+    got = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(32, 64), device=cuda)
+    assert kda.launches > before[0] and routed_experts.launches > before[1]
+    want = encode_query_and_passage(base, tok, texts, QUERY_INSTRUCTION, 4, buckets=(32, 64), device="cpu")
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-2)
+
+
+def test_kimi_linear_encode_on_the_card_waits_for_nothing(cuda):
+    """The small Kimi Linear encoder's bucketed ``encode_query_and_passage``
+    under ``set_sync_debug_mode("error")``, once the kernels are built: KDA's
+    lengths, the MLA, the shared MoE and the pools queue without a wait for
+    the device; the tables equal the call's before it to the bit."""
+    rng = np.random.default_rng(6)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 90, size=n)) for n in rng.integers(1, 100, size=12)]
+    tok = HashTokenizer(vocab_size=101, max_length=128)
+    _, enc = _small_kimi(cuda)
+    want = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(32, 64), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = encode_query_and_passage(enc, tok, texts, QUERY_INSTRUCTION, 4, buckets=(32, 64), device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 SMALL_MOONLIGHT = {

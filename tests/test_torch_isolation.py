@@ -64,7 +64,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_every_kernel_source_ships_with_the_package():
     srcs = {p.stem for p in (PORT_DIR / "ops" / "csrc").glob("*.cu")}
-    assert srcs == {"latent_attention", "geglu", "moe_experts"}
+    assert srcs == {"latent_attention", "geglu", "moe_experts", "kda"}
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "ops/csrc/*.cu" in pyproject and "nrtorch-serve" in pyproject
 

@@ -207,8 +207,10 @@ def test_config_from_hf_errors_match_jax(name):
     if name != "unsupported":
         assert str(got.value) == str(want.value)
         return
-    # The port names every architecture the JAX package names, and DeepSeek-V3's.
+    # The port names every architecture the JAX package names, DeepSeek-V3's and Kimi Linear's.
     head, theirs = str(want.value).split("[")[0], str(want.value).split("[")[1].split("]")[0].split(", ")
     assert str(got.value).startswith(head)
     ours = str(got.value).split("[")[1].split("]")[0].split(", ")
-    assert set(ours) == set(theirs) | {"'DeepseekV3Model'", "'DeepseekV3ForCausalLM'"}
+    assert set(ours) == set(theirs) | {
+        "'DeepseekV3Model'", "'DeepseekV3ForCausalLM'", "'KimiLinearModel'", "'KimiLinearForCausalLM'"
+    }
